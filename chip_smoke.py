@@ -10,12 +10,27 @@ NVIDIA card:
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the bound.
-4. Main path: the full-width serving cascade (ViT-B/16 teacher, ViT-B/32
+3b. Training kernels vs plain: the attention forward's lse/dropout variant
+   (K1') and the backward kernels (K2; K3 + K4 past 512 keys) against their
+   plain versions under the same Philox keep mask, at the TFAM training
+   shapes, with and without dropout, with their times, the plain versions',
+   SDPA's (forward, and forward + backward) and the bounds; two backward
+   calls must agree bit for bit, and the kept fraction at p = 0.1 must sit
+   within 5 sigma of 0.9.
+4. Serving path: the full-width serving cascade (ViT-B/16 teacher, ViT-B/32
    student, TFAM d512/8 heads/4 layers cross-attention, 140 classes) on
    weights drawn from ``--seed``, answering one request of three clips, with
    the kernel launch counts of that request, and checked against the same
    predictor on the eager attention path.
-5. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+5. Training path: ``TFAMTrainer`` at the AK recipe's full width (TFAM d512,
+   8 heads, 4 layers, ff 2048, cross-attention, dropout 0.1, 140 classes;
+   batch 8, AdamW 1e-4, bf16 compute) on synthetic paired embeddings made
+   from ``--seed``: its own train step over one epoch of 40 clips of 60-500
+   frames and one batch with a 700-1000-frame clip, with the kernel launches
+   of each step; one ``validate`` pass; 15 steps on one batch must lower the
+   loss; one dropout-0 step on the flash path against the eager path; step
+   time, clips/s, peak memory and one profiled step.
+6. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -49,6 +64,31 @@ KERNEL_SHAPES = [(3, 8, 384, 384, 64), (3, 8, 384, 256, 64),
                  (3, 8, 384, 299, 64), (3, 8, 2048, 2048, 64)]
 MAIN_SHAPE = KERNEL_SHAPES[0]
 
+# Training kernels: the AK recipe's batch of 8 at a 384-frame bucket (self-
+# and cross-attention, K2), a 1024-frame bucket (K3 + K4), and a ragged case.
+TRAIN_SHAPES = [(8, 8, 384, 384, 64), (8, 8, 384, 256, 64),
+                (8, 8, 1024, 1024, 64), (2, 2, 300, 299, 64)]
+TRAIN_MAIN = {"fwd_lse": TRAIN_SHAPES[0], "bwd_dqkv": TRAIN_SHAPES[0],
+              "bwd_dq": TRAIN_SHAPES[2], "bwd_dkv": TRAIN_SHAPES[2]}
+# lse (elementwise) and gradients (relative to the largest |value| of their
+# batch row): float32 sums in other orders; bf16 rounds P and dS to bf16 at
+# each product (2^-8) after float32 scores that differ in their last bits,
+# and stores bf16
+LSE_TOL = 1e-4
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the device-side kernels of each wrapper (profiler entry names)
+KERNEL_NAMES = {"fwd_lse": ("fma_kernel", "mma_kernel"),
+                "bwd_dqkv": ("dkv_kernel", "dq_reduce_kernel"),
+                "bwd_dq": ("dq_kernel",), "bwd_dkv": ("dkv_kernel",)}
+# ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
+# adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
+OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
+# flash vs eager through the bf16 model, one dropout-0 step: the eager path
+# rounds scores and weights to bf16, the kernels keep them in float32
+# (measured on the H100: loss 5e-7 apart, gradients 3.1e-4 relative L2)
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 2e-2
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -72,10 +112,11 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
+def device_ms(torch, fn, iters: int = 20, names: tuple[str, ...] = ()) -> float:
     """Mean device busy time per call of ``fn``: the durations of every
-    kernel and copy it ran on the card, from a ``torch.profiler`` trace
-    (CUPTI) over ``iters`` calls after one warm-up call."""
+    kernel and copy it ran on the card (only those whose name contains one
+    of ``names``, when given), from a ``torch.profiler`` trace (CUPTI) over
+    ``iters`` calls after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -84,8 +125,9 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(_device_us(e) for e in prof.key_averages())
-    check(busy_us > 0, "the profiler recorded no device time")
+    busy_us = sum(_device_us(e) for e in prof.key_averages()
+                  if not names or any(n in e.key for n in names))
+    check(busy_us > 0, f"the profiler recorded no device time {names or ''}")
     return busy_us / iters / 1e3
 
 
@@ -100,8 +142,8 @@ def _device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def profile_request(torch, run, smi: str) -> dict:
-    """One request under ``torch.profiler`` (host and card): wall time,
+def profile_request(torch, run, smi: str, label: str = "profile") -> dict:
+    """One request (or step) under ``torch.profiler`` (host and card): wall time,
     device busy time and idle share, and the largest device and host
     entries. The profiler's own host overhead is inside this wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -122,7 +164,7 @@ def profile_request(torch, run, smi: str) -> dict:
         "top_host_self_ms": [[e.key[:70], e.self_cpu_time_total / 1e3, e.count]
                              for e in top_host],
     }
-    print("[profile] " + json.dumps(out) + f" [{smi}]")
+    print(f"[{label}] " + json.dumps(out) + f" [{smi}]")
     return out
 
 
@@ -199,6 +241,136 @@ def phase_kernels(torch, seed: int, smi: str) -> dict:
     return main
 
 
+def _rel(a, b) -> float:
+    """Largest |a - b| over the largest |b| (at least 1) of the same batch
+    row: a fully masked row's gradients (P = 1 on each of its keys) dwarf
+    the other rows'."""
+    diff = (a.float() - b.float()).abs().flatten(1).amax(1)
+    return (diff / b.float().abs().flatten(1).amax(1).clamp_min(1.0)).max().item()
+
+
+def _lse_err(a, b) -> float:
+    """Elementwise |a - b| / max(|b|, 1): a fully masked row's lse is -1e9."""
+    return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+
+
+def _bound(kind: str, dtype_name: str, shape, item: int, rate: float) -> tuple[float, str]:
+    """Least time for the work: every input read once, every output written
+    once, at 3.35 TB/s; or the products at the type's peak rate."""
+    b, h, tq, tk, d = shape
+    qo, kv = b * h * tq * d * item, b * h * tk * d * item
+    rows = 4 * b * h * tq  # one float32 per query row (lse, delta)
+    small = b * tk + (4 * b * h if rate else 0)  # mask, seeds
+    moved = {"fwd_lse": 2 * qo + 2 * kv + rows,           # q, k, v -> o, lse
+             "bwd_dqkv": 3 * qo + 4 * kv + 2 * rows,       # q, k, v, dO, lse, D -> dq, dk, dv
+             "bwd_dq": 3 * qo + 2 * kv + 2 * rows,         # ... -> dq
+             "bwd_dkv": 2 * qo + 4 * kv + 2 * rows}[kind] + small
+    ops = OPS_PER_ELEMENT[kind] * b * h * tq * tk * d
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_training_kernels(torch, seed: int, smi: str) -> dict:
+    """K1' and K2 / K3 + K4 against their plain versions, timed; returns the
+    bf16 p = 0.1 rows at each kernel's main-path shape."""
+    import torch.nn.functional as F
+
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    main = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for shape in TRAIN_SHAPES:
+            b, h, tq, tk, d = shape
+            q = torch.randn(b, h, tq, d, device="cuda", generator=g).to(dtype)
+            k = torch.randn(b, h, tk, d, device="cuda", generator=g).to(dtype)
+            v = torch.randn(b, h, tk, d, device="cuda", generator=g).to(dtype)
+            mask = torch.rand(b, tk, device="cuda", generator=g) < 0.25
+            mask[0] = True  # one fully masked row
+            # dO as the merge of heads hands it back: (B, Tq, H, D) storage
+            grad = torch.randn(b, tq, h, d, device="cuda", generator=g).to(dtype).transpose(1, 2)
+            bias = torch.where(mask, -1e9, 0.0)[:, None, None, :].to(dtype)
+            kinds = ["bwd_dqkv"] if tk <= fa.SINGLE_PASS_MAX_TK else ["bwd_dq", "bwd_dkv"]
+            for rate in (0.0, 0.1):
+                seeds = fa.expand_seed(seed + tq + tk, b, h, "cuda") if rate else None
+                out, lse = fa.forward_lse(q, k, v, mask, seeds, rate)
+                ref, ref_lse = fa.flash_attention_reference(q, k, v, mask, rate, seed=seeds,
+                                                            return_lse=True)
+                grads = fa.backward_kernels(q, k, v, mask, seeds, rate, out, lse, grad)
+                again = fa.backward_kernels(q, k, v, mask, seeds, rate, out, lse, grad)
+                ref_grads = fa.flash_attention_backward_reference(
+                    q, k, v, mask, out, lse, grad, rate, seed=seeds)
+                torch.cuda.synchronize()
+                case = f"{dtype_name} {shape} p={rate}"
+                out_err = (out.float() - ref.float()).abs().max().item()
+                check(out_err <= KERNEL_TOL[dtype_name],
+                      f"K1' output {case}: max|d| {out_err} > {KERNEL_TOL[dtype_name]}")
+                lse_err = _lse_err(lse, ref_lse)
+                check(lse_err <= LSE_TOL, f"K1' lse {case}: {lse_err} > {LSE_TOL}")
+                grad_err = {}
+                for name, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+                    grad_err[name] = _rel(a, r)
+                    check(grad_err[name] <= GRAD_TOL[dtype_name],
+                          f"backward {name} {case}: {grad_err[name]} > {GRAD_TOL[dtype_name]}")
+                check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                      f"backward {case}: two calls differ")
+                kept = None
+                if rate:
+                    keep = fa.dropout_keep_mask(seeds, tq, tk, rate)
+                    kept = keep.float().mean().item()
+                    sigma = (rate * (1 - rate) / keep.numel()) ** 0.5
+                    check(abs(kept - (1 - rate)) <= 5 * sigma,
+                          f"kept fraction {kept} at p={rate} {case}")
+
+                item = dtype.itemsize
+                fwd = lambda: fa.forward_lse(q, k, v, mask, seeds, rate)
+                plain_fwd = lambda: fa.flash_attention_reference(
+                    q, k, v, mask, rate, seed=seeds, return_lse=True)
+                sdpa_fwd = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias, dropout_p=rate)
+                plain_bwd = lambda: fa.flash_attention_backward_reference(
+                    q, k, v, mask, out, lse, grad, rate, seed=seeds)
+                qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+                def sdpa_train():
+                    o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=bias,
+                                                       dropout_p=rate)
+                    o.backward(grad)
+
+                # SDPA with dropout leaves no device events in the profiler's
+                # trace, so the yardstick is timed with CUDA events
+                plain_bwd_ms = device_ms(torch, plain_bwd, iters=10)
+                sdpa_train_ms = cuda_ms(torch, sdpa_train, iters=10)
+                timed = [("fwd_lse", fwd, device_ms(torch, plain_fwd, iters=10),
+                          cuda_ms(torch, sdpa_fwd))]
+                bwd = lambda: fa.backward_kernels(q, k, v, mask, seeds, rate, out, lse, grad)
+                # K3 and K4 run in one backward; the profiler's kernel names
+                # split their times
+                timed += [(kind, bwd, plain_bwd_ms, sdpa_train_ms) for kind in kinds]
+                for kind, call, plain_ms, library_ms in timed:
+                    bound_ms, bound_by = _bound(kind, dtype_name, shape, item, rate)
+                    row = {
+                        "kernel": kind, "dtype": dtype_name, "shape": list(shape),
+                        "dropout": rate, "ms": device_ms(torch, call, iters=10,
+                                                         names=KERNEL_NAMES[kind]),
+                        "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "max_abs_err": out_err if kind == "fwd_lse" else max(
+                            (a.float() - r.float()).abs().max().item()
+                            for a, r in zip(grads, ref_grads)),
+                        "max_abs_ref": max(r.float().abs().max().item() for r in ref_grads),
+                        "lse_rel_err": lse_err, "grad_rel_err": grad_err,
+                        "kept_fraction": kept,
+                    }
+                    print("[train-kernel] " + json.dumps(row) + f" [{smi}]")
+                    if dtype_name == "bfloat16" and rate and shape == TRAIN_MAIN[kind]:
+                        main[kind] = row
+    check(set(main) == set(TRAIN_MAIN), f"main-shape rows missing: {sorted(main)}")
+    return main
+
+
 def _predictor_states(torch, seed: int):
     from vimoclip_tpu_torch.config import TFAMModelConfig
     from vimoclip_tpu_torch.models import init_parameters_
@@ -223,7 +395,10 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
 
     import numpy as np
 
-    from vimoclip_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        reset_launch_counts,
+    )
     from vimoclip_tpu_torch.ops.preprocess import frame_diff
     from vimoclip_tpu_torch.serving import ViMoCLIPPredictor
 
@@ -249,23 +424,25 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
     cold_ms = (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = pred.predict_videos(videos)
     torch.cuda.synchronize()
     request_ms = (time.perf_counter() - t0) * 1e3
-    launches = flash_attention.launches
+    counts = dict(flash_attention.launches)
+    launches = counts["fwd"]
     peak_bytes = torch.cuda.max_memory_allocated()
 
     check(launches == 8, f"flash_attention launched {launches} times, expected 8 "
                          "(4 layers x self + cross)")
+    check(sum(counts.values()) == launches, f"serving launched other kernels: {counts}")
     probs = np.stack([p.probabilities for p in out])
     check(probs.shape == (3, 140), f"probabilities shape {probs.shape}")
     check(bool(np.isfinite(probs).all()), "non-finite probabilities")
     check(bool(((probs >= 0) & (probs <= 1)).all()), "probabilities outside [0, 1]")
 
     eager = predictor(dataclasses.replace(tfam_cfg, attention_impl="xla"))
-    before = flash_attention.launches
+    before = dict(flash_attention.launches)
     probs_xla = np.stack([p.probabilities for p in eager.predict_videos(videos)])
     check(flash_attention.launches == before, "the eager predictor launched the kernel")
     path_err = float(np.abs(probs - probs_xla).max())
@@ -291,6 +468,166 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
         "top1": [p.top_classes[0][0] for p in out],
     }
     print("[main] " + json.dumps(stats) + f" [{smi}]")
+    return stats
+
+
+def _clips(rng, lengths, d: int, classes: int, tag: str) -> list[dict]:
+    """Synthetic paired embeddings: T RGB and T - 1 motion frames around a
+    per-clip centre, 1-3 positive labels."""
+    import numpy as np
+
+    items = []
+    for i, t in enumerate(lengths):
+        labels = np.zeros(classes, np.float32)
+        labels[rng.choice(classes, int(rng.integers(1, 4)), replace=False)] = 1.0
+        centre = rng.standard_normal(d).astype(np.float32)
+        items.append({
+            "video_id": f"{tag}{i:03d}",
+            "embeddings": (0.05 * (centre + rng.standard_normal((t, d)))).astype(np.float32),
+            "motion_embeddings": (0.05 * rng.standard_normal((t - 1, d))).astype(np.float32),
+            "labels": labels,
+        })
+    return items
+
+
+def _expected_launches(batch, layers: int, single_max: int) -> dict:
+    """Per train step: one K1' per attention site; K2 where the site's keys
+    fit one 512-key tile, else K3 + K4. Self-attention keys are the RGB
+    frames, cross-attention keys the motion frames."""
+    out = {"fwd": 0, "fwd_lse": 2 * layers, "bwd_dqkv": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    for key in ("embeddings", "motion_embeddings"):
+        if batch[key].shape[1] <= single_max:
+            out["bwd_dqkv"] += layers
+        else:
+            out["bwd_dq"] += layers
+            out["bwd_dkv"] += layers
+    return out
+
+
+def phase_training(torch, seed: int, smi: str) -> dict:
+    import dataclasses
+
+    import numpy as np
+
+    from vimoclip_tpu_torch import losses
+    from vimoclip_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        LoggingConfig,
+        TFAMModelConfig,
+        TrainingConfig,
+    )
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.models.tfam import TFAM
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    d, classes, layers = 512, 140, 4
+    # configs/example_ak_frame_diff.yaml as dataclasses, on the flash path
+    cfg = ExperimentConfig(
+        training=TrainingConfig(seed=seed, lr=1e-4, weight_decay=0.1, epochs=30,
+                                batch_size=8, num_workers=2, device="cuda",
+                                half_precision=True),
+        logging=LoggingConfig(),
+        data=DataConfig(num_classes=classes, length_bucket=128, max_seq_len=2048),
+        model=TFAMModelConfig(d_model=d, nhead=8, num_layers=layers, dim_feedforward=2048,
+                              use_cross_attention=True, dropout=0.1, mlp_dropout=0.1,
+                              attention_impl="flash"),
+    )
+    rng = np.random.default_rng(seed)
+    train_items = _clips(rng, rng.integers(60, 501, 40), d, classes, "train")
+    val_items = _clips(rng, rng.integers(60, 501, 16), d, classes, "val")
+    long_lengths = rng.integers(60, 501, 8)
+    long_lengths[3] = rng.integers(700, 1001)
+    long_items = _clips(rng, long_lengths, d, classes, "long")
+    run_dir = HERE / "build" / "chip_smoke_train"
+    trainer = TFAMTrainer(cfg, log_dir=str(run_dir / "logs"),
+                          checkpoint_dir=str(run_dir / "checkpoints"),
+                          train_dataset=train_items, val_dataset=val_items)
+    trainer.train_loader.set_epoch(0)
+    batches = list(trainer.train_loader) + [trainer.collate(long_items)]
+    check(len(batches) == 6, f"{len(batches)} batches")
+
+    # the main path: the trainer's own step over the epoch and the long batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    step_losses, per_step = [], []
+    for batch in batches:
+        before = dict(fa.flash_attention.launches)
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        got = {k: fa.flash_attention.launches[k] - before[k] for k in fa.LAUNCH_KINDS}
+        want = _expected_launches(batch, layers, fa.SINGLE_PASS_MAX_TK)
+        check(got == want, f"step launches {got}, expected {want} "
+                           f"(T {batch['embeddings'].shape[1]}/{batch['motion_embeddings'].shape[1]})")
+        step_losses.append(float(loss))
+        per_step.append(got)
+    launches = dict(fa.flash_attention.launches)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(step_losses)), f"non-finite loss {step_losses}")
+    check(any(s["bwd_dq"] for s in per_step) and any(s["bwd_dqkv"] for s in per_step),
+          "the long batch did not reach K3/K4 or the others K2")
+
+    # validate: the eval path runs K1 only
+    fa.reset_launch_counts()
+    val_loss, val_map = trainer.validate()
+    val_counts = dict(fa.flash_attention.launches)
+    n_val = len(trainer.val_loader)
+    check(val_counts == {**dict.fromkeys(fa.LAUNCH_KINDS, 0), "fwd": 2 * layers * n_val},
+          f"validate launched {val_counts}")
+    check(np.isfinite(val_loss) and 0.0 <= val_map <= 1.0, f"validate {val_loss} {val_map}")
+
+    # 15 steps on one batch lower its loss; the later ones time a warm step
+    fixed = to_device(batches[0], trainer.device)
+    fit, times = [], []
+    for i in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(fixed)
+        fit.append(float(loss))
+        if i >= 5:
+            times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(fit)), f"non-finite loss {fit}")
+    check(np.mean(fit[-3:]) < fit[0], f"15 steps on one batch did not lower the loss: {fit}")
+    step_ms = float(np.mean(times)) * 1e3
+    prof = profile_request(torch, lambda: trainer.train_step(fixed), smi, label="train-profile")
+
+    # flash against eager: one dropout-0 step from the same weights
+    state = trainer.model.state_dict()
+
+    def loss_and_grads(impl):
+        model_cfg = dataclasses.replace(cfg.model, dropout=0.0, mlp_dropout=0.0,
+                                        attention_impl=impl)
+        model = TFAM(model_cfg, num_classes=classes, dtype=torch.bfloat16).cuda()
+        model.load_state_dict(state)
+        model.train()
+        logits = model(fixed["embeddings"], fixed["motion_embeddings"],
+                       fixed["mask_rgb"], fixed["mask_motion"])
+        loss = losses.bce_with_logits(logits, fixed["labels"])
+        loss.backward()
+        grads = [p.grad.float().flatten() for p in model.parameters() if p.grad is not None]
+        return loss.item(), torch.cat(grads)
+
+    loss_f, grads_f = loss_and_grads("flash")
+    loss_x, grads_x = loss_and_grads("xla")
+    grad_rel_l2 = ((grads_f - grads_x).norm() / grads_x.norm()).item()
+    check(abs(loss_f - loss_x) <= TRAIN_LOSS_TOL,
+          f"flash vs eager loss {loss_f} vs {loss_x} > {TRAIN_LOSS_TOL}")
+    check(grad_rel_l2 <= TRAIN_GRAD_TOL,
+          f"flash vs eager gradients: relative L2 {grad_rel_l2} > {TRAIN_GRAD_TOL}")
+
+    stats = {
+        "step_losses": step_losses, "fit_losses": fit, "launches": launches,
+        "launches_per_step": per_step, "val_loss": val_loss, "val_map": val_map,
+        "val_launches": val_counts, "warm_step_ms": step_ms,
+        "clips_per_s": 8 / (step_ms / 1e3), "peak_mem_bytes": peak_bytes,
+        "flash_vs_eager_loss": [loss_f, loss_x], "flash_vs_eager_grad_rel_l2": grad_rel_l2,
+        "device_idle_share": prof["device_idle_share"],
+        "lengths": [[int(b["embeddings"].shape[1]), int(b["motion_embeddings"].shape[1])]
+                    for b in batches],
+    }
+    print("[train] " + json.dumps(stats) + f" [{smi}]")
     return stats
 
 
@@ -321,15 +658,32 @@ def main() -> int:
     name, count, smi = phase_device(torch)
     phase_build()
     k1 = phase_kernels(torch, args.seed, smi)
+    train_rows = phase_training_kernels(torch, args.seed, smi)
     stats = phase_main_path(torch, args.seed, smi)
+    train = phase_training(torch, args.seed, smi)
+    fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
+    bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
+    tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
     kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "vimoclip_tpu/ops/pallas/flash_attention.py:113",
+        "name": "flash_attention_fwd", "route": "cuda", "source": fwd_src,
+        "replaces": f"{tpu}:113",
         "launches": stats["flash_launches"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
     }]
+    for kind, name_, source, line in (
+            ("fwd_lse", "flash_attention_fwd_lse", fwd_src, 113),
+            ("bwd_dqkv", "flash_attention_bwd_dqkv", bwd_src, 282),
+            ("bwd_dq", "flash_attention_bwd_dq", bwd_src, 214),
+            ("bwd_dkv", "flash_attention_bwd_dkv", bwd_src, 244)):
+        row = train_rows[kind]
+        check(train["launches"][kind] > 0, f"{kind} never launched on the training path")
+        kernels.append({
+            "name": name_, "route": "cuda", "source": source, "replaces": f"{tpu}:{line}",
+            "launches": train["launches"][kind], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

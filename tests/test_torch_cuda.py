@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Run on a machine with an NVIDIA H100:  python -m pytest -m cuda tests/test_torch_cuda.py
 Without a card every test here skips (decided inside the fixture)."""
@@ -9,8 +9,11 @@ import torch
 
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention
 from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+    expand_seed,
     flash_attention,
+    flash_attention_backward_reference,
     flash_attention_reference,
+    forward_lse,
 )
 
 pytestmark = pytest.mark.cuda
@@ -19,6 +22,11 @@ pytestmark = pytest.mark.cuda
 # bf16: p is rounded to bf16 relative to the running max in the kernel and
 # to the final max in the reference, and the output is bf16 (rel. 2^-8).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# gradients, relative to the largest |gradient| of their batch row: f32 sums
+# in other orders;
+# bf16 rounds dS and P at each product (2^-8) after scores that differ in
+# their last float32 bits, and stores bf16
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture(scope="module")
@@ -40,6 +48,13 @@ def _inputs(b, h, tq, tk, d, dtype, device, seed=0, masked_rows=(0,)):
     return q, k, v, mask.to(device)
 
 
+def _rel(a, b):
+    """Largest |a - b| over the largest |b| (at least 1) of the same batch
+    row: a fully masked row's gradients dwarf the other rows'."""
+    diff = (a.float() - b.float()).abs().flatten(1).amax(1)
+    return (diff / b.float().abs().flatten(1).amax(1).clamp_min(1.0)).max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("shape", [
     (3, 8, 384, 384, 64), (3, 8, 384, 256, 64), (3, 8, 384, 299, 64),
@@ -48,10 +63,10 @@ def _inputs(b, h, tq, tk, d, dtype, device, seed=0, masked_rows=(0,)):
 ], ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_reference(cuda, shape, dtype):
     q, k, v, mask = _inputs(*shape, dtype, cuda)
-    before = flash_attention.launches
+    before = flash_attention.launches["fwd"]
     out = flash_attention(q, k, v, key_padding_mask=mask)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert flash_attention.launches["fwd"] == before + 1
     ref = flash_attention_reference(q, k, v, mask)
     assert out.dtype == dtype and out.shape == ref.shape
     err = (out.float() - ref.float()).abs().max().item()
@@ -73,13 +88,101 @@ def test_kernel_reads_strided_views(cuda, dtype, offset):
 
 def test_kernel_refusals(cuda):
     q = torch.randn(1, 2, 8, 16, device=cuda)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())
     big = torch.randn(1, 1, 8, 160, device=cuda)
     with pytest.raises(ValueError):
         flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_dropout_forward_runs_without_grad(cuda, dtype):
+    # a dropout forward outside autograd is K1 with its fused dropout
+    q, k, v, mask = _inputs(2, 2, 50, 70, 16, dtype, cuda)
+    before = dict(flash_attention.launches)
+    out = flash_attention(q, k, v, mask, dropout_rate=0.1, dropout_seed=1)
+    assert flash_attention.launches["fwd"] == before["fwd"] + 1
+    assert flash_attention.launches["fwd_lse"] == before["fwd_lse"]
+    ref = flash_attention_reference(q, k, v, mask, 0.1, seed=expand_seed(1, 2, 2, cuda))
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+def _train_call(q, k, v, mask, rate, seed, grad_out):
+    """K1' + its backward through the autograd Function, and the plain
+    versions on the same inputs and Philox mask."""
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(qr, kr, vr, mask, dropout_rate=rate,
+                          dropout_seed=seed if rate else None)
+    out.backward(grad_out)
+    seeds = expand_seed(seed, q.shape[0], q.shape[1], q.device) if rate else None
+    ref, lse = flash_attention_reference(q, k, v, mask, rate, seed=seeds, return_lse=True)
+    grads = flash_attention_backward_reference(q, k, v, mask, ref, lse, grad_out, rate,
+                                               seed=seeds)
+    return (out, qr.grad, kr.grad, vr.grad), (ref, *grads)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [
+    (8, 8, 384, 384, 64), (8, 8, 384, 256, 64), (8, 8, 1024, 1024, 64),
+    (2, 2, 300, 299, 64), (2, 2, 130, 77, 16), (2, 2, 70, 600, 128),
+], ids=lambda s: "x".join(map(str, s)))
+def test_training_kernels_match_plain(cuda, shape, dtype, rate):
+    b, h, tq, tk, d = shape
+    q, k, v, mask = _inputs(*shape, dtype, cuda, seed=tq + tk)
+    g = torch.randn(b, tq, h, d, device=cuda).to(dtype).transpose(1, 2)  # as from a merge of heads
+    before = dict(flash_attention.launches)
+    got, ref = _train_call(q, k, v, mask, rate, 1234, g)
+    seeds = expand_seed(1234, b, h, cuda) if rate else None
+    _, lse_ref = flash_attention_reference(q, k, v, mask, rate, seed=seeds, return_lse=True)
+    _, lse = forward_lse(q, k, v, mask, seeds, rate)
+    # elementwise: a fully masked row's lse is -1e9
+    assert ((lse - lse_ref).abs() / lse_ref.abs().clamp_min(1.0)).max().item() <= 1e-4
+    torch.cuda.synchronize()
+    after = flash_attention.launches
+    assert after["fwd_lse"] == before["fwd_lse"] + 2 and after["fwd"] == before["fwd"]
+    single = tk <= 512
+    assert after["bwd_dqkv"] == before["bwd_dqkv"] + single
+    assert after["bwd_dq"] == before["bwd_dq"] + (not single)
+    assert after["bwd_dkv"] == before["bwd_dkv"] + (not single)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
+    for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert np.isfinite(a.float().cpu().numpy()).all(), name
+        assert _rel(a, r) <= GRAD_TOL[dtype], (name, _rel(a, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_training_kernels_read_strided_views(cuda, dtype, offset):
+    b, t, h, d = 2, 100, 4, 32
+    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).to(dtype)[..., offset:]
+    q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
+    g = torch.randn(b, h, t, d, device=cuda).to(dtype)
+    got, ref = _train_call(q, k, v, None, 0.1, 5, g)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
+    for a, r in zip(got[1:], ref[1:]):
+        assert _rel(a, r) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("tk", [384, 1024], ids=["dqkv", "dq+dkv"])
+def test_backward_is_deterministic(cuda, tk):
+    q, k, v, mask = _inputs(4, 8, 384, tk, 64, torch.bfloat16, cuda)
+    g = torch.randn(4, 8, 384, 64, device=cuda).to(torch.bfloat16)
+    first, _ = _train_call(q, k, v, mask, 0.1, 9, g)
+    second, _ = _train_call(q, k, v, mask, 0.1, 9, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_kept_fraction(cuda):
+    q, k, v, _ = _inputs(4, 8, 256, 256, 16, torch.float32, cuda)
+    seeds = expand_seed(3, 4, 8, cuda)
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import dropout_keep_mask
+
+    frac = dropout_keep_mask(seeds, 256, 256, 0.1).float().mean().item()
+    n = 4 * 8 * 256 * 256
+    assert abs(frac - 0.9) <= 5 * (0.9 * 0.1 / n) ** 0.5
 
 
 def test_mha_flash_matches_eager_on_card(cuda):

@@ -79,7 +79,7 @@ def test_predict_videos_matches_jax(weights, batch_invariant):
     videos = _videos()
     ref = _jax_predictor(weights, batch_invariant=batch_invariant).predict_videos(videos)
     port = _port_predictor(weights, batch_invariant=batch_invariant)
-    before = flash_attention.launches
+    before = dict(flash_attention.launches)
     got = port.predict_videos(videos, top_k=3)
     assert flash_attention.launches == before  # CPU: the plain version
     for g, r in zip(got, ref):

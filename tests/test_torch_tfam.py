@@ -100,8 +100,16 @@ def test_bf16_trunk_close_to_f32():
 def test_training_and_ring_refused():
     cfg = TFAMModelConfig(**_base("cross", False, False))
     model = TFAM(cfg, num_classes=C)  # a fresh module is in train() mode
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(*(torch.from_numpy(a) for a in _inputs(0)))
+    args = [torch.from_numpy(a) for a in _inputs(0)]
+    # train mode with dropout runs given a generator, and raises without one
+    with pytest.raises(ValueError, match="generator"):
+        model(*args)
+    gen = lambda: torch.Generator().manual_seed(5)
+    out = model(*args, generator=gen())
+    assert out.shape == (3, C) and torch.isfinite(out).all()
+    assert torch.equal(out, model(*args, generator=gen()))  # same stream, same masks
+    with torch.no_grad():
+        assert not torch.equal(out, model.eval()(*args))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         TFAM(dataclasses.replace(cfg, attention_impl="ring"), num_classes=C)
     # dropout 0 in train mode is the same function as eval: allowed

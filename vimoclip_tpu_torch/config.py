@@ -7,9 +7,9 @@ packages. The fields that exist for the TPU or for XLA are parsed, never
 dropped:
 
 - ``training.device: tpu`` maps to ``cuda``; anything but tpu/cuda/cpu raises.
-- ``training.dropout_rng_impl`` is kept as read. It names a JAX bit
-  generator; the port's dropout (training slice) will draw from
-  ``torch.Generator`` streams, so the value is recorded, not acted on.
+- ``training.dropout_rng_impl`` is kept as read and not acted on. It names
+  a JAX bit generator; the port's dropout draws from ``torch.Generator``
+  streams (``prng.KeyChain``) and the kernels' Philox bits whatever it says.
 - ``training.parallelism`` / the flat ``*_parallel`` keys fill the same
   fields. Anything beyond one device (seq/pipe/model > 1, data > 1) raises
   and names the multi-GPU slice.
@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+from datetime import datetime
 from typing import Any
 
 _log = logging.getLogger(__name__)
@@ -154,7 +156,9 @@ _PARALLELISM_KEYS = {
 }
 
 
-def _check_training(t: TrainingConfig, path: str) -> TrainingConfig:
+def check_training_config(t: TrainingConfig, path: str = "training") -> TrainingConfig:
+    """Map ``tpu`` to ``cuda``; refuse devices and parallelism the port
+    does not run, naming their slice."""
     device = str(t.device).lower()
     if device == "tpu":
         _log.info("%s: training.device 'tpu' maps to 'cuda' in the port", path)
@@ -231,7 +235,7 @@ def load_experiment_config(path: str) -> ExperimentConfig:
     )
     if unknown_sections:
         _log.warning("%s: ignoring sections %s", path, unknown_sections)
-    training = _check_training(
+    training = check_training_config(
         _build(TrainingConfig, training_section, "training"), path
     )
     return ExperimentConfig(
@@ -243,3 +247,15 @@ def load_experiment_config(path: str) -> ExperimentConfig:
         ),
         config_path=path,
     )
+
+
+def derive_run_dirs(config: ExperimentConfig, run_name: str | None = None) -> tuple[str, str]:
+    """Timestamped run dirs ``<config_name>/{logs,checkpoints}/<run_name>``
+    (reference TFAM/train_and_eval.py:366-371), created."""
+    run_name = run_name or datetime.now().strftime("%Y%m%d-%H%M%S")
+    base = config.config_path.split(".yaml")[0] if config.config_path else "run"
+    log_dir = os.path.join(base, config.logging.log_dir, run_name)
+    ckpt_dir = os.path.join(base, config.logging.checkpoint_dir, run_name)
+    os.makedirs(log_dir, exist_ok=True)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    return log_dir, ckpt_dir

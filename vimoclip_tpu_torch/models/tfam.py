@@ -1,5 +1,5 @@
 """TFAM — Temporal Fusion of Appearance and Motion (the port's copy of
-``vimoclip_tpu/models/tfam.py``), inference only.
+``vimoclip_tpu/models/tfam.py``).
 
 - ``AttentionLayer``: post-norm block — self-attn -> +residual -> LN,
   cross-attn -> +residual -> LN, FFN -> +residual -> LN (eps 1e-5).
@@ -18,8 +18,15 @@ reference every layer owns ``cross_attn``/``norm_cross`` and the model owns
 ``projection_layer`` whatever the fusion mode, so reference ``best_model.pth``
 files load with ``strict=True``.
 
-Masks use the collate convention True = real frame. Training (dropout > 0 in
-``train()`` mode) raises: it comes with the TFAM training slice.
+Masks use the collate convention True = real frame.
+
+In ``train()`` mode with dropout > 0 every random draw comes from the
+``generator`` argument, which is then required: per layer the attention
+dropout of both attention blocks, and five 8-bit-mask dropouts
+(``ops/dropout.py``) as in JAX: on the two attention outputs, after the FFN
+activation, after the second FFN linear and once more on the residual branch
+(the reference's doubled FFN dropout, QUIRKS #13); and a Bernoulli dropout
+(``mlp_dropout``) in the head.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from vimoclip_tpu_torch.config import TFAMModelConfig, check_model_config
 from vimoclip_tpu_torch.models.clip_vit import layer_norm
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
+from vimoclip_tpu_torch.ops.dropout import Dropout, bernoulli_dropout
 
 _LN_EPS = 1e-5
 
@@ -76,22 +84,25 @@ class AttentionLayer(nn.Module):
         self.norm_cross = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.ffn = nn.Sequential(
             nn.Linear(d_model, dim_feedforward), _activation(activation),
-            nn.Dropout(dropout), nn.Linear(dim_feedforward, d_model),
-            nn.Dropout(dropout),
+            Dropout(dropout), nn.Linear(dim_feedforward, d_model),
+            Dropout(dropout),
         )
         self.norm_ffn = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.drop = Dropout(dropout)
 
     def forward(self, x, cross_src=None, src_key_padding_mask=None,
-                cross_key_padding_mask=None):
-        x = layer_norm(x + self.self_attn(x, key_padding_mask=src_key_padding_mask),
-                       self.norm_self)
+                cross_key_padding_mask=None, generator=None):
+        g = generator
+        attn = self.self_attn(x, key_padding_mask=src_key_padding_mask, generator=g)
+        x = layer_norm(x + self.drop(attn, g), self.norm_self)
         if cross_src is not None:
             attn = self.cross_attn(x, kv=cross_src,
-                                   key_padding_mask=cross_key_padding_mask)
-            x = layer_norm(x + attn, self.norm_cross)
-        h = self.ffn[1](dense(x, self.ffn[0], self.dtype))
-        h = dense(h, self.ffn[3], self.dtype)
-        return layer_norm(x + h, self.norm_ffn)
+                                   key_padding_mask=cross_key_padding_mask, generator=g)
+            x = layer_norm(x + self.drop(attn, g), self.norm_cross)
+        h = self.ffn[2](self.ffn[1](dense(x, self.ffn[0], self.dtype)), g)
+        h = self.ffn[4](dense(h, self.ffn[3], self.dtype), g)
+        # the reference drops the FFN branch twice (QUIRKS #13)
+        return layer_norm(x + self.ffn[4](h, g), self.norm_ffn)
 
 
 class TFAM(nn.Module):
@@ -117,15 +128,17 @@ class TFAM(nn.Module):
             nn.Dropout(cfg.mlp_dropout), nn.Linear(d // 2, num_classes),
         )
 
-    def forward(self, rgb_emb, motion_emb, mask_rgb=None, mask_flow=None):
+    def forward(self, rgb_emb, motion_emb, mask_rgb=None, mask_flow=None,
+                generator: torch.Generator | None = None):
         """rgb_emb (B, T1, d), motion_emb (B, T2, d); masks (B, T) bool,
-        True = real frame. Returns (B, num_classes) float32 logits."""
+        True = real frame. Returns (B, num_classes) float32 logits.
+        ``generator``: the source of every dropout draw, required in
+        ``train()`` mode when a dropout rate is above 0."""
         cfg = self.config
-        if self.training and (cfg.dropout > 0.0 or cfg.mlp_dropout > 0.0):
-            raise NotImplementedError(
-                "TFAM in train() mode with dropout > 0 is training work: it "
-                "comes with the TFAM training slice of the port; call .eval()"
-            )
+        if (self.training and (cfg.dropout > 0.0 or cfg.mlp_dropout > 0.0)
+                and generator is None):
+            raise ValueError("TFAM in train() mode with dropout > 0 needs a generator")
+        g = generator
         attn_rgb = None if mask_rgb is None else ~mask_rgb
         attn_flow = None if mask_flow is None else ~mask_flow
 
@@ -149,18 +162,18 @@ class TFAM(nn.Module):
             x, pool_mask = rgb_emb, mask_rgb
             pool_limits = [(x.shape[1], batch_max(mask_rgb, x.shape[1]))]
             for layer in self.layers:
-                x = layer(x, src_key_padding_mask=attn_rgb)
+                x = layer(x, src_key_padding_mask=attn_rgb, generator=g)
         elif cfg.use_only_flow:
             x, pool_mask = motion_emb, mask_flow
             pool_limits = [(x.shape[1], batch_max(mask_flow, x.shape[1]))]
             for layer in self.layers:
-                x = layer(x, src_key_padding_mask=attn_flow)
+                x = layer(x, src_key_padding_mask=attn_flow, generator=g)
         elif cfg.use_cross_attention:
             x, pool_mask = rgb_emb, mask_rgb
             pool_limits = [(x.shape[1], batch_max(mask_rgb, x.shape[1]))]
             for layer in self.layers:
                 x = layer(x, cross_src=motion_emb, src_key_padding_mask=attn_rgb,
-                          cross_key_padding_mask=attn_flow)
+                          cross_key_padding_mask=attn_flow, generator=g)
         else:
             # RGB drops its last frame to align with the T-1 motion frames;
             # positions >= batchmax-1 leave the key set under bucket padding
@@ -188,7 +201,7 @@ class TFAM(nn.Module):
                 raise ValueError(f"concat_dim must be 1 or -1, got {cfg.concat_dim}")
             pool_mask = None if attn_mask is None else ~attn_mask
             for layer in self.layers:
-                x = layer(x, src_key_padding_mask=attn_mask)
+                x = layer(x, src_key_padding_mask=attn_mask, generator=g)
 
         if cfg.masked_pooling and pool_mask is not None:
             m = pool_mask[..., None].to(x.dtype)
@@ -204,4 +217,6 @@ class TFAM(nn.Module):
         # the head runs in float32 whatever the trunk's dtype
         h = layer_norm(pooled, self.classifier[0])
         h = F.gelu(self.classifier[1](h), approximate="none")
+        if self.training and cfg.mlp_dropout > 0.0:
+            h = bernoulli_dropout(h, cfg.mlp_dropout, g)
         return self.classifier[4](h)

@@ -6,7 +6,12 @@
 - q/k/v projections packed in ``in_proj_weight`` / ``in_proj_bias`` and an
   ``out_proj`` Linear: the state-dict layout of both torch's
   ``nn.MultiheadAttention`` (TFAM's AMO_CLIP) and OpenAI CLIP's visual
-  blocks, so reference checkpoints load as they are.
+  blocks, so reference checkpoints load as they are;
+- attention-weight dropout in ``train()`` mode, from a ``generator`` the
+  caller passes: one int32 seed per (batch row, head) is drawn from it, and
+  both paths drop the weights where the kernels' Philox bits for those seeds
+  say so (``ops/kernels/flash_attention.py``), so the flash and eager paths
+  agree to rounding with dropout on too.
 
 Linear layers run in the module's compute ``dtype`` (weights are cast at
 the call, kept float32), as the JAX modules do with ``nn.Dense(dtype=...)``.
@@ -20,7 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vimoclip_tpu_torch.ops.kernels.flash_attention import flash_attention
+from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+    dropout_keep_mask,
+    expand_seed,
+    flash_attention,
+)
 
 # Additive mask value. Large-finite (not -inf) so a fully masked row comes
 # out uniform instead of NaN; the flash kernel uses the same constant.
@@ -40,18 +49,29 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     key_padding_mask: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: torch.Tensor | int | None = None,
 ) -> torch.Tensor:
     """Eager scaled dot-product attention in the inputs' dtype: matmul ->
-    softmax -> matmul (the JAX package's "xla" path).
+    softmax -> (dropout) -> matmul (the JAX package's "xla" path).
 
     q (B, H, Tq, Dh), k/v (B, H, Tk, Dh); key_padding_mask (B, Tk) bool,
-    True = IGNORE the key. Returns (B, H, Tq, Dh)."""
+    True = IGNORE the key. With ``dropout_rate`` > 0 the weights are kept
+    where the flash kernels' Philox bits for ``dropout_seed`` (expanded as
+    ``expand_seed``) say so, and divided by 1 - rate. Returns (B, H, Tq, Dh)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q * scale, k.transpose(-1, -2))
     if key_padding_mask is not None:
         bias = torch.where(key_padding_mask[:, None, None, :], _MASK_VALUE, 0.0)
         scores = scores + bias.to(scores.dtype)
     weights = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        b, h, tq, tk = weights.shape
+        seed = expand_seed(dropout_seed, b, h, device=q.device)
+        keep = dropout_keep_mask(seed, tq, tk, dropout_rate)
+        weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0).to(v.dtype)
     return torch.matmul(weights, v)
 
 
@@ -63,7 +83,8 @@ class MultiHeadAttention(nn.Module):
     - "flash": the hand-written CUDA kernel on a card, its plain version on
       the CPU (``ops/kernels/flash_attention.py``);
     - "auto": flash for CUDA tensors once the key length reaches the
-      crossover, the eager path otherwise.
+      crossover (a lower one with attention dropout active), the eager
+      path otherwise.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
     transposes in JAX; the math is one, and the port runs one layout.
     """
@@ -122,12 +143,13 @@ class MultiHeadAttention(nn.Module):
         x: torch.Tensor,
         kv: torch.Tensor | None = None,
         key_padding_mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout in train mode comes with the TFAM training "
-                "slice of the port; call .eval() for inference"
-            )
+        """``generator``: required in ``train()`` mode with dropout > 0;
+        one int32 seed per (batch row, head) is drawn from it."""
+        dropping = self.training and self.dropout > 0.0
+        if dropping and generator is None:
+            raise ValueError("attention dropout in train() mode needs a generator")
         e, dt = self.embed_dim, self.dtype
         w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         if kv is None:  # self-attention: one packed projection
@@ -137,14 +159,22 @@ class MultiHeadAttention(nn.Module):
             k, v = F.linear(kv.to(dt), w[e:], bias[e:]).split(e, dim=-1)
         q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
 
+        rate, seed = 0.0, None
+        if dropping:
+            rate = self.dropout
+            seed = torch.randint(0, 2**31 - 1, (q.shape[0], self.num_heads),
+                                 generator=generator, device=generator.device,
+                                 dtype=torch.int32).to(q.device)
         impl = self.implementation
         if impl == "auto":
-            impl = ("flash" if k.shape[2] >= self._AUTO_FLASH_MIN_T_NODROP
-                    and q.is_cuda else "xla")
+            min_t = (self._AUTO_FLASH_MIN_T_DROPOUT if dropping
+                     else self._AUTO_FLASH_MIN_T_NODROP)
+            impl = "flash" if k.shape[2] >= min_t and q.is_cuda else "xla"
         if impl == "flash":
-            out = flash_attention(q, k, v, key_padding_mask=key_padding_mask)
+            out = flash_attention(q, k, v, key_padding_mask=key_padding_mask,
+                                  dropout_rate=rate, dropout_seed=seed)
         else:
-            out = dot_product_attention(q, k, v, key_padding_mask)
+            out = dot_product_attention(q, k, v, key_padding_mask, rate, seed)
         b, _, s, _ = out.shape
         out = out.transpose(1, 2).reshape(b, s, e)
         return dense(out, self.out_proj, dt)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, the hash taken
-over the source and the flags, so an edited source builds anew and an
-unchanged one is reused. The libraries expose plain C functions and are
-bound with ``ctypes``: no PyTorch headers, so a build takes seconds.
+over the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source builds anew and an unchanged one is reused. The libraries
+expose plain C functions and are bound with ``ctypes``: no PyTorch headers,
+so a build takes seconds.
 
 Nothing here runs when the module is imported. A missing ``nvcc`` or a
 failed build raises; there is no fallback.
@@ -24,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_attention_fwd",)
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,8 +54,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,21 +1,41 @@
-"""Masked multi-head attention forward: the CUDA kernel and its plain
-PyTorch version.
+"""Masked multi-head attention, forward and backward: the CUDA kernels and
+their plain PyTorch versions.
 
 The counterpart of ``vimoclip_tpu/ops/pallas/flash_attention.py::
-flash_attention`` (wrapper :751, kernel ``_fwd_kernel`` :113) in its
-inference variant. The kernel is ``csrc/flash_attention_fwd.cu``; its header
-says what bounds it on the H100 and what the design does about that.
+flash_attention`` (wrapper :751) and its kernels:
 
-- On a CUDA tensor, ``flash_attention`` launches the kernel or raises.
-- On a CPU tensor it runs ``flash_attention_reference``, which rounds at the
-  same points as the kernel: q * scale in q's dtype, scores and softmax
-  statistics in float32, p rounded to v's dtype before the PV product, the
-  output acc / l stored in q's dtype.
-- ``flash_attention.launches`` counts kernel launches (never CPU calls).
+- K1  ``_fwd_kernel`` :113, inference variant (no lse, no dropout), and K1'
+  the same kernel with the lse output and fused dropout (``need_lse``):
+  ``csrc/flash_attention_fwd.cu``;
+- K2 ``_dqkv_single_kernel`` :282 (keys fit one 512-key tile), K3
+  ``_dq_kernel`` :214 and K4 ``_dkv_kernel`` :244 (longer keys):
+  ``csrc/flash_attention_bwd.cu``.
 
-Dropout is training work (K1's dropout variant, with the lse output and the
-backward kernels K2-K4, comes with the training slice): ``dropout_rate > 0``
-raises ``NotImplementedError`` after the same argument checks as JAX.
+The sources' headers say what bounds each kernel on the H100 and what the
+design does about it.
+
+- On a CUDA tensor, ``flash_attention`` launches the kernels or raises; on a
+  CPU tensor it runs the plain versions (``flash_attention_reference``,
+  ``flash_attention_backward_reference``), which round at the kernels'
+  points. Nothing falls back from one to the other.
+- Like JAX's custom-VJP primal and forward (:704-721): when grad is enabled
+  and an input requires grad, the call goes through a
+  ``torch.autograd.Function`` whose forward is K1' and whose backward is K2
+  (Tk <= 512, JAX's ``nk == 1``) or K3 + K4; otherwise K1 runs, with its
+  fused dropout when the rate is above 0 (JAX's lse-free primal).
+- Dropout bits are Philox4x32-10 keyed on global (row, key / 4)
+  coordinates and one seed per (batch row, head)
+  (``csrc/flash_attention_common.cuh``); ``philox4x32`` here is the same
+  generator in int64 arithmetic, so kernel and plain version drop the same
+  elements. The bits cannot equal the TPU's. The plain versions also take
+  an explicit ``keep`` mask (the tests pass all-True, which is what JAX's
+  CPU interpreter's stubbed bits give).
+- ``flash_attention.launches`` counts kernel launches by kind (``fwd``,
+  ``fwd_lse``, ``bwd_dqkv``, ``bwd_dq``, ``bwd_dkv``), never CPU calls.
+
+A fully masked row (every key ignored) comes out uniform over the real
+keys, and its lse is -1e9 + log(n) rounded in float32, i.e. -1e9: the
+backward then recomputes P = 1 for each of its keys, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -27,6 +47,116 @@ import torch
 _MASK_VALUE = -1e9  # ops/attention.py::_MASK_VALUE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+# JAX's backward takes its single-pass kernel when the keys fit one
+# block_k = 512 tile (nk == 1); the port keeps the same rule
+SINGLE_PASS_MAX_TK = 512
+LAUNCH_KINDS = ("fwd", "fwd_lse", "bwd_dqkv", "bwd_dq", "bwd_dkv")
+_BWD_WHICH = {"bwd_dqkv": 0, "bwd_dq": 1, "bwd_dkv": 2}
+_BWD_TILE = 64  # key tile of the backward kernels (dq scratch of K2)
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+# ---------------------------------------------------------------------------
+# dropout bits
+# ---------------------------------------------------------------------------
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """uint32 threshold with keep = (bits < threshold): keep probability
+    round((1 - p) * 2^32) / 2^32, clamped into uint32 range (JAX's
+    ``_keep_threshold``)."""
+    return min(2**32 - 1, int(round((1.0 - dropout_rate) * 2.0**32)))
+
+
+def expand_seed(dropout_seed, b: int, h: int,
+                device: torch.device | str = "cpu") -> torch.Tensor:
+    """A scalar, (B,) or (B, H) seed -> the kernels' (B, H) int32 seeds
+    (JAX's ``_expand_seed``): a (B, H) seed passes through; otherwise the
+    seed is multiplied by the golden-ratio constant 0x9E3779B9 and a slot
+    index added, with int32 wraparound, so consecutive scalar seeds never
+    share streams."""
+    seed = torch.as_tensor(dropout_seed).to(device=device, dtype=torch.int64)
+    if tuple(seed.shape) == (b, h):
+        return seed.to(torch.int32)
+    gold = -1640531527  # 0x9E3779B9 as int32
+    if seed.numel() == 1:
+        slots = torch.arange(b * h, device=device, dtype=torch.int64).view(b, h)
+        full = seed.reshape(()) * gold + slots
+    elif tuple(seed.shape) == (b,):
+        full = seed[:, None] * gold + torch.arange(h, device=device, dtype=torch.int64)
+    else:
+        raise ValueError(
+            f"dropout_seed must be scalar, (B,), or (B, H); got "
+            f"{tuple(seed.shape)} for B={b}, H={h}"
+        )
+    return ((full + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of m * x for x in [0, 2^32), in int64 without
+    overflow (x split into 16-bit halves)."""
+    lo_part = m * (x & 0xFFFF)
+    hi_part = m * (x >> 16)
+    s = lo_part + ((hi_part & 0xFFFF) << 16)
+    return ((s >> 32) + (hi_part >> 16)) & _MASK32, s & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 on int64 tensors (or ints) holding uint32 values;
+    returns the four output words as int64 tensors."""
+    c = [torch.as_tensor(x, dtype=torch.int64) for x in (c0, c1, c2, c3)]
+    k0, k1 = torch.as_tensor(k0, dtype=torch.int64), torch.as_tensor(k1, dtype=torch.int64)
+    for i in range(10):
+        if i:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return tuple(c)
+
+
+def dropout_keep_mask(seed: torch.Tensor, tq: int, tk: int,
+                      dropout_rate: float) -> torch.Tensor:
+    """The kernels' keep mask, (B, H, Tq, Tk) bool: for (b, h, row, col),
+    word col % 4 of Philox4x32-10 with counter (row, col // 4, 0, 0) and key
+    (seed[b, h] as uint32, 0), kept where it is below the threshold."""
+    groups = (tk + 3) // 4
+    dev = seed.device
+    rows = torch.arange(tq, device=dev, dtype=torch.int64).view(1, 1, tq, 1)
+    cols = torch.arange(groups, device=dev, dtype=torch.int64).view(1, 1, 1, groups)
+    key = (seed.to(torch.int64) & _MASK32)[:, :, None, None]
+    words = philox4x32(rows, cols, 0, 0, key, 0)
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = bits.reshape(*bits.shape[:3], groups * 4)[..., :tk]
+    return bits < keep_threshold(dropout_rate)
+
+
+def _keep_for(q, k, dropout_rate, seed, keep):
+    if dropout_rate == 0.0:
+        return None
+    if keep is not None:
+        return keep
+    if seed is None:
+        raise ValueError("dropout needs the (B, H) seeds or an explicit keep mask")
+    return dropout_keep_mask(seed, q.shape[2], k.shape[2], dropout_rate)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _scores(q, k, key_padding_mask):
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qs = (q.float() * scale).to(q.dtype).float()
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    if key_padding_mask is not None:
+        s = s + torch.where(key_padding_mask[:, None, None, :], _MASK_VALUE, 0.0)
+    return s
 
 
 def flash_attention_reference(
@@ -34,21 +164,69 @@ def flash_attention_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     key_padding_mask: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, one softmax over all keys.
+    dropout_rate: float = 0.0,
+    seed: torch.Tensor | None = None,
+    keep: torch.Tensor | None = None,
+    return_lse: bool = False,
+):
+    """Plain PyTorch version of K1 / K1', one softmax over all keys.
+
+    ``seed``: the (B, H) int32 seeds (``expand_seed``); ``keep``: an
+    explicit (B, H, Tq, Tk) keep mask in their place. Returns the output in
+    q's dtype, and with ``return_lse`` also lse (B, H, Tq) float32.
 
     On a card, the float32 products run in full float32 only with
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default)."""
-    scale = 1.0 / q.shape[-1] ** 0.5
-    qs = (q.float() * scale).to(q.dtype).float()
-    s = torch.matmul(qs, k.float().transpose(-1, -2))
-    if key_padding_mask is not None:
-        s = s + torch.where(key_padding_mask[:, None, None, :], _MASK_VALUE, 0.0)
+    s = _scores(q, k, key_padding_mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype)
+    keep = _keep_for(q, k, dropout_rate, seed, keep)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / (l * (1.0 - dropout_rate))
+    o = o.to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l))[..., 0]
+    return o
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: torch.Tensor | None,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    grad_out: torch.Tensor,
+    dropout_rate: float = 0.0,
+    seed: torch.Tensor | None = None,
+    keep: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 / K3 + K4: the TPU kernels' formulas
+    (flash_attention.py:38-45) from the saved lse, with their rounding
+    points (p and dS rounded to the input dtype at each product, float32
+    accumulation). Returns (dq, dk, dv) in the inputs' dtypes."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    delta = (grad_out.float() * out.float()).sum(dim=-1)
+    p = torch.exp(_scores(q, k, key_padding_mask) - lse[..., None])
+    dp = torch.matmul(grad_out.float(), v.float().transpose(-1, -2))
+    keep = _keep_for(q, k, dropout_rate, seed, keep)
+    pd = p
+    if keep is not None:
+        dp = torch.where(keep, dp, 0.0) / (1.0 - dropout_rate)
+        pd = torch.where(keep, p, 0.0) / (1.0 - dropout_rate)
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(pd.to(grad_out.dtype).float().transpose(-1, -2),
+                      grad_out.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
 
 
 def _check_args(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
@@ -74,67 +252,191 @@ def _check_args(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
             f"key_padding_mask must be (B, Tk) = {(b, tk)}; got "
             f"{tuple(key_padding_mask.shape)}"
         )
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "fused attention dropout is training work: it comes with the "
-            "TFAM training slice of the port (Philox bits in the kernel)"
-        )
 
 
-def _bind():
+def _bind(name: str, entry: str, argtypes: list):
     from vimoclip_tpu_torch.ops.kernels._build import load_library
 
-    lib = load_library("flash_attention_fwd")
-    fn = lib.vimo_flash_attention_fwd
+    lib = load_library(name)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = ([ptr] * 5 + [i32] * 6 + [ll] * 13
-                       + [ctypes.c_float, ptr])
-        fn.restype = i32
-        lib.vimo_cuda_error_string.argtypes = [i32]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.vimo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vimo_cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch(q, k, v, key_padding_mask) -> torch.Tensor:
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _U32 = ctypes.c_float, ctypes.c_uint32
+_FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL] * 13 + [_F, _U32, _F, _P]
+_BWD_ARGS = [_P] * 12 + [_I] * 7 + [_LL] * 22 + [_F, _U32, _F, _P]
+
+
+def _check_kernel_inputs(q, k, v):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention kernel takes float32 or bfloat16 q, k, v of one "
+            f"flash_attention kernels take float32 or bfloat16 q, k, v of one "
             f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     if not (k.device == q.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM} is not supported")
-    # the kernel reads through (B, H, T) strides; only the head dim must be
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[-1]} > {MAX_HEAD_DIM} is not supported")
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    # the kernels read through (B, H, T) strides; only the head dim must be
     # contiguous
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    mask_arg, m_sb = None, 0
-    if key_padding_mask is not None:
-        if key_padding_mask.device != q.device:
-            raise ValueError("key_padding_mask must be on q's device")
-        mask = key_padding_mask.to(torch.bool).contiguous().view(torch.uint8)
-        mask_arg, m_sb = mask.data_ptr(), mask.stride(0)
-    # (B, Tq, H, D) storage seen as (B, H, Tq, D): merging the heads after
-    # the call is a free view
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lib, fn = _bind()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_arg, out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, tq, tk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            m_sb, 1.0 / d ** 0.5, stream,
-        )
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _mask_arg(key_padding_mask, device):
+    if key_padding_mask is None:
+        return None, None, 0
+    if key_padding_mask.device != device:
+        raise ValueError("key_padding_mask must be on q's device")
+    mask = key_padding_mask.to(torch.bool).contiguous().view(torch.uint8)
+    return mask, mask.data_ptr(), mask.stride(0)
+
+
+def _heads_major(b, t, h, d, dtype, device) -> torch.Tensor:
+    # (B, T, H, D) storage seen as (B, H, T, D): merging the heads after the
+    # call is a free view
+    return torch.empty((b, t, h, d), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _raise_on(lib, rc, what):
     if rc != 0:
         reason = (lib.vimo_cuda_error_string(rc).decode() if rc > 0
                   else f"unsupported arguments (code {rc})")
-        raise RuntimeError(f"flash_attention kernel launch failed: {reason}")
-    flash_attention.launches += 1
-    return out
+        raise RuntimeError(f"{what} kernel launch failed: {reason}")
+
+
+def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse):
+    """K1 (``with_lse`` False) or K1': the output, and lse (B, H, Tq)
+    float32 or None; dropout from the (B, H) ``seed`` when the rate is
+    above 0."""
+    _check_kernel_inputs(q, k, v)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
+    out = _heads_major(b, tq, h, d, q.dtype, q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
+    seed_ptr = None
+    if dropout_rate > 0.0:
+        seed = seed.to(device=q.device, dtype=torch.int32).contiguous()
+        seed_ptr = seed.data_ptr()
+    lib, fn = _bind("flash_attention_fwd", "vimo_flash_attention_fwd", _FWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), seed_ptr,
+            _DTYPE_CODES[q.dtype], b, h, tq, tk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            m_sb, 1.0 / d ** 0.5, keep_threshold(dropout_rate), 1.0 - dropout_rate,
+            stream,
+        )
+    _raise_on(lib, rc, "flash_attention forward")
+    flash_attention.launches["fwd_lse" if with_lse else "fwd"] += 1
+    return out, lse
+
+
+def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
+                grad_out, dq, dk, dv):
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
+    seed_ptr = None
+    if dropout_rate > 0.0:
+        seed = seed.to(device=q.device, dtype=torch.int32).contiguous()
+        seed_ptr = seed.data_ptr()
+    scratch = None
+    if kind == "bwd_dqkv":  # K2's dq shares, one per 64-key tile
+        n_kt = -(-tk // _BWD_TILE)
+        scratch = torch.empty((b, h, n_kt, tq, d), dtype=torch.float32, device=q.device)
+    null3 = (0, 0, 0)
+    lib, fn = _bind("flash_attention_bwd", "vimo_flash_attention_bwd", _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), mask_ptr,
+            lse.data_ptr(), delta.data_ptr(), seed_ptr,
+            None if dq is None else dq.data_ptr(),
+            None if dk is None else dk.data_ptr(),
+            None if dv is None else dv.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            _BWD_WHICH[kind], _DTYPE_CODES[q.dtype], b, h, tq, tk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
+            *(null3 if dq is None else dq.stride()[:3]),
+            *(null3 if dk is None else dk.stride()[:3]),
+            *(null3 if dv is None else dv.stride()[:3]),
+            m_sb, 1.0 / d ** 0.5, keep_threshold(dropout_rate), 1.0 - dropout_rate,
+            stream,
+        )
+    _raise_on(lib, rc, f"flash_attention backward ({kind})")
+    flash_attention.launches[kind] += 1
+
+
+def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
+                     grad_out):
+    """The backward kernels on CUDA tensors: K2 when the keys fit one
+    512-key tile, else K3 + K4. ``seed``: the (B, H) int32 seeds. Returns
+    (dq, dk, dv)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the backward kernels run on CUDA tensors, not {q.device}")
+    _check_kernel_inputs(q, k, v)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    q, k, v, grad_out = _rows(q), _rows(k), _rows(v), _rows(grad_out)
+    # D = rowsum(dO * O), outside the kernels as on the TPU (:730)
+    delta = (grad_out.float() * out.float()).sum(dim=-1).contiguous()
+    lse = lse.contiguous()
+    dq = _heads_major(b, tq, h, d, q.dtype, q.device)
+    dk = _heads_major(b, tk, h, d, k.dtype, q.device)
+    dv = _heads_major(b, tk, h, d, v.dtype, q.device)
+    args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
+    if tk <= SINGLE_PASS_MAX_TK:
+        _launch_bwd("bwd_dqkv", *args, dq, dk, dv)
+    else:
+        _launch_bwd("bwd_dq", *args, dq, None, None)
+        _launch_bwd("bwd_dkv", *args, None, dk, dv)
+    return dq, dk, dv
+
+
+def forward_lse(q, k, v, key_padding_mask, seed, dropout_rate):
+    """K1' (its plain version on the CPU): (out, lse) with dropout from the
+    (B, H) int32 ``seed`` when ``dropout_rate`` > 0."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate,
+                                         seed=seed, return_lse=True)
+    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=True)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1' forward, K2 / K3 + K4 backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, seed, dropout_rate):
+        out, lse = forward_lse(q, k, v, key_padding_mask, seed, dropout_rate)
+        ctx.save_for_backward(q, k, v, key_padding_mask, seed, out, lse)
+        ctx.dropout_rate = dropout_rate
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, key_padding_mask, seed, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_reference(
+                q, k, v, key_padding_mask, out, lse, grad_out, ctx.dropout_rate,
+                seed=seed)
+        else:
+            grads = backward_kernels(q, k, v, key_padding_mask, seed,
+                                     ctx.dropout_rate, out, lse, grad_out)
+        return (*grads, None, None, None)
 
 
 def flash_attention(
@@ -145,7 +447,7 @@ def flash_attention(
     dropout_rate: float = 0.0,
     dropout_seed: torch.Tensor | int | None = None,
 ) -> torch.Tensor:
-    """Masked attention with torch MHA numerics.
+    """Masked attention with torch MHA numerics, differentiable.
 
     Args:
         q: (B, H, Tq, D) float32 or bfloat16.
@@ -153,17 +455,30 @@ def flash_attention(
         key_padding_mask: (B, Tk) bool, True = IGNORE the key (torch
             convention); masked keys get a -1e9 bias, so a fully masked row
             is uniform over the real keys.
-        dropout_rate, dropout_seed: checked as in JAX; a rate above 0 raises
-            NotImplementedError (training slice).
+        dropout_rate: attention-weight dropout probability in [0, 1).
+        dropout_seed: required when dropout_rate > 0: a scalar, (B,) or
+            (B, H) int seed, expanded as ``expand_seed`` does.
     Returns:
         (B, H, Tq, D) in q's dtype.
     """
     _check_args(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_padding_mask)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return _launch(q, k, v, key_padding_mask)
+    b, h = q.shape[:2]
+    seed = None
+    if dropout_rate > 0.0:
+        seed = expand_seed(dropout_seed, b, h, device=q.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_padding_mask, seed, float(dropout_rate))
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate, seed=seed)
+    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=False)[0]
 
 
-flash_attention.launches = 0
+flash_attention.launches = dict.fromkeys(LAUNCH_KINDS, 0)
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel's launch count."""
+    for kind in LAUNCH_KINDS:
+        flash_attention.launches[kind] = 0
