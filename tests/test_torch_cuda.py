@@ -198,3 +198,19 @@ def test_mha_flash_matches_eager_on_card(cuda):
         out = mha(x, kv=kv, key_padding_mask=mask).float()
     assert np.isfinite(out.cpu().numpy()).all()
     assert (out - ref).abs().max().item() < 5e-2
+
+
+@pytest.mark.parametrize("t", [128, 4096], ids=["short", "long"])
+def test_auto_sends_dropout_to_the_kernels(cuda, t):
+    """``auto`` with dropout active takes the kernels at any key length;
+    without dropout a short key length stays on the eager path."""
+    mha = MultiHeadAttention(64, 4, dropout=0.1, implementation="auto").to(cuda)
+    x = torch.randn(2, t, 64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = dict(flash_attention.launches)
+    mha.train()(x, generator=gen).sum().backward()
+    assert flash_attention.launches["fwd_lse"] == before["fwd_lse"] + 1
+    with torch.no_grad():
+        mha.eval()(x)
+    eager = t < MultiHeadAttention._AUTO_FLASH_MIN_T_NODROP
+    assert flash_attention.launches["fwd"] == before["fwd"] + (0 if eager else 1)

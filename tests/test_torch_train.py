@@ -238,8 +238,8 @@ def test_preemption_cuts_a_resume_checkpoint(tmp_path, monkeypatch):
                           items, items)
     step = trainer.train_step
 
-    def step_then_signal(batch, generator=None):
-        out = step(batch, generator)
+    def step_then_signal(batch):
+        out = step(batch)
         if trainer.state.step == 2:
             os.kill(os.getpid(), signal.SIGTERM)
         return out

@@ -82,18 +82,20 @@ class MultiHeadAttention(nn.Module):
     - "xla": ``dot_product_attention`` (the name is the JAX package's);
     - "flash": the hand-written CUDA kernel on a card, its plain version on
       the CPU (``ops/kernels/flash_attention.py``);
-    - "auto": flash for CUDA tensors once the key length reaches the
-      crossover (a lower one with attention dropout active), the eager
-      path otherwise.
+    - "auto": flash for CUDA tensors with attention dropout active, or
+      once the key length reaches the no-dropout crossover; the eager path
+      otherwise.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
     transposes in JAX; the math is one, and the port runs one layout.
     """
 
-    # Crossover lengths carried over from the JAX package as they are: they
-    # were measured on a TPU v5e (vimoclip_tpu/ops/attention.py:229-237). An
-    # H100 measurement of the eager path against the kernel is still owed
-    # (ROADMAP.md); until then "auto" keeps these values.
-    _AUTO_FLASH_MIN_T_DROPOUT = 256
+    # With dropout the kernels win at every length: the eager path builds its
+    # Philox mask from int64 elementwise ops. chip_smoke.py phase 6 on an
+    # NVIDIA H100 80GB HBM3 (700 W) timed a full-width train step at the
+    # 128-frame bucket at 66.6 ms eager against 32.9 ms on the kernels.
+    # Without dropout the crossover is carried over from the JAX package as
+    # it is, a TPU v5e figure (vimoclip_tpu/ops/attention.py:229-237); its
+    # H100 measurement is still owed (ROADMAP.md).
     _AUTO_FLASH_MIN_T_NODROP = 2048
 
     def __init__(
@@ -167,9 +169,8 @@ class MultiHeadAttention(nn.Module):
                                  dtype=torch.int32).to(q.device)
         impl = self.implementation
         if impl == "auto":
-            min_t = (self._AUTO_FLASH_MIN_T_DROPOUT if dropping
-                     else self._AUTO_FLASH_MIN_T_NODROP)
-            impl = "flash" if k.shape[2] >= min_t and q.is_cuda else "xla"
+            long_keys = k.shape[2] >= self._AUTO_FLASH_MIN_T_NODROP
+            impl = "flash" if q.is_cuda and (dropping or long_keys) else "xla"
         if impl == "flash":
             out = flash_attention(q, k, v, key_padding_mask=key_padding_mask,
                                   dropout_rate=rate, dropout_seed=seed)

@@ -140,14 +140,12 @@ class TFAMTrainer:
     def _logits(self, batch: dict, generator=None) -> torch.Tensor:
         return self.model(*(batch[k] for k in _INPUTS), generator=generator)
 
-    def train_step(self, batch: dict,
-                   generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    def train_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on a collated batch (numpy or on the device);
-        dropout draws from ``generator``, by default the step's own stream.
-        Returns the detached loss and logits."""
+        dropout draws from the step's own stream. Returns the detached loss
+        and logits."""
         batch = to_device(batch, self.device)
-        if generator is None:
-            generator = self.keys("dropout", self.state.step, device=self.device)
+        generator = self.keys("dropout", self.state.step, device=self.device)
         model, opt = self.model, self.state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
