@@ -33,7 +33,26 @@ NVIDIA card:
    time, clips/s, peak memory and one profiled step; and train steps with
    dropout at the 128-, 256- and 512-frame buckets on the eager path and on
    the kernels, which sets where ``attention_impl: auto`` turns to them.
-7. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+7. K5 vs plain: the fused uint8 normalisation against its plain version,
+   bit for bit, in float32 and bfloat16, at the stage-1 training step's
+   frames (232, 224, 224, 3), an export chunk (128, 224, 224, 3) and an odd
+   misaligned view (3, 17, 31, 3), with its time (L2 flushed before each
+   call, and warm), the plain version's, the bound and the achieved GB/s
+   (no single PyTorch call computes it).
+8. Stage-1 training: ``StudentTrainer`` with ViT-B/32 at full width (12
+   layers x 768, 12 heads, patch 32), batch 8, 29 motion frames per
+   segment, bf16 compute, Adam 1e-5, on synthetic segments from
+   ``--seed``: the MN recipe (224x224 frames, 12 classes, CE) through
+   ``train()`` over one 6-batch epoch and its evaluate, K5 once per train
+   step and per eval batch; the AK recipe (360x640 frames, the resize
+   branch, 140 classes, BCE weight 9) for three steps with no K5; 15 steps
+   on one batch must lower its loss; a grad_accum=2 step against a
+   grad_accum=1 step from the same state; step time, segments/s, frames/s,
+   peak memory and one profiled step.
+9. Motion export: ``MotionEmbeddingExporter._embed_chunk`` on two
+   128-frame chunks and a 77-frame tail at 224x224 with the trained
+   student, K5 once per chunk, equal to the trainer's own tower.
+10. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -96,6 +115,19 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 5e-3
 # buckets of the eager-against-kernels train steps with dropout on
 CROSSOVER_BUCKETS = (128, 256, 512)
+
+# K5 (fused normalise): (shape, storage offset in bytes) — the MN training
+# step's frames (8 segments x 29), an export chunk, and an odd view whose
+# element count is no multiple of 48 and whose start is misaligned
+NORMALIZE_SHAPES = [((232, 224, 224, 3), 0), ((128, 224, 224, 3), 0), ((3, 17, 31, 3), 5)]
+STUDENT_SEQ = 30  # teacher frames per segment; 29 motion frames
+EXPORT_CHUNK = 128
+# grad_accum=2 against one full-batch step from the same state, bf16 compute:
+# the microbatches' products differ from the full batch's in bf16 rounding.
+# Measured on an H100 80GB HBM3 at 700 W: losses 6.7e-8 relative apart, gradients
+# 1.8e-3 relative L2; the limits leave 150x and 11x room.
+ACCUM_LOSS_TOL = 1e-5
+ACCUM_GRAD_TOL = 2e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -735,6 +767,229 @@ def _crossover(torch, setup: dict, smi: str) -> list[dict]:
     return rows
 
 
+def phase_normalize_kernel(torch, seed: int, smi: str) -> dict:
+    """K5 against its plain version, bit for bit, at the stage-1 shapes and
+    an odd view; returns the bf16 row at the MN training step's shape."""
+    from vimoclip_tpu_torch.ops.kernels.normalize import (
+        fused_normalize,
+        fused_normalize_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    # on the path K5 reads frames just uploaded and writes a fresh buffer:
+    # its time is taken with the 50 MB L2 flushed before every call (the
+    # profiler counts only the kernel's own events), and also warm
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    main = None
+    for shape, offset in NORMALIZE_SHAPES:
+        n = 1
+        for s in shape:
+            n *= s
+        base = torch.randint(0, 256, (n + offset,), device="cuda", generator=g,
+                             dtype=torch.uint8)
+        x = base[offset:].view(shape)  # offset > 0: a misaligned view
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            out = fused_normalize(x, dtype=dtype)
+            ref = fused_normalize_reference(x, dtype=dtype)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            check(torch.equal(out, ref), f"fused_normalize {dtype_name} {shape}+{offset}: "
+                                         f"not bitwise equal to the plain version ({err})")
+            ms = device_ms(torch, lambda: (flush.zero_(), fused_normalize(x, dtype=dtype)),
+                           names=("normalize_kernel",), per_call=1)
+            warm_ms = device_ms(torch, lambda: fused_normalize(x, dtype=dtype),
+                                names=("normalize_kernel",), per_call=1)
+            plain_ms = device_ms(torch, lambda: fused_normalize_reference(x, dtype=dtype))
+            moved = n * (1 + dtype.itemsize)  # uint8 in, dtype out
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * n / PEAK_FLOPS["float32"] * 1e3  # a subtraction and a product
+            row = {"dtype": dtype_name, "shape": list(shape), "offset": offset,
+                   "max_abs_err": err, "bitwise": True, "ms": ms, "warm_ms": warm_ms,
+                   "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "achieved_GB_per_s": moved / (ms * 1e-3) / 1e9,
+                   "plain_GB_per_s": moved / (plain_ms * 1e-3) / 1e9}
+            print("[normalize] " + json.dumps(row) + f" [{smi}]")
+            if dtype_name == "bfloat16" and shape == NORMALIZE_SHAPES[0][0]:
+                main = row
+    check(main is not None, "no K5 measurement at the training step's shape")
+    return main
+
+
+def _segments(rng, n: int, hw: tuple[int, int], classes: int, multi_label: bool) -> list[dict]:
+    """Synthetic stage-1 segments: teacher embeddings (30, 512) and 29 uint8
+    motion frames; one label (MN) or 1-3 (AK)."""
+    import numpy as np
+
+    items = []
+    for i in range(n):
+        labels = np.zeros(classes, np.float32)
+        k = int(rng.integers(1, 4)) if multi_label else 1
+        labels[rng.choice(classes, k, replace=False)] = 1.0
+        items.append({
+            "video_id": f"seg{i:03d}",
+            "rgb_emb": rng.standard_normal((STUDENT_SEQ, 512)).astype(np.float32),
+            "motion_frames": rng.integers(0, 256, (STUDENT_SEQ - 1, *hw, 3), dtype=np.uint8),
+            "labels": labels,
+        })
+    return items
+
+
+def _student_trainer(torch, items, val_items, run: str, seed: int, **kw):
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
+    from vimoclip_tpu_torch.train.student_trainer import StudentTrainer
+
+    run_dir = HERE / "build" / "chip_smoke_student" / run
+    return StudentTrainer(items, val_items, checkpoint_dir=str(run_dir / "checkpoints"),
+                          vision_config=ClipVisionConfig.vit_b_32(), lr=1e-5, batch_size=8,
+                          num_workers=2, epochs=1, half_precision=True, seed=seed,
+                          device="cuda", **kw)
+
+
+def phase_student(torch, seed: int, smi: str) -> tuple[dict, object]:
+    """Stage-1 training at ViT-B/32's full width, batch 8, 29 motion frames,
+    bf16, Adam 1e-5: the MN recipe (224x224, K5 once per step) through
+    ``train()`` over one epoch and its ``evaluate``, and the AK recipe
+    (360x640, the resize branch, no K5) for three steps."""
+    import numpy as np
+
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+
+    rng = np.random.default_rng(seed + 3)
+    mn_train = _segments(rng, 6 * 8, (224, 224), 12, multi_label=False)
+    mn_val = _segments(rng, 2 * 8, (224, 224), 12, multi_label=False)
+    mn = _student_trainer(torch, mn_train, mn_val, "mn", seed, num_classes=12,
+                          class_loss="ce")
+
+    # the main path: the MN recipe's train() (one epoch, evaluate, checkpoints)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fused_normalize.launches = 0
+    t0 = time.perf_counter()
+    best = mn.train()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    mn_launches = fused_normalize.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_train, n_val = len(mn.train_loader), len(mn.val_loader)
+    check((n_train, n_val) == (6, 2), f"MN batches {n_train} train, {n_val} val")
+    check(mn_launches == n_train + n_val,
+          f"K5 launched {mn_launches} times in the MN epoch, expected {n_train + n_val} "
+          "(one per train step and per eval batch)")
+    check(sum(fa.flash_attention.launches.values()) == 0,
+          "the student's eager attention launched a flash kernel")
+    check(np.isfinite(best), f"MN best val loss {best}")
+
+    # the AK recipe: 360x640 frames take the resize branch, so no K5
+    ak_items = _segments(rng, 3 * 8, (360, 640), 140, multi_label=True)
+    ak = _student_trainer(torch, ak_items, ak_items[:8], "ak", seed, num_classes=140,
+                          class_loss="bce", class_pos_weight=9.0)
+    fused_normalize.launches = 0
+    ak_train = ak.train_epoch(0)
+    torch.cuda.synchronize()
+    ak_launches = fused_normalize.launches
+    check(len(ak.train_loader) == 3 and ak_launches == 0,
+          f"AK: {len(ak.train_loader)} steps launched K5 {ak_launches} times, expected 0")
+    check(np.isfinite(ak_train["total"]), f"AK loss {ak_train}")
+    del ak
+
+    # 15 steps on one MN batch lower its loss; steps 6-15 time a warm step
+    fixed = to_device(mn.train_loader.collate(mn_train[:8]), mn.device)
+    fit, times = [], []
+    for i in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, _ = mn.train_step(fixed)
+        fit.append(float(vals[0]))
+        if i >= 5:
+            times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(fit)), f"non-finite loss {fit}")
+    check(np.mean(fit[-3:]) < fit[0], f"15 steps on one batch did not lower the loss: {fit}")
+    step_ms = float(np.mean(times)) * 1e3
+    prof = profile_request(torch, lambda: mn.train_step(fixed), smi, label="student-profile")
+
+    # grad_accum=2 from the same state as one full-batch step
+    accum = _student_trainer(torch, mn_train, mn_val, "accum", seed, num_classes=12,
+                             class_loss="ce", grad_accum=2)
+    accum.model.load_state_dict(mn.model.state_dict())
+    accum.state.optimizer.load_state_dict(mn.state.optimizer.state_dict())
+    full_vals, _ = mn.train_step(fixed)
+    accum_vals, _ = accum.train_step(fixed)
+    grads = [torch.cat([p.grad.float().flatten() for p in t.model.parameters()])
+             for t in (mn, accum)]
+    grad_rel_l2 = ((grads[0] - grads[1]).norm() / grads[0].norm()).item()
+    loss_rel = ((full_vals - accum_vals).abs() / full_vals.abs()).max().item()
+    param_max_abs = max((a - b).abs().max().item() for a, b in
+                        zip(mn.model.parameters(), accum.model.parameters()))
+    check(loss_rel <= ACCUM_LOSS_TOL, f"grad_accum=2 vs 1 losses: rel {loss_rel} > "
+                                      f"{ACCUM_LOSS_TOL}")
+    check(grad_rel_l2 <= ACCUM_GRAD_TOL, f"grad_accum=2 vs 1 gradients: relative L2 "
+                                         f"{grad_rel_l2} > {ACCUM_GRAD_TOL}")
+    del accum
+
+    stats = {
+        "mn_k5_launches": mn_launches, "mn_epoch_s": epoch_s, "mn_best_val": best,
+        "ak_k5_launches": ak_launches, "ak_train": ak_train, "fit_losses": fit,
+        "warm_step_ms": step_ms, "segments_per_s": 8 / (step_ms / 1e3),
+        "frames_per_s": 8 * (STUDENT_SEQ - 1) / (step_ms / 1e3), "peak_mem_bytes": peak_bytes,
+        "accum_loss_rel": loss_rel, "accum_grad_rel_l2": grad_rel_l2,
+        "accum_param_max_abs": param_max_abs,
+        "device_idle_share": prof["device_idle_share"],
+    }
+    print("[student] " + json.dumps(stats) + f" [{smi}]")
+    return stats, mn
+
+
+def phase_export(torch, trainer, seed: int, smi: str) -> dict:
+    """The exporter's device path on the trained student: two 128-frame
+    chunks and a 77-frame tail at 224x224, K5 once per chunk, embeddings
+    equal to the trainer's own tower on the same (padded) frames."""
+    import numpy as np
+
+    from vimoclip_tpu_torch.export import MotionEmbeddingExporter
+    from vimoclip_tpu_torch.ops.batching import pad_to_batch
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+
+    rng = np.random.default_rng(seed + 4)
+    video = rng.integers(0, 256, (2 * EXPORT_CHUNK + 77, 224, 224, 3), dtype=np.uint8)
+    chunks = [video[i:i + EXPORT_CHUNK] for i in range(0, len(video), EXPORT_CHUNK)]
+    exporter = MotionEmbeddingExporter(trainer.model.state_dict(), trainer.vision_config,
+                                       chunk_size=EXPORT_CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    fused_normalize.launches = 0
+    t0 = time.perf_counter()
+    embs = [exporter._embed_chunk(c) for c in chunks]
+    export_s = time.perf_counter() - t0
+    launches = fused_normalize.launches
+    check(launches == len(chunks), f"K5 launched {launches} times for {len(chunks)} chunks")
+    check([e.shape for e in embs] == [(len(c), 512) for c in chunks],
+          f"export shapes {[e.shape for e in embs]}")
+    check(all(np.isfinite(e).all() for e in embs), "non-finite export embeddings")
+    tower = trainer.model.visual_encoder.eval()
+    max_diff = 0.0
+    with torch.inference_mode():
+        for c, e in zip(chunks, embs):
+            x = torch.from_numpy(pad_to_batch(c, EXPORT_CHUNK)).cuda()
+            ref = tower(clip_preprocess(x, 224, dtype=torch.bfloat16)).float()[:len(c)]
+            max_diff = max(max_diff, float(np.abs(ref.cpu().numpy() - e).max()))
+    check(max_diff == 0.0, f"export embeddings differ from the trainer's tower by {max_diff}")
+    t0 = time.perf_counter()  # the same chunks again, warm
+    for c in chunks:
+        exporter._embed_chunk(c)
+    warm_s = time.perf_counter() - t0
+    stats = {"k5_launches": launches, "frames": len(video), "export_s": export_s,
+             "frames_per_s": len(video) / export_s, "warm_frames_per_s": len(video) / warm_s,
+             "max_abs_vs_tower": max_diff}
+    print("[export] " + json.dumps(stats) + f" [{smi}]")
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -766,6 +1021,10 @@ def main() -> int:
     setup = training_setup(torch, args.seed)
     train_rows = phase_training_kernels(torch, args.seed, smi, setup["main_shapes"])
     train = phase_training(torch, setup, smi)
+    del setup
+    k5 = phase_normalize_kernel(torch, args.seed, smi)
+    student, student_trainer = phase_student(torch, args.seed, smi)
+    export = phase_export(torch, student_trainer, args.seed, smi)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
@@ -789,6 +1048,16 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    k5_launches = student["mn_k5_launches"] + export["k5_launches"]
+    check(k5_launches > 0, "fused_normalize never launched on the stage-1 path")
+    kernels.append({
+        "name": "fused_normalize", "route": "cuda",
+        "source": "vimoclip_tpu_torch/csrc/normalize.cu",
+        "replaces": "vimoclip_tpu/ops/pallas/preprocess_kernel.py:28",
+        "launches": k5_launches, "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

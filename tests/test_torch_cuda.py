@@ -214,3 +214,92 @@ def test_auto_sends_dropout_to_the_kernels(cuda, t):
         mha.eval()(x)
     eager = t < MultiHeadAttention._AUTO_FLASH_MIN_T_NODROP
     assert flash_attention.launches["fwd"] == before["fwd"] + (0 if eager else 1)
+
+
+# ---------------------------------------------------------------------------
+# K5: fused uint8 -> CLIP normalisation, and the stage-1 paths that run it
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape, offset", [
+    ((8, 224, 224, 3), 0), ((3, 17, 31, 3), 0), ((3, 17, 31, 3), 5), ((1, 1, 1, 3), 3),
+    ((2, 5, 7, 3), 8), ((4, 16, 16, 3), 12), ((2, 9, 13, 3), 1), ((16, 48, 1, 3), 4),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else f"off{v}")
+def test_normalize_kernel_matches_plain_bitwise(cuda, shape, offset, dtype):
+    from vimoclip_tpu_torch.ops.kernels.normalize import (
+        fused_normalize,
+        fused_normalize_reference,
+    )
+
+    n = int(np.prod(shape))
+    g = torch.Generator(device="cpu").manual_seed(n + offset)
+    base = torch.randint(0, 256, (n + offset,), generator=g, dtype=torch.uint8).to(cuda)
+    x = base[offset:].view(shape)  # a storage offset: any alignment
+    before = fused_normalize.launches
+    out = fused_normalize(x, dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_normalize.launches == before + 1
+    ref = fused_normalize_reference(x, dtype=dtype)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert torch.equal(out, ref)
+
+
+def test_normalize_kernel_on_a_transposed_view(cuda):
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+
+    x = torch.randint(0, 256, (2, 3, 40, 50), dtype=torch.uint8, device=cuda).permute(0, 2, 3, 1)
+    assert torch.equal(fused_normalize(x), fused_normalize(x.contiguous()))
+
+
+def _stage1_items(n, hw, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"video_id": f"s{i}", "rgb_emb": rng.standard_normal((6, 16)).astype(np.float32),
+             "motion_frames": rng.integers(0, 256, (5, *hw, 3), dtype=np.uint8),
+             "labels": np.eye(5, dtype=np.float32)[i % 5]} for i in range(n)]
+
+
+_TINY_VIT = dict(image_size=32, patch_size=8, hidden_size=64, num_layers=1, num_heads=2,
+                 intermediate_size=128, projection_dim=16)
+
+
+@pytest.mark.parametrize("hw, launches", [((32, 32), 1), ((36, 48), 0)],
+                         ids=["no-resize", "resize"])
+def test_stage1_bf16_step_launches_k5_once(cuda, tmp_path, hw, launches):
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+    from vimoclip_tpu_torch.train.student_trainer import StudentTrainer
+
+    items = _stage1_items(8, hw)
+    trainer = StudentTrainer(items, items, checkpoint_dir=str(tmp_path), num_classes=5,
+                             vision_config=ClipVisionConfig(**_TINY_VIT), batch_size=4,
+                             num_workers=1, lr=1e-3, device="cuda")
+    before = fused_normalize.launches
+    vals, logits = trainer.train_step(trainer.train_loader.collate(items[:4]))
+    torch.cuda.synchronize()
+    assert fused_normalize.launches == before + launches
+    assert logits.shape == (4, 5) and torch.isfinite(vals).all()
+    assert trainer.eval_step(trainer.val_loader.collate(items[4:])).isfinite().all()
+    assert fused_normalize.launches == before + 2 * launches
+
+
+def test_export_chunk_path_on_card(cuda):
+    from vimoclip_tpu_torch.export import MotionEmbeddingExporter
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+
+    cfg = ClipVisionConfig(**_TINY_VIT)
+    tower = init_parameters_(ClipVisionEncoder(cfg), torch.Generator().manual_seed(0))
+    exp = MotionEmbeddingExporter(tower.state_dict(), cfg, chunk_size=16, device="cuda")
+    frames = np.random.default_rng(1).integers(0, 256, (11, 32, 32, 3), dtype=np.uint8)
+    before = fused_normalize.launches
+    emb = exp._embed_chunk(frames)
+    assert fused_normalize.launches == before + 1
+    assert emb.shape == (11, 16) and np.isfinite(emb).all()
+    padded = torch.zeros(16, 32, 32, 3, dtype=torch.uint8, device=cuda)
+    padded[:11] = torch.from_numpy(frames).to(cuda)
+    with torch.inference_mode():
+        ref = exp.encoder(clip_preprocess(padded, 32, dtype=torch.bfloat16)).float()[:11]
+    np.testing.assert_array_equal(emb, ref.cpu().numpy())

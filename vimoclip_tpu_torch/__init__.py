@@ -1,5 +1,7 @@
-"""vimoclip_tpu_torch — the ViMoCLIP serving cascade in PyTorch, with its
-attention kernel written by hand in CUDA C++ for NVIDIA Hopper (sm_90a).
+"""vimoclip_tpu_torch — ViMoCLIP in PyTorch: the serving cascade, stage-1
+student training and motion export, and stage-2 TFAM training, with the
+attention kernels and the fused uint8 normalisation written by hand in
+CUDA C++ for NVIDIA Hopper (sm_90a).
 
 The module layout mirrors ``vimoclip_tpu`` so each counterpart is easy to
 find; the JAX package stays the numerical reference the port is tested

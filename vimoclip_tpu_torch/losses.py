@@ -1,10 +1,31 @@
-"""TFAM training objectives (the port's copy of the classification losses
-in ``vimoclip_tpu/losses.py``). Mean-reduced, float32 in, float32 out."""
+"""Training objectives (the port's copy of ``vimoclip_tpu/losses.py``): the
+stage-1 distillation loss and the classification losses of both stages.
+Mean-reduced, float32 in, float32 out."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+# the reference's epsilon for a NaN-safe cosine (reference losses.py:24)
+_COSINE_EPS = 1e-5
+
+
+def distillation_loss(student: torch.Tensor, teacher: torch.Tensor,
+                      mode: str = "mse") -> torch.Tensor:
+    """Stage-1 distillation between (..., T, D) student and teacher
+    embeddings: ``mse``, or ``cosine`` as the reference computes it (norms
+    clamped to >= 1e-5, the cosine clamped to (-1 + 1e-5, 1 - 1e-5), loss =
+    mean(1 - cos))."""
+    if mode == "mse":
+        return torch.mean(torch.square(student - teacher))
+    if mode == "cosine":
+        s_norm = torch.linalg.vector_norm(student, dim=-1).clamp(min=_COSINE_EPS)
+        t_norm = torch.linalg.vector_norm(teacher, dim=-1).clamp(min=_COSINE_EPS)
+        cos = torch.sum(student * teacher, dim=-1) / (s_norm * t_norm)
+        cos = cos.clamp(-1.0 + _COSINE_EPS, 1.0 - _COSINE_EPS)
+        return torch.mean(1.0 - cos)
+    raise ValueError(f"Unsupported mode '{mode}'. Choose 'mse' or 'cosine'.")
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,

@@ -8,7 +8,9 @@ they are:
   ``attn.in_proj_weight``, ``mlp.c_fc``/``c_proj``, raw ``proj`` applied as
   ``x @ proj``);
 - ``TFAM``: reference AMO_CLIP (packed ``in_proj_weight``, ``ffn.0/3``,
-  ``classifier.0/1/4``, ``projection_layer``).
+  ``classifier.0/1/4``, ``projection_layer``);
+- ``StudentModel``: the reference student (``visual_encoder.*`` as above,
+  ``residual_mlp.fc1/fc2``, ``classification_head.0/.2``).
 
 The converters here are the port's own copies of the mappings in
 ``vimoclip_tpu/models/torch_compat.py`` and ``clip_convert.py`` (the tests
@@ -91,6 +93,21 @@ def clip_vision_state_from_jax(params: Mapping, config: ClipVisionConfig,
         put(f"{t}.mlp.c_fc.bias", layer["mlp_fc1"]["bias"])
         put(f"{t}.mlp.c_proj.weight", np.asarray(layer["mlp_fc2"]["kernel"]).T)
         put(f"{t}.mlp.c_proj.bias", layer["mlp_fc2"]["bias"])
+    return out
+
+
+def student_state_from_jax(params: Mapping, vision_config: ClipVisionConfig) -> dict:
+    """Flax ``StudentModel`` params -> the reference student state dict (the
+    inverse of ``torch_compat.student_params_from_torch``)."""
+    out = clip_vision_state_from_jax(params["visual_encoder"], vision_config,
+                                     prefix="visual_encoder.")
+    for flax_name, name in (("fc1", "residual_mlp.fc1"), ("fc2", "residual_mlp.fc2")):
+        out[f"{name}.weight"] = _c(np.asarray(params["residual_mlp"][flax_name]["kernel"]).T)
+        out[f"{name}.bias"] = _c(params["residual_mlp"][flax_name]["bias"])
+    for flax_name, name in (("head_dense1", "classification_head.0"),
+                            ("head_dense2", "classification_head.2")):
+        out[f"{name}.weight"] = _c(np.asarray(params[flax_name]["kernel"]).T)
+        out[f"{name}.bias"] = _c(params[flax_name]["bias"])
     return out
 
 
@@ -244,6 +261,30 @@ def tfam_state_from_checkpoint(path: str) -> dict[str, np.ndarray]:
     return _load_state_file(path)
 
 
+def student_tower_state(state: Mapping) -> dict:
+    """The CLIP tower of a student state dict (its ``visual_encoder.*``
+    keys without the prefix); a bare tower passes through."""
+    if any(k.startswith("visual_encoder.") for k in state):
+        return strip_prefix({k: v for k, v in state.items()
+                             if k.startswith("visual_encoder.")}, "visual_encoder.")
+    return dict(state)
+
+
+def student_state_from_checkpoint(
+    path: str, vision_config: ClipVisionConfig | None = None
+) -> tuple[ClipVisionConfig, dict[str, np.ndarray]]:
+    """A reference stage-1 student checkpoint (``student_best.pth``: a state
+    dict, possibly under ``state_dict`` and DataParallel-prefixed) -> the
+    whole ``StudentModel`` state dict, plus the tower's config (inferred
+    from the shapes unless given)."""
+    state = _load_state_file(path)
+    if not any(k.startswith("visual_encoder.") for k in state):
+        raise ValueError(f"{path}: no 'visual_encoder.*' keys (not a student checkpoint)")
+    if vision_config is None:
+        vision_config = config_from_openai_state(state, prefix="visual_encoder.")
+    return vision_config, state
+
+
 def student_visual_state_from_checkpoint(
     path: str, vision_config: ClipVisionConfig | None = None
 ) -> tuple[ClipVisionConfig, dict[str, np.ndarray]]:
@@ -252,10 +293,5 @@ def student_visual_state_from_checkpoint(
     config (inferred from the shapes unless given). The serving cascade
     feeds TFAM the tower's output; the residual MLP and classification head
     are not used there."""
-    state = _load_state_file(path)
-    visual = {k: v for k, v in state.items() if k.startswith("visual_encoder.")}
-    if not visual:
-        raise ValueError(f"{path}: no 'visual_encoder.*' keys (not a student checkpoint)")
-    if vision_config is None:
-        vision_config = config_from_openai_state(visual, prefix="visual_encoder.")
-    return vision_config, strip_prefix(visual, "visual_encoder.")
+    vision_config, state = student_state_from_checkpoint(path, vision_config)
+    return vision_config, student_tower_state(state)

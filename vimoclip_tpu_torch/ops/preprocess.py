@@ -106,7 +106,12 @@ def clip_preprocess(
 
     The contraction runs in the output's precision: float32 output uses a
     float32 contraction, bfloat16 output a bfloat16 one (bf16 operands,
-    f32 accumulation inside the matmul, bf16 result)."""
+    f32 accumulation inside the matmul, bf16 result).
+
+    Frames that already have the encoder's size need neither resize nor
+    crop: they go through ``fused_normalize`` (kernel K5 on a card), the
+    same function as ``normalize`` up to one float32 ulp (it multiplies by
+    1/(255 std) where ``normalize`` divides by 255 std)."""
     if frames.dtype != torch.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
         raise ValueError(
             f"expected (B, H, W, 3) uint8 frames, got {tuple(frames.shape)} "
@@ -116,6 +121,11 @@ def clip_preprocess(
     (wh, h0, h1), (ww, w0, w1) = _weights_on(
         frames.shape[1], frames.shape[2], image_size, str(frames.device), cdtype
     )
+    if wh is None and ww is None:
+        # imported here: the kernel's module takes its constants from this one
+        from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+
+        return fused_normalize(frames, dtype=cdtype).to(dtype)
     x = frames[:, h0:h1, w0:w1, :].to(cdtype)
     if ww is not None:  # (B, h, w, C) x (w, W) -> (B, h, W, C)
         x = torch.einsum("bhwc,wW->bhWc", x, ww)

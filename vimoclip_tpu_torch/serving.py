@@ -26,7 +26,7 @@ from torch import nn
 from vimoclip_tpu_torch.config import TFAMModelConfig
 from vimoclip_tpu_torch.data.video_reader import read_video
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
-from vimoclip_tpu_torch.models.convert import strip_prefix, to_tensors
+from vimoclip_tpu_torch.models.convert import student_tower_state, to_tensors
 from vimoclip_tpu_torch.models.tfam import TFAM
 from vimoclip_tpu_torch.ops.batching import (
     embed_in_fixed_batches,
@@ -42,15 +42,6 @@ class Prediction:
     video_id: str
     top_classes: list[tuple[int, str, float]]  # (class_id, name, probability)
     probabilities: np.ndarray  # (num_classes,)
-
-
-def _student_tower(state: Mapping) -> dict:
-    """A reference student state dict carries its CLIP tower under
-    ``visual_encoder.``; a bare tower passes through."""
-    if any(k.startswith("visual_encoder.") for k in state):
-        return strip_prefix({k: v for k, v in state.items()
-                             if k.startswith("visual_encoder.")}, "visual_encoder.")
-    return dict(state)
 
 
 class ViMoCLIPPredictor:
@@ -103,7 +94,7 @@ class ViMoCLIPPredictor:
         self.teacher = self._place(ClipVisionEncoder(teacher_config, self.dtype),
                                    teacher_state)
         self.student = self._place(ClipVisionEncoder(student_config, self.dtype),
-                                   _student_tower(student_state))
+                                   student_tower_state(student_state))
         self.tfam = self._place(TFAM(tfam_config, num_classes, self.dtype),
                                 tfam_state)
         self._teacher_embed = self._make_embed(self.teacher, teacher_config.image_size)

@@ -3,6 +3,9 @@
 
 - ``make_adamw``: ``torch.optim.AdamW`` with the reference's betas (0.9,
   0.999), eps 1e-8 and decoupled weight decay.
+- ``make_adam``: stage 1's Adam (betas (0.9, 0.999), eps 1e-8), with an
+  optional clip of the gradients' global norm by optax's rule
+  (``clip_by_global_norm_``), applied inside ``step``.
 - ``cosine_annealing_schedule``: torch ``CosineAnnealingLR`` stepped once per
   epoch (reference TFAM/train_and_eval.py:53-56,162), written as a
   ``LambdaLR`` stepped once per optimizer step: constant within an epoch.
@@ -34,6 +37,44 @@ def make_adamw(params, lr: float, weight_decay: float = 0.1) -> torch.optim.Adam
                              weight_decay=weight_decay)
 
 
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` on the ``.grad`` of ``params``, in
+    place: where the global L2 norm n reaches ``max_norm`` every gradient
+    becomes g / n * max_norm; below it they are left alone. (torch's
+    ``clip_grad_norm_`` scales by max_norm / (n + 1e-6) instead, so a
+    clipped step would not match the JAX step.) Returns n; no host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
+class ClippedAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` whose ``step`` first clips the gradients' global
+    norm to ``grad_clip`` (``optax.chain(clip_by_global_norm, adam)``)."""
+
+    def __init__(self, params, lr: float, grad_clip: float | None = None):
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.grad_clip = grad_clip
+
+    def step(self, closure=None):
+        if self.grad_clip is not None:
+            clip_by_global_norm_([p for g in self.param_groups for p in g["params"]],
+                                 self.grad_clip)
+        return super().step(closure)
+
+
+def make_adam(params, lr: float, grad_clip: float | None = None) -> ClippedAdam:
+    """Plain Adam for stage 1 (reference train.py:66), optionally behind a
+    global-norm clip (train.py:105-106)."""
+    return ClippedAdam(params, lr, grad_clip=grad_clip)
+
+
 def cosine_annealing_lr(base_lr: float, epochs: int, steps_per_epoch: int,
                         eta_min: float = 1e-6):
     """step -> lr: eta_min + (base - eta_min) * (1 + cos(pi * e / epochs)) / 2
@@ -58,24 +99,27 @@ def cosine_annealing_schedule(optimizer: torch.optim.Optimizer, base_lr: float,
 
 @dataclasses.dataclass
 class TrainState:
-    """What a checkpoint holds: the model, its optimizer and schedule, and
-    the number of optimizer steps taken."""
+    """What a checkpoint holds: the model, its optimizer and schedule (None
+    for stage 1's constant rate), and the number of optimizer steps taken."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
     step: int = 0
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "step": self.step}
+        out = {"model": self.model.state_dict(),
+               "optimizer": self.optimizer.state_dict(),
+               "step": self.step}
+        if self.scheduler is not None:
+            out["scheduler"] = self.scheduler.state_dict()
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
-        self.scheduler.load_state_dict(state["scheduler"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
         self.step = int(state["step"])
 
 
