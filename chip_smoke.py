@@ -6,7 +6,8 @@ NVIDIA card:
 
 1. Device: the card's name and count, and nvidia-smi's name and power limit.
 2. Build: every CUDA kernel from ``vimoclip_tpu_torch/csrc`` with nvcc for
-   sm_90a (seconds and the ``-Xptxas -v`` report).
+   sm_90a (seconds and the ``-Xptxas -v`` report); the bf16 K3/K4 kernels'
+   SASS must hold wgmma products (HGMMA) and TMA loads (UTMALDG).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the bound.
@@ -19,8 +20,10 @@ NVIDIA card:
    (K1') and the backward kernels (K2; K3 + K4 past 512 keys) against their
    plain versions under the same Philox keep mask, with and without
    dropout, at the TFAM training shapes and at every shape that phase 6's
-   batches give them, with their times, the plain versions', SDPA's
-   (forward, and forward + backward) and the bounds; two backward calls
+   batches give them, with their times (K3 and K4 also with the 50 MB L2
+   flushed before each call), the plain versions', SDPA's (forward, and
+   forward + backward; device time, and call time with CUDA events) and the
+   bounds; two backward calls
    must agree bit for bit, and the kept fraction at p = 0.1 must sit within
    5 sigma of 0.9.
 6. Training path: ``TFAMTrainer`` at the AK recipe's full width (TFAM d512,
@@ -30,14 +33,16 @@ NVIDIA card:
    frames and one batch with a 700-1000-frame clip, with the kernel launches
    of each step; one ``validate`` pass; 15 steps on one batch must lower the
    loss; one dropout-0 step on the flash path against the eager path; step
-   time, clips/s, peak memory and one profiled step; and train steps with
+   time, clips/s, peak memory and one profiled step; the long batch's warm
+   step time and one profiled long step (device busy and idle share); and
+   train steps with
    dropout at the 128-, 256- and 512-frame buckets on the eager path and on
    the kernels, which sets where ``attention_impl: auto`` turns to them.
 7. K5 vs plain: the fused uint8 normalisation against its plain version,
    bit for bit, in float32 and bfloat16, at the stage-1 training step's
    frames (232, 224, 224, 3), an export chunk (128, 224, 224, 3) and an odd
    misaligned view (3, 17, 31, 3), with its time (L2 flushed before each
-   call, and warm), the plain version's, the bound and the achieved GB/s
+   call, and warm; each the median of three traces), the plain version's, the bound and the achieved GB/s
    (no single PyTorch call computes it).
 8. Stage-1 training: ``StudentTrainer`` with ViT-B/32 at full width (12
    layers x 768, 12 heads, patch 32), batch 8, 29 motion frames per
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -91,18 +97,26 @@ MAIN_SHAPE = KERNEL_SHAPES[0]
 # and cross-attention, K2), a 1024-frame bucket (K3 + K4), and a ragged case;
 # the shapes of phase 6's batches are added at run time.
 TRAIN_SHAPES = [(8, 8, 384, 384, 64), (8, 8, 384, 256, 64),
-                (8, 8, 1024, 1024, 64), (2, 2, 300, 299, 64)]
+                (8, 8, 1024, 1024, 64), (2, 2, 300, 299, 64),
+                # past 512 keys: ragged Tq != Tk at head dim 32, head dim 128
+                # (two 64-column chunks), and Tq below one tile
+                (2, 2, 700, 613, 32), (2, 2, 530, 1000, 128), (2, 2, 40, 777, 64)]
 # lse (elementwise) and gradients (relative to the largest |value| of their
 # batch row): float32 sums in other orders; bf16 rounds P and dS to bf16 at
 # each product (2^-8) after float32 scores that differ in their last bits,
 # and stores bf16
 LSE_TOL = 1e-4
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# the device-side kernels of each wrapper (profiler entry names), and how
-# many of them one call launches
-KERNEL_NAMES = {"fwd": ("fma_kernel", "mma_kernel"), "fwd_lse": ("fma_kernel", "mma_kernel"),
-                "bwd_dqkv": ("dkv_kernel", "dq_reduce_kernel"),
-                "bwd_dq": ("dq_kernel",), "bwd_dkv": ("dkv_kernel",)}
+# the device-side kernels of each wrapper by dtype (profiler entry names),
+# and how many of them one call launches
+_FWD_NAMES = {"float32": ("fma_kernel",), "bfloat16": ("mma_kernel",)}
+KERNEL_NAMES = {
+    "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
+    "bwd_dqkv": {"float32": ("dkv_kernel<float", "dq_reduce_kernel<float"),
+                 "bfloat16": ("dkv_kernel<__nv_bfloat16", "dq_reduce_kernel<__nv_bfloat16")},
+    "bwd_dq": {"float32": ("dq_kernel<float",), "bfloat16": ("dq_wgmma_kernel",)},
+    "bwd_dkv": {"float32": ("dkv_kernel<float",), "bfloat16": ("dkv_wgmma_kernel",)},
+}
 KERNEL_PER_CALL = {"fwd": 1, "fwd_lse": 1, "bwd_dqkv": 2, "bwd_dq": 1, "bwd_dkv": 1}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
@@ -153,11 +167,12 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(torch, fn, iters: int = 20, names: tuple[str, ...] = (),
-              per_call: int | None = None) -> float:
+              per_call: int | None = None, required: bool = True) -> float | None:
     """Mean device busy time per call of ``fn``: the durations of every
     kernel and copy it ran on the card (only those whose name contains one
     of ``names``, when given), from a ``torch.profiler`` trace (CUPTI) over
-    ``iters`` calls after one warm-up call.
+    ``iters`` calls after one warm-up call. With ``required`` False, five
+    traces without a device event give None instead of failing.
 
     Within a long run a trace now and then comes back one event short, or
     empty (seen after SDPA with dropout). So the calls sit between two
@@ -187,6 +202,8 @@ def device_ms(torch, fn, iters: int = 20, names: tuple[str, ...] = (),
         if got[0] and got[0] == (last if want is None else want):
             return got[1] / iters / 1e3
         last, fullest = got[0], max(fullest, got)
+    if not required and fullest[0] == 0:
+        return None
     check(fullest[0] > 0, f"the profiler recorded no device time {names or ''}")
     print(f"[profiler] warning: five traces of {names or 'a call'} disagree on their "
           f"device events (expected {want}); the fullest ({fullest[0]}) is taken",
@@ -251,6 +268,37 @@ def phase_build() -> None:
     for b in built.values():
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.relative_to(HERE)}")
         print(b.log.strip())
+    sass_check(built["flash_attention_bwd"].path, ("dq_wgmma_kernel", "dkv_wgmma_kernel"))
+
+
+def sass_check(lib: Path, kernels: tuple[str, ...]) -> dict:
+    """Count, in the SASS of ``lib`` (``cuobjdump -sass``), each named
+    kernel's tensor-core products (HGMMA, from wgmma) and TMA loads (UTMALDG);
+    fails unless every instantiation of each kernel has both."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts: dict[str, list[int]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((k for k in kernels if k in m.group(1)), None)
+            if name:
+                counts.setdefault(name, []).append([0, 0])
+            continue
+        if name:
+            counts[name][-1][0] += "HGMMA" in line
+            counts[name][-1][1] += "UTMALDG" in line
+    for k in kernels:
+        check(bool(counts.get(k)) and all(h and t for h, t in counts[k]),
+              f"{k}: no HGMMA or no UTMALDG in some instantiation's SASS: {counts.get(k)}")
+    print("[sass] " + json.dumps({k: {"instantiations": len(v), "hgmma": [h for h, _ in v],
+                                      "utmaldg": [t for _, t in v]} for k, v in counts.items()}))
+    return counts
 
 
 def phase_kernels(torch, seed: int, smi: str) -> dict:
@@ -283,7 +331,7 @@ def phase_kernels(torch, seed: int, smi: str) -> dict:
             kernel = lambda: flash_attention(q, k, v, key_padding_mask=mask)
             plain = lambda: flash_attention_reference(q, k, v, mask)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-            ms = device_ms(torch, kernel, names=KERNEL_NAMES["fwd"],
+            ms = device_ms(torch, kernel, names=KERNEL_NAMES["fwd"][dtype_name],
                            per_call=KERNEL_PER_CALL["fwd"])
             plain_ms, library_ms = (device_ms(torch, f) for f in (plain, library))
             item = dtype.itemsize
@@ -345,6 +393,8 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
 
     shapes = list(dict.fromkeys([*TRAIN_SHAPES, *main_shapes.values()]))
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    # K3 and K4 are also timed with the 50 MB L2 flushed before each call
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     main = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -408,23 +458,41 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
                 bwd = lambda: fa.backward_kernels(q, k, v, mask, seeds, rate, out, lse, grad)
                 # every profiled time first: after SDPA with dropout the
                 # profiler's trace may hold no device events, so SDPA (the
-                # yardstick) is timed last, with CUDA events. K3 and K4 run in
-                # one backward; the profiler's kernel names split their times.
+                # yardstick) is timed last: with CUDA events (its call time,
+                # which the host's launches bound at small shapes) and then
+                # its device time, which is the library_ms compared with the
+                # kernels' device time (the call time where no trace holds a
+                # device event). K3 and K4 run in one backward; the
+                # profiler's kernel names split their times.
                 calls = [("fwd_lse", fwd)] + [(kind, bwd) for kind in kinds]
-                kernel_ms = {kind: device_ms(torch, call, iters=10, names=KERNEL_NAMES[kind],
+                kernel_ms = {kind: device_ms(torch, call, iters=10,
+                                             names=KERNEL_NAMES[kind][dtype_name],
                                              per_call=KERNEL_PER_CALL[kind])
                              for kind, call in calls}
+                flushed_ms = {kind: device_ms(torch, lambda: (flush.zero_(), bwd()), iters=10,
+                                              names=KERNEL_NAMES[kind][dtype_name],
+                                              per_call=KERNEL_PER_CALL[kind])
+                              for kind in kinds if kind != "bwd_dqkv"}
                 plain_ms = {"fwd": device_ms(torch, plain_fwd, iters=10),
                             "bwd": device_ms(torch, plain_bwd, iters=10)}
-                sdpa_ms = {"fwd": cuda_ms(torch, sdpa_fwd),
-                           "bwd": cuda_ms(torch, sdpa_train, iters=10)}
+                sdpa_call_ms = {"fwd": cuda_ms(torch, sdpa_fwd),
+                                "bwd": cuda_ms(torch, sdpa_train, iters=10)}
+                sdpa_dev_ms = {"fwd": device_ms(torch, sdpa_fwd, iters=10, required=False),
+                               "bwd": device_ms(torch, sdpa_train, iters=10, required=False)}
+                sdpa_ms = {k: sdpa_call_ms[k] if sdpa_dev_ms[k] is None else sdpa_dev_ms[k]
+                           for k in sdpa_call_ms}
                 for kind, _ in calls:
                     bound_ms, bound_by = _bound(kind, dtype_name, shape, item, rate)
                     stage = "fwd" if kind == "fwd_lse" else "bwd"
                     row = {
                         "kernel": kind, "dtype": dtype_name, "shape": list(shape),
                         "dropout": rate, "ms": kernel_ms[kind],
+                        "flushed_ms": flushed_ms.get(kind),
                         "plain_ms": plain_ms[stage], "library_ms": sdpa_ms[stage],
+                        "library_timing": "events" if sdpa_dev_ms[stage] is None else "device",
+                        "library_call_ms": sdpa_call_ms[stage],
+                        "achieved_TF_per_s": OPS_PER_ELEMENT[kind] * b * h * tq * tk * d
+                        / (kernel_ms[kind] * 1e-3) / 1e12,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "max_abs_err": out_err if kind == "fwd_lse" else max(
                             (a.float() - r.float()).abs().max().item()
@@ -691,6 +759,21 @@ def phase_training(torch, setup: dict, smi: str) -> dict:
     step_ms = float(np.mean(times)) * 1e3
     prof = profile_request(torch, lambda: trainer.train_step(fixed), smi, label="train-profile")
 
+    # the long batch (a clip past 512 frames: K3 + K4 at every attention
+    # site), warm: steps 3-8 of 8
+    long = to_device(batches[-1], trainer.device)
+    long_times = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(long)
+        check(np.isfinite(float(loss)), f"non-finite loss on the long batch: {float(loss)}")
+        if i >= 2:
+            long_times.append(time.perf_counter() - t0)
+    long_step_ms = float(np.mean(long_times)) * 1e3
+    long_prof = profile_request(torch, lambda: trainer.train_step(long), smi,
+                                label="train-long-profile")
+
     # flash against eager: one dropout-0 step from the same weights
     state = trainer.model.state_dict()
 
@@ -723,6 +806,8 @@ def phase_training(torch, setup: dict, smi: str) -> dict:
         "clips_per_s": 8 / (step_ms / 1e3), "peak_mem_bytes": peak_bytes,
         "flash_vs_eager_loss": [loss_f, loss_x], "flash_vs_eager_grad_rel_l2": grad_rel_l2,
         "device_idle_share": prof["device_idle_share"],
+        "long_step_ms": long_step_ms, "long_device_busy_ms": long_prof["device_busy_ms"],
+        "long_device_idle_share": long_prof["device_idle_share"],
         "lengths": [[int(b["embeddings"].shape[1]), int(b["motion_embeddings"].shape[1])]
                     for b in batches],
         "kernel_main_shapes": setup["main_shapes"], "crossover": crossover,
@@ -796,10 +881,14 @@ def phase_normalize_kernel(torch, seed: int, smi: str) -> dict:
             err = (out.float() - ref.float()).abs().max().item()
             check(torch.equal(out, ref), f"fused_normalize {dtype_name} {shape}+{offset}: "
                                          f"not bitwise equal to the plain version ({err})")
-            ms = device_ms(torch, lambda: (flush.zero_(), fused_normalize(x, dtype=dtype)),
-                           names=("normalize_kernel",), per_call=1)
-            warm_ms = device_ms(torch, lambda: fused_normalize(x, dtype=dtype),
-                                names=("normalize_kernel",), per_call=1)
+            # the median of three traces: a trace now and then mistimes its
+            # events (one read a flushed time below the bytes bound)
+            ms = statistics.median(
+                device_ms(torch, lambda: (flush.zero_(), fused_normalize(x, dtype=dtype)),
+                          names=("normalize_kernel",), per_call=1) for _ in range(3))
+            warm_ms = statistics.median(
+                device_ms(torch, lambda: fused_normalize(x, dtype=dtype),
+                          names=("normalize_kernel",), per_call=1) for _ in range(3))
             plain_ms = device_ms(torch, lambda: fused_normalize_reference(x, dtype=dtype))
             moved = n * (1 + dtype.itemsize)  # uint8 in, dtype out
             t_bytes = moved / HBM_BYTES_PER_S * 1e3

@@ -126,6 +126,9 @@ def _train_call(q, k, v, mask, rate, seed, grad_out):
 @pytest.mark.parametrize("shape", [
     (8, 8, 384, 384, 64), (8, 8, 384, 256, 64), (8, 8, 1024, 1024, 64),
     (2, 2, 300, 299, 64), (2, 2, 130, 77, 16), (2, 2, 70, 600, 128),
+    # past 512 keys: ragged Tq != Tk at head dim 32, head dim 128, Tq below
+    # one tile, and a head dim TMA needs the padded copy for (bf16 rows of 40 bytes)
+    (2, 2, 700, 613, 32), (2, 2, 530, 1000, 128), (2, 2, 40, 777, 64), (2, 3, 100, 530, 20),
 ], ids=lambda s: "x".join(map(str, s)))
 def test_training_kernels_match_plain(cuda, shape, dtype, rate):
     b, h, tq, tk, d = shape
@@ -163,6 +166,41 @@ def test_training_kernels_read_strided_views(cuda, dtype, offset):
     assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
     for a, r in zip(got[1:], ref[1:]):
         assert _rel(a, r) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_long_training_kernels_read_strided_views(cuda, dtype, offset):
+    # past 512 keys (K3 + K4); offset 1 leaves every bf16 row misaligned, so
+    # the wrapper hands the TMA kernels a padded copy
+    b, t, h, d = 2, 600, 4, 32
+    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).to(dtype)[..., offset:]
+    q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
+    g = torch.randn(b, h, t, d, device=cuda).to(dtype)
+    before = dict(flash_attention.launches)
+    got, ref = _train_call(q, k, v, None, 0.1, 5, g)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["bwd_dq"] == before["bwd_dq"] + 1
+    assert flash_attention.launches["bwd_dkv"] == before["bwd_dkv"] + 1
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
+    for a, r in zip(got[1:], ref[1:]):
+        assert _rel(a, r) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_long_backward_fully_masked_rows(cuda, dtype, rate):
+    # two batch rows with every key ignored: P = 1 on each of their keys, as
+    # in the plain version (and the TPU kernels)
+    b, h, tq, tk, d = 4, 2, 130, 700, 64
+    q, k, v, mask = _inputs(b, h, tq, tk, d, dtype, cuda, seed=3, masked_rows=(0, 2))
+    g = torch.randn(b, h, tq, d, device=cuda).to(dtype)
+    got, ref = _train_call(q, k, v, mask, rate, 11, g)
+    for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, r) <= GRAD_TOL[dtype], (name, _rel(a, r))
+        # the fully masked rows' gradients are not zero: their P is 1
+        assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
 
 
 @pytest.mark.parametrize("tk", [384, 1024], ids=["dqkv", "dq+dkv"])

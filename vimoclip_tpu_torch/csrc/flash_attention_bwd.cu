@@ -21,26 +21,81 @@
 //   dV = round_T(keep ? P / (1 - rate) : 0)^T . dO
 // with float32 accumulators throughout and one rounding to T at the store,
 // the rounding points of the TPU kernels (flash_attention.py:199-231, 262,
-// 268). T is float32 or bfloat16.
+// 268). T is float32 or bfloat16. A fully masked row has lse = -1e9 and so
+// recomputes P = 1 for each real key, as the TPU kernels do.
 //
-// Design. One recompute of P gives all three gradients in K2: one CTA per
-// (64-key tile, head, batch row) sweeps every 64-row query tile, keeping its
-// keys' dK/dV in registers, and writes its share of dQ (the sum over its 64
-// keys) to float32 scratch (B, H, nk, Tq, D); a second small kernel adds the
-// nk shares in a fixed order. No atomics anywhere, so two calls give
-// bitwise-equal gradients. K4 is the same CTA without the dQ share; K3 is
-// one CTA per 64-row query tile sweeping the key tiles with dQ in
-// registers. The keep bits of each 64x64 tile are drawn into a shared-memory
-// bitmask by the whole CTA from global (row, column) coordinates, so every
-// kernel regenerates the forward's mask whatever its tiling.
+// K2, and K3/K4 in float32. One recompute of P gives all three gradients in
+// K2: one CTA per (64-key tile, head, batch row) sweeps every 64-row query
+// tile, keeping its keys' dK/dV in registers, and writes its share of dQ
+// (the sum over its 64 keys) to float32 scratch (B, H, nk, Tq, D); a second
+// small kernel adds the nk shares in a fixed order. No atomics anywhere, so
+// two calls give bitwise-equal gradients. The float32 K4 is the same CTA
+// without the dQ share; the float32 K3 is one CTA per 64-row query tile
+// sweeping the key tiles with dQ in registers. The keep bits of each 64x64
+// tile are drawn into a shared-memory bitmask by the whole CTA from global
+// (row, column) coordinates, so every kernel regenerates the forward's mask
+// whatever its tiling. These kernels do every product with float32 FMAs from
+// shared memory (four lanes share a row or key): float32 inputs keep full
+// precision (tensor cores would round them to TF32), and K2 in bf16 waits for
+// its own redesign. At the TFAM shapes (B=8, H=8, T=384, D=64) K2's bound is
+// about 6 GFLOP, 6 us on bf16 tensor cores; it runs near the 67 TF/s FMA rate.
 //
-// What bounds it on the H100: at the TFAM training shapes (B=8, H=8,
-// T=384, D=64) a backward is about 6 GFLOP on a few MB, so operations bound
-// it: 6 us on bf16 tensor cores. This first version does the products with
-// float32 FMAs from shared memory for both types (four lanes share a row or
-// key, as in the forward's float32 kernel), so it runs far from that bound,
-// at best near the 67 TF/s FMA rate. Moving the bf16 products onto
-// mma.sync/wgmma is later work.
+// K3 and K4 in bfloat16 (dq_wgmma_kernel, dkv_wgmma_kernel), past 512 keys.
+//   K3 replaces _dq_kernel (flash_attention.py:214, call :493); K4 replaces
+//   _dkv_kernel (:244, call :519).
+//   Bound at the long-batch shape (B=8, H=8, Tq=Tk=768, D=64): operations,
+//   K3 14.5 GFLOP (QK^T, dO V^T, dS K) = 14.7 us and K4 19.3 GFLOP (K Q^T,
+//   V dO^T, P^T dO, dS^T Q) = 19.5 us at 989 TF/s; bytes, each input read and
+//   each output written once, 31.9 MB = 9.5 us and 38.1 MB = 11.4 us at
+//   3.35 TB/s. With dropout, drawing the keep bits (Philox4x32-10, 10 rounds
+//   of two 32-bit multiplies per 4 keys) is about 9.4 M calls per kernel at
+//   this shape, more integer issue than the tensor-core time.
+//   What the design does about it:
+//   - every product on the tensor cores: wgmma m64nNk16 (bf16 in, float32
+//     accumulate). S and dP come from two shared-memory operands (SS); the
+//     score tile is then turned into dS (and P) in registers, which already
+//     sit in the A-operand layout of the next product (RS), so P and dS
+//     never touch shared memory. K3 computes S = Qs K^T and dP = dO V^T with
+//     query rows as wgmma's 64-row M; K4 computes S^T = K Qs^T and
+//     dP^T = V dO^T with keys as M, so that P^T and dS^T are the A operands
+//     of dV += P^T dO and dK += dS^T Q. The second operand of those (K in
+//     K3; dO and Q in K4) is read MN-major (transposed) from the same tile.
+//   - one CTA per output tile (64 query rows for K3, 64 keys for K4, per
+//     head and batch row) owns its accumulators in registers for the whole
+//     sweep and stores them once: no atomics, sums in a fixed order, so two
+//     calls agree bit for bit.
+//   - a producer warp streams the swept tiles (K, V for K3; Q, dO for K4)
+//     with TMA into a two-stage ring of 128-byte-swizzled 64x64 chunks,
+//     completion on mbarriers, so the next tile is in flight while one
+//     warpgroup multiplies the current one. Boxes past Tq, Tk or D fill with
+//     zeros: ragged lengths and head dims below 64 or 128 need no masks in
+//     the loads. The producer also stages the tile's key bias (K3) or its
+//     rows' lse, delta and keep bits (K4).
+//   - K3 draws the keep bits once (the consumers fill a tile's bitmask while
+//     its first products run) and writes each 64x64 tile's bits as 512
+//     contiguous bytes of a (B, H, ceil(Tk/64), 64 ceil(Tq/64), 2) uint32
+//     buffer; K4, launched after it on the same stream, takes them with one
+//     bulk copy per tile beside its TMA loads instead of drawing them again:
+//     half the Philox work of two draws. (Drawn by the producer warp alone,
+//     the bits made K3 slower: one warp cannot keep pace with the products.)
+//   - the elementwise step is the longest part of a tile after the products:
+//     exp(s - lse) goes through ex2.approx (a few float32 ulp from expf,
+//     before P's bf16 rounding), 1 / (1 - rate) is one reciprocal per thread
+//     (within an ulp of the division, before dS's bf16 rounding), the keep bit
+//     scales by a product rather than a branch, and row data (bias, lse,
+//     delta) is read as float2.
+//   - K4 needs Q scaled and rounded (for S) and unscaled (for dK). Where the
+//     scale is a power of two (D = 64: 1/8, D = 16: 1/4), round(q * scale) is
+//     q * scale exactly (barring subnormals), so one tile serves both and S
+//     is scaled in registers, which is bitwise the same score; otherwise the
+//     consumers write a scaled, rounded copy of each Q tile.
+//   Operands TMA cannot address (a start not 16-byte aligned, a stride not a
+//   multiple of 16 bytes) are copied by the Python wrapper first; the entry
+//   refuses them (-5).
+
+#include <cuda.h>  // CUtensorMap
+
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
 
@@ -48,7 +103,9 @@ namespace {
 
 using vimo::fill_keep_bits;
 using vimo::kept;
+using vimo::kMaskValue;
 using vimo::mask_score;
+using vimo::neg_inf;
 using vimo::pos_inf;
 
 constexpr int kB = 64;                  // query rows per q tile, keys per k tile
@@ -70,6 +127,8 @@ struct BwdParams {
   void* dk;
   void* dv;
   float* dq_part;       // (B, H, nk, Tq, D) contiguous scratch (K2 only)
+  uint32_t* keep_bits;  // (B, H, nk, tq_pad, 2) keep bits, bf16 K3 -> K4 with dropout
+  int tq_pad;           // Tq rounded up to 64
   int B, H, Tq, Tk, D;
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
@@ -377,6 +436,577 @@ __global__ void dq_reduce_kernel(const BwdParams p, int n_kt) {
 }
 
 // ---------------------------------------------------------------------------
+// K3 / K4 in bfloat16: wgmma on TMA-fed shared-memory tiles
+// ---------------------------------------------------------------------------
+//
+// Tiles are 64 rows x 64 bf16 columns (128 bytes a row, 8 KB) in the layout
+// TMA's 128-byte swizzle writes; a head dim above 64 takes two such chunks
+// (DP = 64 * NC). Accumulator layout of wgmma m64nNk16 (float32), for thread
+// `tid` of the warpgroup (warp w = tid / 32, g = lane / 4, t4 = lane % 4):
+//   d[4j + e] = D[16w + g + 8 (e / 2)][8j + 2 t4 + (e % 2)],  j < N / 8
+// and the register A operand of a 64 x 16 slice is the same as mma.sync's
+// m16n8k16 A fragment per warp, so accumulator columns 16c .. 16c + 15 are
+// the A operand of k-step c after packing pairs to bf16.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;                   // query rows or keys per tile
+constexpr int kChunk = kTile * 64;          // elements of one swizzled chunk
+constexpr int kStages = 2;                  // ring depth of the swept tiles
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kHopThreads = kConsumers + 32;  // and one producer warp
+constexpr uint32_t kBitsBytes = 2 * kTile * sizeof(uint32_t);  // keep bits of a 64x64 tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic on the barrier
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// announce `bytes` of TMA traffic on the barrier, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// box (64 columns from c0, 64 rows from row0) of head (h, b) of a (B, H, T, D)
+// tensor map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int row0, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(row0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from device memory into shared memory (both
+// 16-byte aligned), completion on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the consumer warpgroup's own barrier (the producer warp never joins it)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// generic-proxy writes to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from reading or moving accumulators across an
+// asynchronous wgmma (its issue and its wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(ptr) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (rows of a tile, contracted over its columns), k-step kk
+// of 16 columns: chunk kk / 4, 32 bytes further per step inside the 128-byte
+// row; 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kChunk + (kk & 3) * 16, 16, 1024);
+}
+
+// MN-major operand (contracted over the tile's rows, its columns the N
+// dimension), k-step kk of 16 rows: 8-row groups 1024 bytes apart, the next
+// 64 columns one chunk (8 KB) further
+__device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 64, kChunk * 2, 1024);
+}
+
+// D (64 x 64, float32) {+}= A . B^T, A and B K-major bf16 tiles in
+// shared memory (128-byte swizzle); accumulate unless `zero`
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, bool zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"((uint32_t)zero));
+}
+
+// D (64 x 64, float32) += A . B, A (64 x 16 bf16) in registers, B an
+// MN-major bf16 tile in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
+}
+
+// D (64 x 128, float32) += A . B, A (64 x 16 bf16) in registers, B an
+// MN-major bf16 tile in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// exp(x) as 2^(x log2 e) on the special-function unit: a few float32 ulp
+// from expf, far inside the bf16 rounding of P that follows; exp(-inf) = 0
+__device__ __forceinline__ float exp_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// 1 / (1 - rate) where element (r, j) of a tile's keep bits is set, else 0:
+// a product, not a branch on random bits
+__device__ __forceinline__ float keep_scale(const uint32_t* bits, int r, int j, float inv_keep) {
+  return __uint2float_rn((bits[2 * r + (j >> 5)] >> (j & 31)) & 1u) * inv_keep;
+}
+
+// accumulator columns 16c .. 16c + 15 (rounded to bf16) as the A operand of
+// k-step c
+__device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    a[c][0] = pack_bf16(d[8 * c + 0], d[8 * c + 1]);
+    a[c][1] = pack_bf16(d[8 * c + 2], d[8 * c + 3]);
+    a[c][2] = pack_bf16(d[8 * c + 4], d[8 * c + 5]);
+    a[c][3] = pack_bf16(d[8 * c + 6], d[8 * c + 7]);
+  }
+}
+
+// acc (+)= A . B for a 64 x 16 register slice A and the MN-major k-step kk
+// of tile B, N = DP
+template <int NC>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[32 * NC], const uint32_t (&a)[4],
+                                         const bf16* tile, int kk) {
+  if constexpr (NC == 1) {
+    wgmma_rs_n64(acc, a, mnmajor_desc(tile, kk));
+  } else {
+    wgmma_rs_n128(acc, a, mnmajor_desc(tile, kk));
+  }
+}
+
+// dst = round_bf16(src * scale) over NC chunks, 8 elements per step (the
+// swizzle permutes 16-byte pieces, so an elementwise pass ignores it)
+template <int NC>
+__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src, float scale, int tid) {
+  for (int i = tid; i < NC * kChunk / 8; i += kConsumers) {
+    uint4 raw = reinterpret_cast<const uint4*>(src)[i];
+    bf16* x = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __float2bfloat16_rn(__bfloat162float(x[e]) * scale);
+    reinterpret_cast<uint4*>(dst)[i] = raw;
+  }
+}
+
+// rows r0 + (row of the accumulator) of a (T, D) output, times `mul`, as bf16
+template <int NC>
+__device__ __forceinline__ void store_rows(bf16* out, long long st, int r0, int t, int d,
+                                           const float (&acc)[32 * NC], float mul, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8 * NC; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + warp * 16 + g + 8 * (e >> 1);
+      const int c = 8 * j + 2 * t4 + (e & 1);
+      if (row < t && c < d) out[(long long)row * st + c] = __float2bfloat16_rn(acc[4 * j + e] * mul);
+    }
+  }
+}
+
+// 1024-byte aligned start of dynamic shared memory (the swizzle atom)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t off = smem_u32(p) & 1023u;
+  return off ? p + (1024u - off) : p;
+}
+
+template <int NC>
+constexpr size_t dq_hop_smem_bytes() {
+  return 1024 + (size_t)(2 + 2 * kStages) * NC * kChunk * sizeof(bf16) +
+         sizeof(float) * kStages * kTile + sizeof(uint32_t) * 2 * 2 * kTile +
+         sizeof(uint64_t) * (2 * kStages + 1);
+}
+
+template <int NC, bool POW2>
+constexpr size_t dkv_hop_smem_bytes() {
+  return 1024 + (size_t)(2 + 2 * kStages + (POW2 ? 0 : 1)) * NC * kChunk * sizeof(bf16) +
+         (sizeof(float) * 2 * kTile + sizeof(uint32_t) * 2 * kTile) * kStages +
+         sizeof(uint64_t) * (2 * kStages + 1);
+}
+
+// ---------------------------------------------------------------------------
+// K3 (bf16): dq, one CTA per (64-row q tile, head, batch row)
+// ---------------------------------------------------------------------------
+
+template <int NC, bool DROP>
+__global__ void __launch_bounds__(kHopThreads, 2) dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  constexpr int KS = 4 * NC;  // k-steps of the S and dP products
+  constexpr uint32_t kTileBytes = NC * kChunk * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // round(q * scale)
+  bf16* dOs = Qs + NC * kChunk;
+  bf16* Kring = dOs + NC * kChunk;                // kStages tiles
+  bf16* Vring = Kring + kStages * NC * kChunk;
+  float* bias_ring = reinterpret_cast<float*>(Vring + kStages * NC * kChunk);  // kStages x 64
+  uint32_t* bits = reinterpret_cast<uint32_t*>(bias_ring + kStages * kTile);   // 2 x 128 words
+  uint64_t* full = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: q and dO once, then K/V tiles and their key bias
+    const int lane = tid - kConsumers;
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 2 * kTileBytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(Qs + c * kChunk, &tm_q, qbar, 64 * c, q0, h, b);
+        tma_load(dOs + c * kChunk, &tm_do, qbar, 64 * c, q0, h, b);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, k0 = t * kTile;
+      if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+      if (lane == 0) {  // the copies first, so they fly while the bias loads
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        for (int c = 0; c < NC; ++c) {
+          tma_load(Kring + (s * NC + c) * kChunk, &tm_k, &full[s], 64 * c, k0, h, b);
+          tma_load(Vring + (s * NC + c) * kChunk, &tm_v, &full[s], 64 * c, k0, h, b);
+        }
+      }
+      for (int j = lane; j < kTile; j += 32) {
+        const int key = k0 + j;
+        bias_ring[s * kTile + j] =
+            key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+      }
+      mbar_arrive(&full[s]);  // each lane after its own writes
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows r_lo and r_lo + 8 of the tile per thread
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = warp * 16 + g;
+  float lse_r[2], delta_r[2];
+  bool row_in[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r_lo + 8 * r;
+    row_in[r] = row < p.Tq;
+    lse_r[r] = row_in[r] ? p.lse[bh * p.Tq + row] : 0.f;
+    delta_r[r] = row_in[r] ? p.delta[bh * p.Tq + row] : 0.f;
+  }
+  const uint32_t seed = DROP ? (uint32_t)p.seed[bh] : 0u;
+  // times 1 / (1 - rate): within a float32 ulp of the division, before the
+  // bf16 rounding of dS
+  const float inv_keep = 1.f / p.keep;
+
+  mbar_wait(qbar, 0);
+  scale_tile<NC>(Qs, Qs, p.scale, tid);
+  fence_proxy_async();
+  consumer_sync();
+
+  float acc[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages, k0 = t * kTile;
+    const bf16* Ks = Kring + s * NC * kChunk;
+    const bf16* Vs = Vring + s * NC * kChunk;
+    mbar_wait(&full[s], (t / kStages) & 1);
+
+    float sacc[32], dpacc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(sacc, kmajor_desc(Qs, kk), kmajor_desc(Ks, kk), kk == 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(dpacc, kmajor_desc(dOs, kk), kmajor_desc(Vs, kk), kk == 0);
+    wg_commit();
+
+    // the keep bits of this tile while the products run (drawn by the
+    // consumers: a producer warp alone is slower than the products);
+    // double-buffered, so one barrier per tile orders the fill against every
+    // reader. K4 reads them back: each thread stores its own word into the
+    // tile's 512 contiguous bytes.
+    uint32_t* tb = bits + (t & 1) * 2 * kTile;
+    if constexpr (DROP) {
+      fill_keep_bits(tb, kTile, q0, k0, seed, p.threshold, tid, kConsumers);
+      p.keep_bits[((bh * n_tiles + t) * p.tq_pad + q0) * 2 + tid] = tb[tid];
+      consumer_sync();
+    }
+    wg_wait_all();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+
+    const float* bias = bias_ring + s * kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // columns 8j + 2 t4 and the next: one 8-byte load of their bias
+      const float2 bias2 = reinterpret_cast<const float2*>(bias)[4 * j + t4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = 8 * j + 2 * t4 + (e & 1);
+        const float pj = exp_approx(sacc[4 * j + e] + ((e & 1) ? bias2.y : bias2.x) - lse_r[r]);
+        float dpj = dpacc[4 * j + e];
+        if constexpr (DROP) dpj *= keep_scale(tb, r_lo + 8 * r, col, inv_keep);
+        sacc[4 * j + e] = row_in[r] ? pj * (dpj - delta_r[r]) : 0.f;  // dS
+      }
+    }
+    uint32_t a[4][4];
+    to_a_operand(sacc, a);
+    wg_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs<NC>(acc, a[c], Ks, c);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows<NC>(dq, p.dq_st, q0, p.Tq, p.D, acc, p.scale, tid);
+}
+
+// ---------------------------------------------------------------------------
+// K4 (bf16): dk, dv, one CTA per (64-key tile, head, batch row)
+// ---------------------------------------------------------------------------
+
+template <int NC, bool DROP, bool POW2>
+__global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  constexpr int KS = 4 * NC;
+  constexpr uint32_t kTileBytes = NC * kChunk * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* Vs = Ks + NC * kChunk;
+  bf16* Qring = Vs + NC * kChunk;               // kStages tiles of unscaled q
+  bf16* dOring = Qring + kStages * NC * kChunk;
+  bf16* Qsc = dOring + kStages * NC * kChunk;   // round(q * scale), !POW2 only
+  float* lse_ring = reinterpret_cast<float*>(Qsc + (POW2 ? 0 : NC * kChunk));  // kStages x 64
+  float* delta_ring = lse_ring + kStages * kTile;
+  uint32_t* bits_ring = reinterpret_cast<uint32_t*>(delta_ring + kStages * kTile);  // kStages x 128
+  uint64_t* full = reinterpret_cast<uint64_t*>(bits_ring + kStages * 2 * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: K and V once, then Q/dO tiles with their rows' lse,
+    // delta (P = 0 past Tq) and K3's keep bits
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * kTileBytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(Ks + c * kChunk, &tm_k, kvbar, 64 * c, k0, h, b);
+        tma_load(Vs + c * kChunk, &tm_v, kvbar, 64 * c, k0, h, b);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, q0 = t * kTile;
+      if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+      if (lane == 0) {  // the copies first, so they fly while the rows' data loads
+        mbar_expect_tx(&full[s], 2 * kTileBytes + (DROP ? kBitsBytes : 0));
+        for (int c = 0; c < NC; ++c) {
+          tma_load(Qring + (s * NC + c) * kChunk, &tm_q, &full[s], 64 * c, q0, h, b);
+          tma_load(dOring + (s * NC + c) * kChunk, &tm_do, &full[s], 64 * c, q0, h, b);
+        }
+        if constexpr (DROP)  // K3's keep bits of this (key tile, q tile): 512 bytes
+          bulk_load(bits_ring + s * 2 * kTile,
+                    p.keep_bits + ((bh * gridDim.x + blockIdx.x) * p.tq_pad + q0) * 2,
+                    kBitsBytes, &full[s]);
+      }
+      for (int r = lane; r < kTile; r += 32) {
+        const bool in = q0 + r < p.Tq;
+        lse_ring[s * kTile + r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();
+        delta_ring[s * kTile + r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
+      }
+      mbar_arrive(&full[s]);  // each lane after its own writes
+    }
+    return;
+  }
+
+  // consumer warpgroup: keys kl_lo and kl_lo + 8 of the tile per thread
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kl_lo = warp * 16 + g;
+  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+  float kbias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kl_lo + 8 * r;
+    kbias[r] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+  }
+  const float inv_keep = 1.f / p.keep;
+  mbar_wait(kvbar, 0);
+
+  float dk[32 * NC], dv[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const bf16* Qt = Qring + s * NC * kChunk;
+    const bf16* dOt = dOring + s * NC * kChunk;
+    const float* lse_t = lse_ring + s * kTile;
+    const float* delta_t = delta_ring + s * kTile;
+    const uint32_t* bits_t = bits_ring + s * 2 * kTile;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    const bf16* Qscore = Qt;
+    if constexpr (!POW2) {
+      scale_tile<NC>(Qsc, Qt, p.scale, tid);
+      fence_proxy_async();
+      consumer_sync();
+      Qscore = Qsc;
+    }
+
+    float sacc[32], dpacc[32];  // S^T and dP^T: keys x query rows
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(sacc, kmajor_desc(Ks, kk), kmajor_desc(Qscore, kk), kk == 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(dpacc, kmajor_desc(Vs, kk), kmajor_desc(dOt, kk), kk == 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    if constexpr (!POW2) consumer_sync();  // every warp's S^T has read Qsc
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // query rows 8j + 2 t4 and the next: one 8-byte load each of lse, delta
+      const float2 lse2 = reinterpret_cast<const float2*>(lse_t)[4 * j + t4];
+      const float2 delta2 = reinterpret_cast<const float2*>(delta_t)[4 * j + t4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = 8 * j + 2 * t4 + (e & 1);
+        // POW2: the unscaled product times the power-of-two scale is the
+        // scaled product, bit for bit
+        const float sv = POW2 ? sacc[4 * j + e] * p.scale : sacc[4 * j + e];
+        const float pj = exp_approx(sv + kbias[r] - ((e & 1) ? lse2.y : lse2.x));
+        float pd = pj, dpj = dpacc[4 * j + e];
+        if constexpr (DROP) {
+          const float m = keep_scale(bits_t, col, kl_lo + 8 * r, inv_keep);
+          pd *= m;
+          dpj *= m;
+        }
+        sacc[4 * j + e] = pd;                                                // P^T, dropped
+        dpacc[4 * j + e] = pj * (dpj - ((e & 1) ? delta2.y : delta2.x));     // dS^T
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a_operand(sacc, pa);
+    to_a_operand(dpacc, dsa);
+    wg_fence();
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wgmma_rs<NC>(dv, pa[c], dOt, c);
+      wgmma_rs<NC>(dk, dsa[c], Qt, c);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[s]);
+  }
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_rows<NC>(dkp, p.dk_st, k0, p.Tk, p.D, dk, p.scale, tid);
+  store_rows<NC>(dvp, p.dv_st, k0, p.Tk, p.D, dv, 1.f, tid);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -392,11 +1022,13 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const BwdParams& p, cudaStream
 template <typename T, int DP, bool DROP>
 int run(const BwdParams& p, int which, cudaStream_t s) {
   const int n_qt = (p.Tq + kB - 1) / kB, n_kt = (p.Tk + kB - 1) / kB;
-  if (which == 1)
-    return launch(dq_kernel<T, DP, DROP>, dq_smem_bytes<DP>(), dim3(n_qt, p.H, p.B), p, s);
-  if (which == 2)
-    return launch(dkv_kernel<T, DP, DROP, false>, dkv_smem_bytes<DP>(),
-                  dim3(n_kt, p.H, p.B), p, s);
+  if constexpr (std::is_same_v<T, float>) {  // bf16 K3/K4: run_hopper
+    if (which == 1)
+      return launch(dq_kernel<T, DP, DROP>, dq_smem_bytes<DP>(), dim3(n_qt, p.H, p.B), p, s);
+    if (which == 2)
+      return launch(dkv_kernel<T, DP, DROP, false>, dkv_smem_bytes<DP>(),
+                    dim3(n_kt, p.H, p.B), p, s);
+  }
   if (which != 0) return -3;
   const int rc = launch(dkv_kernel<T, DP, DROP, true>, dkv_smem_bytes<DP>(),
                         dim3(n_kt, p.H, p.B), p, s);
@@ -412,6 +1044,116 @@ int run_drop(const BwdParams& p, int which, cudaStream_t s) {
   return run<T, DP, false>(p, which, s);
 }
 
+// ---------------------------------------------------------------------------
+// K3 / K4 (bf16) launch: tensor maps and dispatch
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
+// link against libcuda)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// TMA can address a (B, H, T, D) bf16 operand in place: 16-byte aligned
+// start, every stride a positive multiple of 16 bytes (8 elements)
+bool tma_legal(const void* ptr, long long sb, long long sh, long long st) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const long long strides[] = {sb, sh, st};
+  for (long long s : strides)
+    if (s <= 0 || s % 8) return false;
+  return true;
+}
+
+// dims (D, T, H, B) through the operand's strides, 64 x 64 boxes, 128-byte
+// swizzle, zeros out of bounds
+int encode_map(CUtensorMap* map, const void* ptr, const BwdParams& p, int t, long long sb,
+               long long sh, long long st) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return -4;
+  const cuuint64_t dims[4] = {(cuuint64_t)p.D, (cuuint64_t)t, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kTile, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : -4;
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+template <typename Kernel>
+int launch_hop(Kernel kernel, size_t smem, dim3 grid, const Maps& m, const BwdParams& p,
+               cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kHopThreads, smem, stream>>>(m.q, m.k, m.v, m.dout, p);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int run_hop(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
+  const bool drop = p.seed != nullptr;
+  if (which == 1) {
+    const dim3 grid((p.Tq + kTile - 1) / kTile, p.H, p.B);
+    const size_t smem = dq_hop_smem_bytes<NC>();
+    return drop ? launch_hop(dq_wgmma_kernel<NC, true>, smem, grid, m, p, s)
+                : launch_hop(dq_wgmma_kernel<NC, false>, smem, grid, m, p, s);
+  }
+  // round(q * scale) == q * scale exactly when the scale is a power of two
+  int exponent = 0;
+  const bool pow2 = frexpf(p.scale, &exponent) == 0.5f;
+  const dim3 grid((p.Tk + kTile - 1) / kTile, p.H, p.B);
+  if (pow2) {
+    const size_t smem = dkv_hop_smem_bytes<NC, true>();
+    return drop ? launch_hop(dkv_wgmma_kernel<NC, true, true>, smem, grid, m, p, s)
+                : launch_hop(dkv_wgmma_kernel<NC, false, true>, smem, grid, m, p, s);
+  }
+  const size_t smem = dkv_hop_smem_bytes<NC, false>();
+  return drop ? launch_hop(dkv_wgmma_kernel<NC, true, false>, smem, grid, m, p, s)
+              : launch_hop(dkv_wgmma_kernel<NC, false, false>, smem, grid, m, p, s);
+}
+
+// K3 (which 1) or K4 (which 2) in bf16; with dropout K3 writes the keep
+// bits to p.keep_bits and K4 reads them
+int run_hopper(const BwdParams& p, int which, cudaStream_t s) {
+  if (!tma_legal(p.q, p.q_sb, p.q_sh, p.q_st) || !tma_legal(p.k, p.k_sb, p.k_sh, p.k_st) ||
+      !tma_legal(p.v, p.v_sb, p.v_sh, p.v_st) ||
+      !tma_legal(p.dout, p.do_sb, p.do_sh, p.do_st))
+    return -5;
+  if (p.seed != nullptr && p.keep_bits == nullptr) return -6;
+  Maps m;
+  int rc = encode_map(&m.q, p.q, p, p.Tq, p.q_sb, p.q_sh, p.q_st);
+  if (rc == 0) rc = encode_map(&m.k, p.k, p, p.Tk, p.k_sb, p.k_sh, p.k_st);
+  if (rc == 0) rc = encode_map(&m.v, p.v, p, p.Tk, p.v_sb, p.v_sh, p.v_st);
+  if (rc == 0) rc = encode_map(&m.dout, p.dout, p, p.Tq, p.do_sb, p.do_sh, p.do_st);
+  if (rc != 0) return rc;
+  return p.D <= 64 ? run_hop<1>(m, p, which, s) : run_hop<2>(m, p, which, s);
+}
+
 template <typename T>
 int run_type(const BwdParams& p, int which, cudaStream_t s) {
   if (p.D <= 32) return run_drop<T, 32>(p, which, s);
@@ -423,12 +1165,17 @@ int run_type(const BwdParams& p, int which, cudaStream_t s) {
 
 // which: 0 = K2 (dq, dk, dv; dq_part scratch of B*H*ceil(Tk/64)*Tq*D
 // floats), 1 = K3 (dq), 2 = K4 (dk, dv). dtype: 0 = float32, 1 = bfloat16.
+// keep_bits: with dropout in bf16 K3/K4, a (B, H, ceil(Tk/64), 64 ceil(Tq/64),
+// 2) uint32 buffer (the keep bits of each 64x64 tile in 512 contiguous bytes)
+// that K3 fills and K4 reads; null otherwise.
 // Returns 0, a cudaError_t code, -1 for an unknown dtype, -2 for a head dim
-// above 128 or -3 for an unknown `which`.
+// above 128, -3 for an unknown `which`, -4 when the driver refuses a tensor
+// map, -5 for an operand TMA cannot address, -6 for dropout without
+// keep_bits.
 extern "C" int vimo_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* mask,
     const float* lse, const float* delta, const int* seed,
-    void* dq, void* dk, void* dv, float* dq_part,
+    void* dq, void* dk, void* dv, float* dq_part, unsigned int* keep_bits,
     int which, int dtype, int B, int H, int Tq, int Tk, int D,
     long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st,
@@ -443,6 +1190,7 @@ extern "C" int vimo_flash_attention_bwd(
   p.mask = static_cast<const uint8_t*>(mask);
   p.lse = lse; p.delta = delta; p.seed = seed;
   p.dq = dq; p.dk = dk; p.dv = dv; p.dq_part = dq_part;
+  p.keep_bits = keep_bits; p.tq_pad = (Tq + 63) / 64 * 64;
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
@@ -458,6 +1206,7 @@ extern "C" int vimo_flash_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 128) return -2;
   if (dtype == 0) return run_type<float>(p, which, s);
+  if (dtype == 1 && (which == 1 || which == 2)) return run_hopper(p, which, s);
   if (dtype == 1) return run_type<__nv_bfloat16>(p, which, s);
   return -1;
 }

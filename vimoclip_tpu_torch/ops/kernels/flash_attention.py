@@ -9,7 +9,14 @@ flash_attention`` (wrapper :751) and its kernels:
   ``csrc/flash_attention_fwd.cu``;
 - K2 ``_dqkv_single_kernel`` :282 (keys fit one 512-key tile), K3
   ``_dq_kernel`` :214 and K4 ``_dkv_kernel`` :244 (longer keys):
-  ``csrc/flash_attention_bwd.cu``.
+  ``csrc/flash_attention_bwd.cu``. In bf16, K3 and K4 run on the tensor
+  cores (wgmma) from tiles that TMA copies into shared memory; with dropout
+  K3 also writes the keep bits of each 64x64 tile to a uint32 buffer that
+  K4 reads instead of drawing them again. TMA needs a 16-byte aligned
+  start and strides of 16-byte multiples: ``backward_kernels`` hands the
+  kernels a padded copy of any operand that lacks them (``tma_legal``,
+  ``tma_operand``). K2 (in both types) and the float32 K3 and K4 do their
+  products with FMAs.
 
 The sources' headers say what bounds each kernel on the H100 and what the
 design does about it.
@@ -270,7 +277,8 @@ def _bind(name: str, entry: str, argtypes: list):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _U32 = ctypes.c_float, ctypes.c_uint32
 _FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL] * 13 + [_F, _U32, _F, _P]
-_BWD_ARGS = [_P] * 12 + [_I] * 7 + [_LL] * 22 + [_F, _U32, _F, _P]
+_BWD_ARGS = [_P] * 13 + [_I] * 7 + [_LL] * 22 + [_F, _U32, _F, _P]
+_TMA_ALIGN = 16  # bytes: TMA's start address and stride granule
 
 
 def _check_kernel_inputs(q, k, v):
@@ -344,8 +352,31 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse):
     return out, lse
 
 
+def tma_legal(t: torch.Tensor) -> bool:
+    """Whether TMA can read the (B, H, T, D) operand ``t`` in place: a
+    16-byte aligned start, a contiguous head dim, and (B, H, T) strides that
+    are positive multiples of 16 bytes."""
+    item = t.element_size()
+    return (t.data_ptr() % _TMA_ALIGN == 0 and t.stride(-1) == 1
+            and all(s > 0 and s * item % _TMA_ALIGN == 0 for s in t.stride()[:3]))
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when ``tma_legal``; otherwise the same values in a fresh
+    (B, H, T, D) view whose rows are zero-padded to a multiple of 16 bytes
+    (the view shows D columns; the kernels' boxes read zeros past D)."""
+    if tma_legal(t):
+        return t
+    b, h, n, d = t.shape
+    per = _TMA_ALIGN // t.element_size()
+    padded = torch.zeros((b, h, n, -(-d // per) * per), dtype=t.dtype, device=t.device)
+    out = padded[..., :d]
+    out.copy_(t)
+    return out
+
+
 def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
-                grad_out, dq, dk, dv):
+                grad_out, dq, dk, dv, keep_bits=None):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
@@ -368,6 +399,7 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
             None if dk is None else dk.data_ptr(),
             None if dv is None else dv.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
+            None if keep_bits is None else keep_bits.data_ptr(),
             _BWD_WHICH[kind], _DTYPE_CODES[q.dtype], b, h, tq, tk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
             *(null3 if dq is None else dq.stride()[:3]),
@@ -383,8 +415,9 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
 def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
                      grad_out):
     """The backward kernels on CUDA tensors: K2 when the keys fit one
-    512-key tile, else K3 + K4. ``seed``: the (B, H) int32 seeds. Returns
-    (dq, dk, dv)."""
+    512-key tile, else K3 + K4 (in bf16 on operands TMA can read, and with
+    dropout through the keep-bit buffer K3 fills for K4). ``seed``: the
+    (B, H) int32 seeds. Returns (dq, dk, dv)."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernels run on CUDA tensors, not {q.device}")
     _check_kernel_inputs(q, k, v)
@@ -400,9 +433,18 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
     args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
     if tk <= SINGLE_PASS_MAX_TK:
         _launch_bwd("bwd_dqkv", *args, dq, dk, dv)
-    else:
-        _launch_bwd("bwd_dq", *args, dq, None, None)
-        _launch_bwd("bwd_dkv", *args, None, dk, dv)
+        return dq, dk, dv
+    keep_bits = None
+    if q.dtype == torch.bfloat16:
+        q, k, v, grad_out = (tma_operand(t) for t in (q, k, v, grad_out))
+        args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
+        if dropout_rate > 0.0:
+            # K3 writes each 64x64 tile's bits as 512 contiguous bytes, which
+            # K4 copies with one bulk transfer
+            keep_bits = torch.empty((b, h, -(-tk // 64), -(-tq // 64) * 64, 2),
+                                    dtype=torch.int32, device=q.device)
+    _launch_bwd("bwd_dq", *args, dq, None, None, keep_bits)
+    _launch_bwd("bwd_dkv", *args, None, dk, dv, keep_bits)
     return dq, dk, dv
 
 
