@@ -6,8 +6,9 @@ NVIDIA card:
 
 1. Device: the card's name and count, and nvidia-smi's name and power limit.
 2. Build: every CUDA kernel from ``vimoclip_tpu_torch/csrc`` with nvcc for
-   sm_90a (seconds and the ``-Xptxas -v`` report); the bf16 K3/K4 kernels'
-   SASS must hold wgmma products (HGMMA) and TMA loads (UTMALDG).
+   sm_90a (seconds and the ``-Xptxas -v`` report); the SASS of every bf16
+   attention kernel (K1/K1', K2, K3, K4) must hold wgmma products (HGMMA)
+   and TMA loads (UTMALDG); the bf16 K1 and K2 CTAs that fit one SM.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the bound.
@@ -20,12 +21,12 @@ NVIDIA card:
    (K1') and the backward kernels (K2; K3 + K4 past 512 keys) against their
    plain versions under the same Philox keep mask, with and without
    dropout, at the TFAM training shapes and at every shape that phase 6's
-   batches give them, with their times (K3 and K4 also with the 50 MB L2
-   flushed before each call), the plain versions', SDPA's (forward, and
-   forward + backward; device time, and call time with CUDA events) and the
-   bounds; two backward calls
-   must agree bit for bit, and the kept fraction at p = 0.1 must sit within
-   5 sigma of 0.9.
+   batches give them, with their times (also with the 50 MB L2 flushed
+   before each call), the plain versions', SDPA's (forward, and forward +
+   backward; device time, and call time with CUDA events) and the bounds;
+   at K2's main shape also the K3 + K4 pair on the same inputs, as a second
+   yardstick; two backward calls must agree bit for bit, and the kept
+   fraction at p = 0.1 must sit within 5 sigma of 0.9.
 6. Training path: ``TFAMTrainer`` at the AK recipe's full width (TFAM d512,
    8 heads, 4 layers, ff 2048, cross-attention, dropout 0.1, 140 classes;
    batch 8, AdamW 1e-4, bf16 compute) on synthetic paired embeddings made
@@ -37,7 +38,9 @@ NVIDIA card:
    step time and one profiled long step (device busy and idle share); and
    train steps with
    dropout at the 128-, 256- and 512-frame buckets on the eager path and on
-   the kernels, which sets where ``attention_impl: auto`` turns to them.
+   the kernels, and eval-mode steps (``eval_step``, no dropout) at the 128-
+   to 2048-frame buckets, which set where ``attention_impl: auto`` turns to
+   them.
 7. K5 vs plain: the fused uint8 normalisation against its plain version,
    bit for bit, in float32 and bfloat16, at the stage-1 training step's
    frames (232, 224, 224, 3), an export chunk (128, 224, 224, 3) and an odd
@@ -109,15 +112,21 @@ LSE_TOL = 1e-4
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the device-side kernels of each wrapper by dtype (profiler entry names),
 # and how many of them one call launches
-_FWD_NAMES = {"float32": ("fma_kernel",), "bfloat16": ("mma_kernel",)}
+_FWD_NAMES = {"float32": ("fma_kernel",), "bfloat16": ("fwd_wgmma_kernel",)}
 KERNEL_NAMES = {
     "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
     "bwd_dqkv": {"float32": ("dkv_kernel<float", "dq_reduce_kernel<float"),
-                 "bfloat16": ("dkv_kernel<__nv_bfloat16", "dq_reduce_kernel<__nv_bfloat16")},
+                 "bfloat16": ("dqkv_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
     "bwd_dq": {"float32": ("dq_kernel<float",), "bfloat16": ("dq_wgmma_kernel",)},
     "bwd_dkv": {"float32": ("dkv_kernel<float",), "bfloat16": ("dkv_wgmma_kernel",)},
 }
-KERNEL_PER_CALL = {"fwd": 1, "fwd_lse": 1, "bwd_dqkv": 2, "bwd_dq": 1, "bwd_dkv": 1}
+# each named kernel launches once per call
+KERNEL_PER_CALL = {kind: {dt: len(names) for dt, names in by_dtype.items()}
+                   for kind, by_dtype in KERNEL_NAMES.items()}
+# the bf16 kernels whose SASS must hold HGMMA and UTMALDG, by library
+WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel",),
+                 "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
+                                         "dkv_wgmma_kernel")}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -127,8 +136,10 @@ OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
 # L2; the limits leave 200x and 16x room.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 5e-3
-# buckets of the eager-against-kernels train steps with dropout on
+# buckets of the eager-against-kernels train steps with dropout on, and of
+# the eval-mode steps without it
 CROSSOVER_BUCKETS = (128, 256, 512)
+NODROP_BUCKETS = (128, 256, 512, 1024, 2048)
 
 # K5 (fused normalise): (shape, storage offset in bytes) — the MN training
 # step's frames (8 segments x 29), an export chunk, and an odd view whose
@@ -260,6 +271,8 @@ def phase_device(torch) -> tuple[str, int, str]:
 
 
 def phase_build() -> None:
+    import ctypes
+
     from vimoclip_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
@@ -268,7 +281,21 @@ def phase_build() -> None:
     for b in built.values():
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.relative_to(HERE)}")
         print(b.log.strip())
-    sass_check(built["flash_attention_bwd"].path, ("dq_wgmma_kernel", "dkv_wgmma_kernel"))
+    for lib, kernels in WGMMA_KERNELS.items():
+        sass_check(built[lib].path, kernels)
+    # CTAs per SM of the bf16 K1/K1' and K2 at D = 64 and 128
+    occupancy = {}
+    for lib, entry, kind in (("flash_attention_fwd", "vimo_flash_attention_fwd_occupancy", "fwd"),
+                             ("flash_attention_bwd", "vimo_flash_attention_bwd_dqkv_occupancy",
+                              "bwd_dqkv")):
+        fn = getattr(ctypes.CDLL(str(built[lib].path)), entry)
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for d in (64, 128):
+            for drop in (0, 1):
+                n = fn(d, drop)
+                check(n > 0, f"{entry}({d}, {drop}) = {n}")
+                occupancy[f"{kind} D={d} p{'>0' if drop else '=0'}"] = n
+    print("[occupancy] " + json.dumps(occupancy))
 
 
 def sass_check(lib: Path, kernels: tuple[str, ...]) -> dict:
@@ -332,7 +359,7 @@ def phase_kernels(torch, seed: int, smi: str) -> dict:
             plain = lambda: flash_attention_reference(q, k, v, mask)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
             ms = device_ms(torch, kernel, names=KERNEL_NAMES["fwd"][dtype_name],
-                           per_call=KERNEL_PER_CALL["fwd"])
+                           per_call=KERNEL_PER_CALL["fwd"][dtype_name])
             plain_ms, library_ms = (device_ms(torch, f) for f in (plain, library))
             item = dtype.itemsize
             moved = (2 * b * h * tq * d + 2 * b * h * tk * d) * item + b * tk
@@ -393,7 +420,7 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
 
     shapes = list(dict.fromkeys([*TRAIN_SHAPES, *main_shapes.values()]))
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    # K3 and K4 are also timed with the 50 MB L2 flushed before each call
+    # every kernel is also timed with the 50 MB L2 flushed before each call
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     main = {}
     for dtype_name in ("float32", "bfloat16"):
@@ -467,12 +494,20 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
                 calls = [("fwd_lse", fwd)] + [(kind, bwd) for kind in kinds]
                 kernel_ms = {kind: device_ms(torch, call, iters=10,
                                              names=KERNEL_NAMES[kind][dtype_name],
-                                             per_call=KERNEL_PER_CALL[kind])
+                                             per_call=KERNEL_PER_CALL[kind][dtype_name])
                              for kind, call in calls}
-                flushed_ms = {kind: device_ms(torch, lambda: (flush.zero_(), bwd()), iters=10,
-                                              names=KERNEL_NAMES[kind][dtype_name],
-                                              per_call=KERNEL_PER_CALL[kind])
-                              for kind in kinds if kind != "bwd_dqkv"}
+                # a call of several kernels (K2: its pass and the dq sum), each apart
+                parts_ms = {kind: {n: device_ms(torch, call, iters=10, names=(n,), per_call=1)
+                                   for n in KERNEL_NAMES[kind][dtype_name]}
+                            for kind, call in calls if KERNEL_PER_CALL[kind][dtype_name] > 1}
+                flushed_ms = {kind: device_ms(torch, lambda call=call: (flush.zero_(), call()),
+                                              iters=10, names=KERNEL_NAMES[kind][dtype_name],
+                                              per_call=KERNEL_PER_CALL[kind][dtype_name])
+                              for kind, call in calls}
+                pair = None
+                if dtype_name == "bfloat16" and shape == main_shapes.get("bwd_dqkv"):
+                    pair = _k3k4_pair(torch, fa, (q, k, v, mask, seeds, rate, out, lse, grad),
+                                      ref_grads)
                 plain_ms = {"fwd": device_ms(torch, plain_fwd, iters=10),
                             "bwd": device_ms(torch, plain_bwd, iters=10)}
                 sdpa_call_ms = {"fwd": cuda_ms(torch, sdpa_fwd),
@@ -487,7 +522,7 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
                     row = {
                         "kernel": kind, "dtype": dtype_name, "shape": list(shape),
                         "dropout": rate, "ms": kernel_ms[kind],
-                        "flushed_ms": flushed_ms.get(kind),
+                        "flushed_ms": flushed_ms.get(kind), "parts_ms": parts_ms.get(kind),
                         "plain_ms": plain_ms[stage], "library_ms": sdpa_ms[stage],
                         "library_timing": "events" if sdpa_dev_ms[stage] is None else "device",
                         "library_call_ms": sdpa_call_ms[stage],
@@ -501,11 +536,41 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
                         "lse_rel_err": lse_err, "grad_rel_err": grad_err,
                         "kept_fraction": kept,
                     }
+                    if kind == "bwd_dqkv" and pair is not None:
+                        row["k3k4_pair"] = pair
                     print("[train-kernel] " + json.dumps(row) + f" [{smi}]")
                     if dtype_name == "bfloat16" and rate and shape == main_shapes.get(kind):
                         main[kind] = row
     check(set(main) == set(main_shapes), f"main-shape rows missing: {sorted(main)}")
     return main
+
+
+def _k3k4_pair(torch, fa, args, ref_grads) -> dict:
+    """The bf16 K3 + K4 pair on K2's inputs (keys within one 512-key tile),
+    launched through ``_launch_bwd`` as ``backward_kernels`` launches them past
+    512 keys: their gradients against the plain version, and their device
+    time per call (warm) beside K2's."""
+    q, k, v, mask, seeds, rate, out, lse, grad = args
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    q, k, v, grad = (fa.tma_operand(t) for t in (q, k, v, grad))
+    delta = (grad.float() * out.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = (torch.empty(b, h, n, d, dtype=q.dtype, device="cuda") for n in (tq, tk, tk))
+    keep_bits = (torch.empty((b, h, -(-tk // 64), -(-tq // 64) * 64, 2), dtype=torch.int32,
+                             device="cuda") if rate else None)
+    launch = (q, k, v, mask, seeds, rate, lse, delta, grad)
+
+    def pair():
+        fa._launch_bwd("bwd_dq", *launch, dq, None, None, keep_bits)
+        fa._launch_bwd("bwd_dkv", *launch, None, dk, dv, keep_bits)
+
+    pair()
+    torch.cuda.synchronize()
+    err = {n: _rel(a, r) for n, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads)}
+    check(max(err.values()) <= GRAD_TOL["bfloat16"], f"K3 + K4 at K2's shape: {err}")
+    names = KERNEL_NAMES["bwd_dq"]["bfloat16"] + KERNEL_NAMES["bwd_dkv"]["bfloat16"]
+    return {"ms": device_ms(torch, pair, iters=10, names=names, per_call=len(names)),
+            "grad_rel_err": err}
 
 
 def _predictor_states(torch, seed: int):
@@ -818,35 +883,37 @@ def phase_training(torch, setup: dict, smi: str) -> dict:
 
 def _crossover(torch, setup: dict, smi: str) -> list[dict]:
     """The trainer's step with dropout on, at each of ``CROSSOVER_BUCKETS``,
-    every attention site on the eager path and on the kernels in turn
-    (eager, kernels, kernels, eager): ms per step from CUDA events (the
-    host's launches included; mean of the two runs of each) and device-busy ms
-    per step from the profiler."""
+    and its eval-mode step without dropout (``eval_step``, what ``validate``
+    runs), at each of ``NODROP_BUCKETS``, every attention site on the eager
+    path and on the kernels in turn (eager, kernels, kernels, eager): ms per
+    step from CUDA events (the host's launches included; mean of the two runs
+    of each) and device-busy ms per step from the profiler."""
     from vimoclip_tpu_torch.data.pipeline import to_device
     from vimoclip_tpu_torch.ops.attention import MultiHeadAttention
 
     cfg, trainer, rng = setup["cfg"], setup["trainer"], setup["rng"]
     sites = [m for m in trainer.model.modules() if isinstance(m, MultiHeadAttention)]
     rows = []
-    for bucket in CROSSOVER_BUCKETS:
-        items = _clips(rng, rng.integers(bucket - 27, bucket + 1, 8), cfg.model.d_model,
-                       cfg.data.num_classes, f"b{bucket}-")
-        batch = to_device(trainer.collate(items), trainer.device)
-        lengths = (batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])
-        check(lengths == (bucket, bucket), f"bucket {bucket}: lengths {lengths}")
-        row = {"bucket": bucket, "xla_ms": 0.0, "flash_ms": 0.0}
-        for impl in ("xla", "flash", "flash", "xla"):
-            for m in sites:
-                m.implementation = impl
-            row[f"{impl}_ms"] += cuda_ms(torch, lambda: trainer.train_step(batch),
-                                         iters=10, warmup=2) / 2
-        for impl in ("xla", "flash"):
-            for m in sites:
-                m.implementation = impl
-            row[f"{impl}_device_ms"] = device_ms(torch, lambda: trainer.train_step(batch),
-                                                 iters=5)
-        print("[crossover] " + json.dumps(row) + f" [{smi}]")
-        rows.append(row)
+    for mode, buckets in (("train", CROSSOVER_BUCKETS), ("eval", NODROP_BUCKETS)):
+        for bucket in buckets:
+            items = _clips(rng, rng.integers(bucket - 27, bucket + 1, 8), cfg.model.d_model,
+                           cfg.data.num_classes, f"b{bucket}-")
+            batch = to_device(trainer.collate(items), trainer.device)
+            lengths = (batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])
+            check(lengths == (bucket, bucket), f"bucket {bucket}: lengths {lengths}")
+            step = trainer.train_step if mode == "train" else trainer.eval_step
+            row = {"mode": mode, "dropout": cfg.model.dropout if mode == "train" else 0.0,
+                   "bucket": bucket, "xla_ms": 0.0, "flash_ms": 0.0}
+            for impl in ("xla", "flash", "flash", "xla"):
+                for m in sites:
+                    m.implementation = impl
+                row[f"{impl}_ms"] += cuda_ms(torch, lambda: step(batch), iters=10, warmup=2) / 2
+            for impl in ("xla", "flash"):
+                for m in sites:
+                    m.implementation = impl
+                row[f"{impl}_device_ms"] = device_ms(torch, lambda: step(batch), iters=5)
+            print("[crossover] " + json.dumps(row) + f" [{smi}]")
+            rows.append(row)
     for m in sites:
         m.implementation = cfg.model.attention_impl
     return rows

@@ -1,7 +1,8 @@
-"""The layout step in front of the bf16 K3/K4 kernels, on the CPU: which
-views TMA can read in place (``tma_legal``), the padded copy the wrapper
-hands the kernels otherwise (``tma_operand``), and that the plain backward
-gives the same gradients on the copies, and the JAX package's gradients."""
+"""The layout step in front of the bf16 backward kernels (K2, K3, K4), on
+the CPU: which views TMA can read in place (``tma_legal``), the padded copy
+the wrapper hands the kernels otherwise (``tma_operand``), and that the
+plain backward gives the same gradients on the copies, and the JAX
+package's gradients."""
 
 import jax
 import jax.numpy as jnp
@@ -69,7 +70,10 @@ def test_copy_step_keeps_every_value(name):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("shape, offset", [
+    # past 512 keys (K3 + K4)
     ((1, 2, 40, 520, 20), 0), ((2, 2, 33, 530, 32), 1), ((1, 1, 70, 515, 16), 3),
+    # 512 keys or fewer (K2): ragged Tq, head dims 20 and 32
+    ((1, 2, 40, 64, 20), 0), ((2, 2, 33, 300, 32), 1), ((1, 1, 70, 512, 20), 3),
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else f"off{v}")
 def test_plain_backward_on_copies_equals_original(shape, offset, rate):
     b, h, tq, tk, d = shape

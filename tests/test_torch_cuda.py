@@ -213,6 +213,92 @@ def test_backward_is_deterministic(cuda, tk):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("tq, tk", [(40, 64), (40, 299), (40, 512), (130, 299), (300, 512)],
+                         ids=lambda v: str(v))
+def test_single_pass_kernels_match_plain(cuda, tq, tk, d, rate):
+    """bf16 K1, K1' and K2 (keys within one 512-key tile) against their plain
+    versions: Tq below one tile, ragged Tk, head dims 32 (the 64-column
+    kernels), 64 and 128 (two chunks)."""
+    b, h = 2, 3
+    q, k, v, mask = _inputs(b, h, tq, tk, d, torch.bfloat16, cuda, seed=tq + tk + d)
+    g = torch.randn(b, tq, h, d, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    before = dict(flash_attention.launches)
+    got, ref = _train_call(q, k, v, mask, rate, 77, g)
+    with torch.no_grad():
+        out1 = flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    after = flash_attention.launches
+    assert after["fwd_lse"] == before["fwd_lse"] + 1 and after["fwd"] == before["fwd"] + 1
+    assert after["bwd_dqkv"] == before["bwd_dqkv"] + 1
+    assert (out1.float() - flash_attention_reference(q, k, v, mask).float()).abs().max() <= TOL[
+        torch.bfloat16]
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[torch.bfloat16]
+    for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16], (name, _rel(a, r))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_single_pass_kernels_read_packed_heads(cuda, d, offset):
+    # heads split out of a packed projection; offset 1 leaves every bf16 row
+    # misaligned, so the wrapper hands the TMA kernels padded copies
+    b, t, h = 2, 260, 4
+    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).bfloat16()[..., offset:]
+    q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
+    g = torch.randn(b, t, h, d, device=cuda).bfloat16().transpose(1, 2)
+    got, ref = _train_call(q, k, v, None, 0.1, 21, g)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[torch.bfloat16]
+    for a, r in zip(got[1:], ref[1:]):
+        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+def test_single_pass_backward_fully_masked_rows(cuda, rate):
+    # K2 with two batch rows whose every key is ignored: P = 1 on each key
+    b, h, tq, tk, d = 4, 2, 130, 300, 64
+    q, k, v, mask = _inputs(b, h, tq, tk, d, torch.bfloat16, cuda, seed=4, masked_rows=(0, 2))
+    g = torch.randn(b, h, tq, d, device=cuda).bfloat16()
+    got, ref = _train_call(q, k, v, mask, rate, 13, g)
+    for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16], (name, _rel(a, r))
+        assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("d", [32, 128])
+def test_single_pass_backward_is_deterministic(cuda, d, rate):
+    q, k, v, mask = _inputs(2, 4, 200, 450, d, torch.bfloat16, cuda)
+    g = torch.randn(2, 4, 200, d, device=cuda).bfloat16()
+    first, _ = _train_call(q, k, v, mask, rate, 9, g)
+    second, _ = _train_call(q, k, v, mask, rate, 9, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_no_cuda_tensor_reaches_a_plain_version(cuda, monkeypatch, dtype):
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(fa, "flash_attention_reference", refuse)
+    monkeypatch.setattr(fa, "flash_attention_backward_reference", refuse)
+    for tk in (300, 700):  # K2; K3 + K4
+        q, k, v, mask = _inputs(2, 2, 100, tk, 64, dtype, cuda)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        fa.flash_attention(qr, kr, vr, mask, dropout_rate=0.1, dropout_seed=3).sum().backward()
+        with torch.no_grad():
+            fa.flash_attention(q, k, v, mask)
+            fa.flash_attention(q, k, v, mask, dropout_rate=0.1, dropout_seed=3)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t.grad.float()).all() for t in (qr, kr, vr))
+
+
 def test_kept_fraction(cuda):
     q, k, v, _ = _inputs(4, 8, 256, 256, 16, torch.float32, cuda)
     seeds = expand_seed(3, 4, 8, cuda)
@@ -252,6 +338,19 @@ def test_auto_sends_dropout_to_the_kernels(cuda, t):
         mha.eval()(x)
     eager = t < MultiHeadAttention._AUTO_FLASH_MIN_T_NODROP
     assert flash_attention.launches["fwd"] == before["fwd"] + (0 if eager else 1)
+
+
+def test_auto_without_dropout_follows_the_measured_crossover(cuda):
+    """``auto`` in eval mode takes K1 from the no-dropout crossover on and the
+    eager path below it."""
+    n = MultiHeadAttention._AUTO_FLASH_MIN_T_NODROP
+    mha = MultiHeadAttention(64, 4, dropout=0.1, implementation="auto").to(cuda).eval()
+    for t in sorted({max(1, n - 1), n, 2 * n}):
+        before = flash_attention.launches["fwd"]
+        with torch.no_grad():
+            out = mha(torch.randn(2, t, 64, device=cuda))
+        assert torch.isfinite(out).all()
+        assert flash_attention.launches["fwd"] == before + (1 if t >= n else 0), t
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@
 //
 // Replaces: vimoclip_tpu/ops/pallas/flash_attention.py::_bwd_local and its
 // three kernels:
-//   K2 _dqkv_single_kernel (keys fit one 512-key tile): entry `which` = 0
-//   K3 _dq_kernel  (dq sweep over key tiles, Tk > 512):  `which` = 1
-//   K4 _dkv_kernel (dk/dv sweep over query tiles):       `which` = 2
+//   K2 _dqkv_single_kernel (:282, call :461; keys fit one 512-key tile):
+//                                                        entry `which` = 0
+//   K3 _dq_kernel  (:214, call :493; dq sweep over key tiles, Tk > 512): 1
+//   K4 _dkv_kernel (:244, call :519; dk/dv sweep over query tiles):      2
 //
 // What it computes, per (b, h), from the forward's lse and
 // delta = rowsum(dO * O) (both float32, computed outside, as on the TPU):
@@ -22,91 +23,102 @@
 // with float32 accumulators throughout and one rounding to T at the store,
 // the rounding points of the TPU kernels (flash_attention.py:199-231, 262,
 // 268). T is float32 or bfloat16. A fully masked row has lse = -1e9 and so
-// recomputes P = 1 for each real key, as the TPU kernels do.
+// recomputes P = 1 for each real key, as the TPU kernels do. No atomics
+// anywhere: every sum runs in a fixed order, so two calls give bitwise-equal
+// gradients.
 //
-// K2, and K3/K4 in float32. One recompute of P gives all three gradients in
-// K2: one CTA per (64-key tile, head, batch row) sweeps every 64-row query
-// tile, keeping its keys' dK/dV in registers, and writes its share of dQ
-// (the sum over its 64 keys) to float32 scratch (B, H, nk, Tq, D); a second
-// small kernel adds the nk shares in a fixed order. No atomics anywhere, so
-// two calls give bitwise-equal gradients. The float32 K4 is the same CTA
-// without the dQ share; the float32 K3 is one CTA per 64-row query tile
-// sweeping the key tiles with dQ in registers. The keep bits of each 64x64
-// tile are drawn into a shared-memory bitmask by the whole CTA from global
-// (row, column) coordinates, so every kernel regenerates the forward's mask
-// whatever its tiling. These kernels do every product with float32 FMAs from
-// shared memory (four lanes share a row or key): float32 inputs keep full
-// precision (tensor cores would round them to TF32), and K2 in bf16 waits for
-// its own redesign. At the TFAM shapes (B=8, H=8, T=384, D=64) K2's bound is
-// about 6 GFLOP, 6 us on bf16 tensor cores; it runs near the 67 TF/s FMA rate.
+// float32 (dkv_kernel, dq_kernel, dq_reduce_kernel): every product with
+// float32 FMAs from shared memory (four lanes share a row or key), since
+// tensor cores would round float32 inputs to TF32. K2 is one CTA per (64-key
+// tile, head, batch row) sweeping every 64-row query tile with its keys'
+// dK/dV in registers, writing its share of dQ (the sum over its 64 keys) to
+// float32 scratch (B, H, nk, Tq, D) that a second small kernel adds up in
+// tile order; K4 is the same CTA without the dQ share; K3 is one CTA per
+// 64-row query tile sweeping the key tiles with dQ in registers. The keep
+// bits of each 64x64 tile are drawn into a shared-memory bitmask by the
+// whole CTA from global (row, column) coordinates.
 //
-// K3 and K4 in bfloat16 (dq_wgmma_kernel, dkv_wgmma_kernel), past 512 keys.
-//   K3 replaces _dq_kernel (flash_attention.py:214, call :493); K4 replaces
-//   _dkv_kernel (:244, call :519).
-//   Bound at the long-batch shape (B=8, H=8, Tq=Tk=768, D=64): operations,
-//   K3 14.5 GFLOP (QK^T, dO V^T, dS K) = 14.7 us and K4 19.3 GFLOP (K Q^T,
-//   V dO^T, P^T dO, dS^T Q) = 19.5 us at 989 TF/s; bytes, each input read and
-//   each output written once, 31.9 MB = 9.5 us and 38.1 MB = 11.4 us at
-//   3.35 TB/s. With dropout, drawing the keep bits (Philox4x32-10, 10 rounds
-//   of two 32-bit multiplies per 4 keys) is about 9.4 M calls per kernel at
-//   this shape, more integer issue than the tensor-core time.
-//   What the design does about it:
+// bfloat16: K2 (dqkv_wgmma_kernel), K3 (dq_wgmma_kernel), K4
+// (dkv_wgmma_kernel), on the tensor cores from TMA-fed shared-memory tiles
+// (the building blocks are in hopper.cuh).
+//   Bounds: operations. K2 at its training shape (B=8, H=8, Tq=Tk=512,
+//   D=64) does 10.7 GFLOP (Qs K^T, dO V^T, P^T dO, dS^T Q, dS K) = 10.9 us
+//   at 989 TF/s, and moves 29.6 MB (8.8 us at 3.35 TB/s); at the long
+//   batch's (8, 8, 768, 768, 64) K3 does 14.5 GFLOP (QK^T, dO V^T, dS K) =
+//   14.7 us and K4 19.3 GFLOP (K Q^T, V dO^T, P^T dO, dS^T Q) = 19.5 us,
+//   against 9.5 and 11.4 us of bytes. With dropout, drawing the keep bits
+//   (Philox4x32-10, 10 rounds of two 32-bit multiplies per 4 keys) is more
+//   integer issue than the tensor-core time: 4.2 M calls for K2's shape.
+//   What the designs do about it:
 //   - every product on the tensor cores: wgmma m64nNk16 (bf16 in, float32
 //     accumulate). S and dP come from two shared-memory operands (SS); the
 //     score tile is then turned into dS (and P) in registers, which already
-//     sit in the A-operand layout of the next product (RS), so P and dS
-//     never touch shared memory. K3 computes S = Qs K^T and dP = dO V^T with
-//     query rows as wgmma's 64-row M; K4 computes S^T = K Qs^T and
-//     dP^T = V dO^T with keys as M, so that P^T and dS^T are the A operands
-//     of dV += P^T dO and dK += dS^T Q. The second operand of those (K in
-//     K3; dO and Q in K4) is read MN-major (transposed) from the same tile.
-//   - one CTA per output tile (64 query rows for K3, 64 keys for K4, per
-//     head and batch row) owns its accumulators in registers for the whole
-//     sweep and stores them once: no atomics, sums in a fixed order, so two
-//     calls agree bit for bit.
-//   - a producer warp streams the swept tiles (K, V for K3; Q, dO for K4)
-//     with TMA into a two-stage ring of 128-byte-swizzled 64x64 chunks,
+//     sit in the A-operand layout of the next product (RS). K3 computes
+//     S = Qs K^T and dP = dO V^T with query rows as wgmma's 64-row M; K4 and
+//     K2 compute S^T = K Qs^T and dP^T = V dO^T with keys as M, so that P^T
+//     and dS^T are the A operands of dV += P^T dO and dK += dS^T Q. The
+//     second operand of those (K in K3; dO and Q in K4 and K2) is read
+//     MN-major (transposed) from the same tile.
+//   - one CTA per output tile (64 query rows for K3, 64 keys for K4 and K2,
+//     per head and batch row) owns its accumulators in registers for the
+//     whole sweep and stores them once.
+//   - a producer warp streams the swept tiles (K, V for K3; Q, dO for K4 and
+//     K2) with TMA into a two-stage ring of 128-byte-swizzled 64x64 chunks,
 //     completion on mbarriers, so the next tile is in flight while one
 //     warpgroup multiplies the current one. Boxes past Tq, Tk or D fill with
 //     zeros: ragged lengths and head dims below 64 or 128 need no masks in
 //     the loads. The producer also stages the tile's key bias (K3) or its
-//     rows' lse, delta and keep bits (K4).
-//   - K3 draws the keep bits once (the consumers fill a tile's bitmask while
+//     rows' lse and delta (K4, K2; lse = +inf past Tq, so P = 0 there).
+//   - the keep bits: K3 draws them (the consumers fill a tile's bitmask while
 //     its first products run) and writes each 64x64 tile's bits as 512
 //     contiguous bytes of a (B, H, ceil(Tk/64), 64 ceil(Tq/64), 2) uint32
-//     buffer; K4, launched after it on the same stream, takes them with one
-//     bulk copy per tile beside its TMA loads instead of drawing them again:
-//     half the Philox work of two draws. (Drawn by the producer warp alone,
-//     the bits made K3 slower: one warp cannot keep pace with the products.)
-//   - the elementwise step is the longest part of a tile after the products:
-//     exp(s - lse) goes through ex2.approx (a few float32 ulp from expf,
-//     before P's bf16 rounding), 1 / (1 - rate) is one reciprocal per thread
-//     (within an ulp of the division, before dS's bf16 rounding), the keep bit
-//     scales by a product rather than a branch, and row data (bias, lse,
-//     delta) is read as float2.
-//   - K4 needs Q scaled and rounded (for S) and unscaled (for dK). Where the
-//     scale is a power of two (D = 64: 1/8, D = 16: 1/4), round(q * scale) is
-//     q * scale exactly (barring subnormals), so one tile serves both and S
-//     is scaled in registers, which is bitwise the same score; otherwise the
-//     consumers write a scaled, rounded copy of each Q tile.
+//     buffer; K4, launched after it, takes them with one bulk copy per tile
+//     beside its TMA loads. K2 has no K3 before it and draws its own: those
+//     of q tile t + 1 while tile t's dV/dK products run, where the S^T and
+//     dP^T accumulators no longer hold registers.
+//   - K2's dQ: its CTA's share for each q tile, round(dS) K over its 64 keys,
+//     needs dS with query rows as M. dS^T, already rounded to bf16 as dK's A
+//     operand, goes to a swizzled 64x64 shared tile (double-buffered, so the
+//     next tile never overwrites it under a running product), and a third
+//     SS product reads it back MN-major (the transpose bits) with K's
+//     resident tile MN-major as B; a head dim of 128 takes two 64-column
+//     halves through one reused accumulator. The shares go to float32
+//     scratch (B, H, nk, Tq, D) that dq_reduce_kernel adds up in tile order:
+//     at the training shape 67 MB written and read back. Summing them instead
+//     across the nk <= 8 key-tile CTAs of one (b, h) as a thread block
+//     cluster, through distributed shared memory, was slower with dropout
+//     (PERF.md): its per-tile cluster barrier and its extra registers
+//     cost more than the round trip.
+//   - registers: at D = 64 two CTAs share an SM (168 registers a thread), and
+//     S^T, dP^T, dK and dV alone hold 128. So the dq accumulator takes its
+//     registers only after the dV/dK products have released those of P^T and
+//     dS^T; the keep bits of the next tile are drawn two Philox calls at a
+//     time under those products, and each thread gathers its 32 bits into
+//     one word; the elementwise pass packs its operands 16 query rows at a
+//     time and loads lse and delta where it uses them. Even so ptxas spills
+//     4 bytes (28 with dropout) at D = 64 (PERF.md).
+//   - the elementwise step: exp(s - lse) through ex2.approx (a few float32
+//     ulp from expf, before P's bf16 rounding), 1 / (1 - rate) as one
+//     reciprocal per thread, the keep bit as a product rather than a branch,
+//     row data (bias, lse, delta) read as float2.
+//   - K4 and K2 need Q scaled and rounded (for S) and unscaled (for dK).
+//     Where the scale is a power of two (D = 64: 1/8, D = 16: 1/4),
+//     round(q * scale) is q * scale exactly (barring subnormals), so one tile
+//     serves both and S is scaled in registers, which is bitwise the same
+//     score; otherwise the consumers write a scaled, rounded copy of each Q
+//     tile.
 //   Operands TMA cannot address (a start not 16-byte aligned, a stride not a
 //   multiple of 16 bytes) are copied by the Python wrapper first; the entry
 //   refuses them (-5).
 
-#include <cuda.h>  // CUtensorMap
-
 #include <type_traits>
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using vimo::fill_keep_bits;
-using vimo::kept;
-using vimo::kMaskValue;
-using vimo::mask_score;
-using vimo::neg_inf;
-using vimo::pos_inf;
+using namespace vimo;
 
 constexpr int kB = 64;                  // query rows per q tile, keys per k tile
 constexpr int kLanes = 4;               // lanes sharing one row (or one key)
@@ -436,243 +448,10 @@ __global__ void dq_reduce_kernel(const BwdParams p, int n_kt) {
 }
 
 // ---------------------------------------------------------------------------
-// K3 / K4 in bfloat16: wgmma on TMA-fed shared-memory tiles
+// K3 / K4 in bfloat16
 // ---------------------------------------------------------------------------
-//
-// Tiles are 64 rows x 64 bf16 columns (128 bytes a row, 8 KB) in the layout
-// TMA's 128-byte swizzle writes; a head dim above 64 takes two such chunks
-// (DP = 64 * NC). Accumulator layout of wgmma m64nNk16 (float32), for thread
-// `tid` of the warpgroup (warp w = tid / 32, g = lane / 4, t4 = lane % 4):
-//   d[4j + e] = D[16w + g + 8 (e / 2)][8j + 2 t4 + (e % 2)],  j < N / 8
-// and the register A operand of a 64 x 16 slice is the same as mma.sync's
-// m16n8k16 A fragment per warp, so accumulator columns 16c .. 16c + 15 are
-// the A operand of k-step c after packing pairs to bf16.
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTile = 64;                   // query rows or keys per tile
-constexpr int kChunk = kTile * 64;          // elements of one swizzled chunk
-constexpr int kStages = 2;                  // ring depth of the swept tiles
-constexpr int kConsumers = 128;             // one warpgroup
-constexpr int kHopThreads = kConsumers + 32;  // and one producer warp
 constexpr uint32_t kBitsBytes = 2 * kTile * sizeof(uint32_t);  // keep bits of a 64x64 tile
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic on the barrier
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// announce `bytes` of TMA traffic on the barrier, without arriving
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// box (64 columns from c0, 64 rows from row0) of head (h, b) of a (B, H, T, D)
-// tensor map into shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int row0, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-        "r"(c0), "r"(row0), "r"(h), "r"(b)
-      : "memory");
-}
-
-// `bytes` contiguous bytes from device memory into shared memory (both
-// 16-byte aligned), completion on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// the consumer warpgroup's own barrier (the producer warp never joins it)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// generic-proxy writes to shared memory become visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from reading or moving accumulators across an
-// asynchronous wgmma (its issue and its wait)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(ptr) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (rows of a tile, contracted over its columns), k-step kk
-// of 16 columns: chunk kk / 4, 32 bytes further per step inside the 128-byte
-// row; 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int kk) {
-  return sw128_desc(tile + (kk >> 2) * kChunk + (kk & 3) * 16, 16, 1024);
-}
-
-// MN-major operand (contracted over the tile's rows, its columns the N
-// dimension), k-step kk of 16 rows: 8-row groups 1024 bytes apart, the next
-// 64 columns one chunk (8 KB) further
-__device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int kk) {
-  return sw128_desc(tile + kk * 16 * 64, kChunk * 2, 1024);
-}
-
-// D (64 x 64, float32) {+}= A . B^T, A and B K-major bf16 tiles in
-// shared memory (128-byte swizzle); accumulate unless `zero`
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, bool zero) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"((uint32_t)zero));
-}
-
-// D (64 x 64, float32) += A . B, A (64 x 16 bf16) in registers, B an
-// MN-major bf16 tile in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.u32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
-}
-
-// D (64 x 128, float32) += A . B, A (64 x 16 bf16) in registers, B an
-// MN-major bf16 tile in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.u32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// exp(x) as 2^(x log2 e) on the special-function unit: a few float32 ulp
-// from expf, far inside the bf16 rounding of P that follows; exp(-inf) = 0
-__device__ __forceinline__ float exp_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
-
-// 1 / (1 - rate) where element (r, j) of a tile's keep bits is set, else 0:
-// a product, not a branch on random bits
-__device__ __forceinline__ float keep_scale(const uint32_t* bits, int r, int j, float inv_keep) {
-  return __uint2float_rn((bits[2 * r + (j >> 5)] >> (j & 31)) & 1u) * inv_keep;
-}
-
-// accumulator columns 16c .. 16c + 15 (rounded to bf16) as the A operand of
-// k-step c
-__device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    a[c][0] = pack_bf16(d[8 * c + 0], d[8 * c + 1]);
-    a[c][1] = pack_bf16(d[8 * c + 2], d[8 * c + 3]);
-    a[c][2] = pack_bf16(d[8 * c + 4], d[8 * c + 5]);
-    a[c][3] = pack_bf16(d[8 * c + 6], d[8 * c + 7]);
-  }
-}
-
-// acc (+)= A . B for a 64 x 16 register slice A and the MN-major k-step kk
-// of tile B, N = DP
-template <int NC>
-__device__ __forceinline__ void wgmma_rs(float (&acc)[32 * NC], const uint32_t (&a)[4],
-                                         const bf16* tile, int kk) {
-  if constexpr (NC == 1) {
-    wgmma_rs_n64(acc, a, mnmajor_desc(tile, kk));
-  } else {
-    wgmma_rs_n128(acc, a, mnmajor_desc(tile, kk));
-  }
-}
-
-// dst = round_bf16(src * scale) over NC chunks, 8 elements per step (the
-// swizzle permutes 16-byte pieces, so an elementwise pass ignores it)
-template <int NC>
-__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src, float scale, int tid) {
-  for (int i = tid; i < NC * kChunk / 8; i += kConsumers) {
-    uint4 raw = reinterpret_cast<const uint4*>(src)[i];
-    bf16* x = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = __float2bfloat16_rn(__bfloat162float(x[e]) * scale);
-    reinterpret_cast<uint4*>(dst)[i] = raw;
-  }
-}
-
-// rows r0 + (row of the accumulator) of a (T, D) output, times `mul`, as bf16
-template <int NC>
-__device__ __forceinline__ void store_rows(bf16* out, long long st, int r0, int t, int d,
-                                           const float (&acc)[32 * NC], float mul, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8 * NC; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + warp * 16 + g + 8 * (e >> 1);
-      const int c = 8 * j + 2 * t4 + (e & 1);
-      if (row < t && c < d) out[(long long)row * st + c] = __float2bfloat16_rn(acc[4 * j + e] * mul);
-    }
-  }
-}
-
-// 1024-byte aligned start of dynamic shared memory (the swizzle atom)
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t off = smem_u32(p) & 1023u;
-  return off ? p + (1024u - off) : p;
-}
 
 template <int NC>
 constexpr size_t dq_hop_smem_bytes() {
@@ -1007,6 +786,279 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dkv_wgmma_kernel
 }
 
 // ---------------------------------------------------------------------------
+// K2 (bf16): dq, dk, dv in one pass, one CTA per (64-key tile, head, batch
+// row)
+// ---------------------------------------------------------------------------
+
+template <int NC, bool POW2>
+constexpr size_t dqkv_hop_smem_bytes() {
+  return 1024 + (size_t)(2 + 2 * kStages + (POW2 ? 0 : 1)) * NC * kChunk * sizeof(bf16) +
+         2 * kChunk * sizeof(bf16) + sizeof(float) * 2 * kTile * kStages +
+         sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * (2 * kStages + 1);
+}
+
+// round(dS)^T, packed as the A operand of k-steps 0-3 (keys r_lo, r_lo + 8 x
+// query-row pairs), into a 64 x 64 bf16 tile in the 128-byte swizzle's
+// layout: 16-byte chunk c of row r at chunk c ^ (r % 8)
+__device__ __forceinline__ void store_swizzled(bf16* tile, const uint32_t (&a)[4][4], int r_lo,
+                                               int t4) {
+  uint8_t* base = reinterpret_cast<uint8_t*>(tile);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r_lo + 8 * (i & 1), chunk = 2 * c + (i >> 1);
+      *reinterpret_cast<uint32_t*>(base + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * t4) = a[c][i];
+    }
+  }
+}
+
+// the keep bits of a thread's two keys (kl_lo, kl_lo + 8) and sixteen query
+// rows (8j + 2 t4 + i, j < 8, i < 2) of a tile, gathered from the tile's
+// bitmask into one word: bit 2 (2j + i) + r for key kl_lo + 8r
+__device__ __forceinline__ uint32_t gather_keep(const uint32_t* bits, int kl_lo, int t4) {
+  uint32_t out = 0u;
+#pragma unroll
+  for (int jc = 0; jc < 16; ++jc) {
+    const uint32_t word = bits[2 * (8 * (jc >> 1) + 2 * t4 + (jc & 1)) + (kl_lo >> 5)];
+    out |= ((word >> (kl_lo & 31)) & 1u) << (2 * jc);
+    out |= ((word >> ((kl_lo + 8) & 31)) & 1u) << (2 * jc + 1);
+  }
+  return out;
+}
+
+template <int NC, bool DROP, bool POW2>
+__global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  constexpr int KS = 4 * NC;
+  constexpr uint32_t kTileBytes = NC * kChunk * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* Vs = Ks + NC * kChunk;
+  bf16* Qring = Vs + NC * kChunk;               // kStages tiles of unscaled q
+  bf16* dOring = Qring + kStages * NC * kChunk;
+  bf16* Qsc = dOring + kStages * NC * kChunk;   // round(q * scale), !POW2 only
+  bf16* dSt = Qsc + (POW2 ? 0 : NC * kChunk);   // 2 tiles of round(dS)^T (keys x rows)
+  float* lse_ring = reinterpret_cast<float*>(dSt + 2 * kChunk);  // kStages x 64
+  float* delta_ring = lse_ring + kStages * kTile;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(delta_ring + kStages * kTile);  // 2 x 128
+  uint64_t* full = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kvbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: K and V once, then Q/dO tiles with their rows' lse and
+    // delta (P = 0 past Tq)
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * kTileBytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(Ks + c * kChunk, &tm_k, kvbar, 64 * c, k0, h, b);
+        tma_load(Vs + c * kChunk, &tm_v, kvbar, 64 * c, k0, h, b);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, q0 = t * kTile;
+      if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+      if (lane == 0) {  // the copies first, so they fly while the rows' data loads
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        for (int c = 0; c < NC; ++c) {
+          tma_load(Qring + (s * NC + c) * kChunk, &tm_q, &full[s], 64 * c, q0, h, b);
+          tma_load(dOring + (s * NC + c) * kChunk, &tm_do, &full[s], 64 * c, q0, h, b);
+        }
+      }
+      for (int r = lane; r < kTile; r += 32) {
+        const bool in = q0 + r < p.Tq;
+        lse_ring[s * kTile + r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();
+        delta_ring[s * kTile + r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
+      }
+      mbar_arrive(&full[s]);  // each lane after its own writes
+    }
+    return;
+  }
+
+  // consumer warpgroup: keys kl_lo and kl_lo + 8 of the tile per thread
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kl_lo = warp * 16 + g;
+  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+  float kbias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kl_lo + 8 * r;
+    kbias[r] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+  }
+  const float inv_keep = 1.f / p.keep;
+  // this CTA's dq shares: (B, H, nk, Tq, D) float32, added up by dq_reduce_kernel
+  float* part = p.dq_part + (bh * gridDim.x + blockIdx.x) * p.Tq * p.D;
+  // the keep bits of each q tile are drawn while the previous tile's dV/dK
+  // products run (there S^T and dP^T no longer hold registers), two Philox
+  // calls at a time, and each thread gathers its 32 of them into one word;
+  // the first tile's here
+  uint32_t keep_word = 0u;
+  if constexpr (DROP) {
+    fill_keep_bits<2>(bits, kTile, 0, k0, (uint32_t)p.seed[bh], p.threshold, tid, kConsumers);
+    consumer_sync();
+    keep_word = gather_keep(bits, kl_lo, t4);
+  }
+  mbar_wait(kvbar, 0);
+
+  float dk[32 * NC], dv[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages, q0 = t * kTile;
+    const bf16* Qt = Qring + s * NC * kChunk;
+    const bf16* dOt = dOring + s * NC * kChunk;
+    const float* lse_t = lse_ring + s * kTile;
+    const float* delta_t = delta_ring + s * kTile;
+    // double-buffered: a tile's keep bits and dS^T are rewritten two tiles
+    // later, after every warp has passed the barrier of the tile between
+    bf16* ds_tile = dSt + (t & 1) * kChunk;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    const bf16* Qscore = Qt;
+    if constexpr (!POW2) {
+      scale_tile<NC>(Qsc, Qt, p.scale, tid);
+      fence_proxy_async();
+      consumer_sync();
+      Qscore = Qsc;
+    }
+
+    float sacc[32], dpacc[32];  // S^T and dP^T: keys x query rows
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(sacc, kmajor_desc(Ks, kk), kmajor_desc(Qscore, kk), kk == 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) wgmma_ss_n64(dpacc, kmajor_desc(Vs, kk), kmajor_desc(dOt, kk), kk == 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    if constexpr (!POW2) consumer_sync();  // every warp's S^T has read Qsc
+
+    // P^T (dropped) and dS^T, packed to bf16 A operands 16 query rows at a
+    // time, so that the float32 tiles die as they go
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int j = 2 * c; j < 2 * c + 2; ++j) {
+        // query rows 8j + 2 t4 and the next: one 8-byte load each of lse,
+        // delta, where they are used
+        const float2 lse2 = ld_shared_f2(lse_t + 8 * j + 2 * t4);
+        const float2 delta2 = ld_shared_f2(delta_t + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          // POW2: the unscaled product times the power-of-two scale is the
+          // scaled product, bit for bit
+          const float sv = POW2 ? sacc[4 * j + e] * p.scale : sacc[4 * j + e];
+          const float pj = exp_approx(sv + kbias[r] - ((e & 1) ? lse2.y : lse2.x));
+          float pd = pj, dpj = dpacc[4 * j + e];
+          if constexpr (DROP) {  // 1 / (1 - rate) where kept, else 0
+            const float m =
+                __uint2float_rn((keep_word >> (2 * (2 * j + (e & 1)) + r)) & 1u) * inv_keep;
+            pd *= m;
+            dpj *= m;
+          }
+          sacc[4 * j + e] = pd;                                             // P^T, dropped
+          dpacc[4 * j + e] = pj * (dpj - ((e & 1) ? delta2.y : delta2.x));  // dS^T
+        }
+      }
+      pa[c][0] = pack_bf16(sacc[8 * c + 0], sacc[8 * c + 1]);
+      pa[c][1] = pack_bf16(sacc[8 * c + 2], sacc[8 * c + 3]);
+      pa[c][2] = pack_bf16(sacc[8 * c + 4], sacc[8 * c + 5]);
+      pa[c][3] = pack_bf16(sacc[8 * c + 6], sacc[8 * c + 7]);
+      dsa[c][0] = pack_bf16(dpacc[8 * c + 0], dpacc[8 * c + 1]);
+      dsa[c][1] = pack_bf16(dpacc[8 * c + 2], dpacc[8 * c + 3]);
+      dsa[c][2] = pack_bf16(dpacc[8 * c + 4], dpacc[8 * c + 5]);
+      dsa[c][3] = pack_bf16(dpacc[8 * c + 6], dpacc[8 * c + 7]);
+    }
+    store_swizzled(ds_tile, dsa, kl_lo, t4);
+    wg_fence();
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wgmma_rs<NC>(dv, pa[c], dOt, c);
+      wgmma_rs<NC>(dk, dsa[c], Qt, c);
+    }
+    wg_commit();
+    // the next tile's keep bits (no K3 before K2 draws them) while these
+    // products run; the barrier below orders the fill against its readers
+    uint32_t* next_bits = bits + ((t + 1) & 1) * 2 * kTile;
+    if constexpr (DROP) {
+      if (t + 1 < n_tiles)
+        fill_keep_bits<2>(next_bits, kTile, q0 + kTile, k0, (uint32_t)p.seed[bh], p.threshold,
+                          tid, kConsumers);
+    }
+    fence_proxy_async();
+    consumer_sync();  // every warp's dS^T (and the next tile's keep bits) is in place
+    if constexpr (DROP) keep_word = gather_keep(next_bits, kl_lo, t4);
+    // the dV/dK products are done with this slot's Q and dO, and with the
+    // registers of P^T and dS^T, before the dq accumulator takes registers
+    wg_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[s]);
+
+    // this tile's share of dq: round(dS) K over the CTA's 64 keys, dS^T read
+    // MN-major as the A operand and K's resident tile MN-major as B, one
+    // 64-column half at a time, into the scratch (pairs of columns as one
+    // 8-byte store where D is even)
+#pragma unroll
+    for (int hh = 0; hh < NC; ++hh) {
+      float dq[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64_tt(dq, mnmajor_desc(ds_tile, kk), mnmajor_desc(Ks + hh * kChunk, kk), kk == 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(dq);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + kl_lo + 8 * r, c = 64 * hh + 8 * j + 2 * t4;
+          if (row >= p.Tq || c >= p.D) continue;
+          float* out = part + (long long)row * p.D + c;
+          const float x = dq[4 * j + 2 * r] * p.scale, y = dq[4 * j + 2 * r + 1] * p.scale;
+          if (p.D % 2 == 0) {
+            *reinterpret_cast<float2*>(out) = make_float2(x, y);
+          } else {
+            out[0] = x;
+            if (c + 1 < p.D) out[1] = y;
+          }
+        }
+      }
+    }
+  }
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_rows<NC>(dkp, p.dk_st, k0, p.Tk, p.D, dk, p.scale, tid);
+  store_rows<NC>(dvp, p.dv_st, k0, p.Tk, p.D, dv, 1.f, tid);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1019,86 +1071,39 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const BwdParams& p, cudaStream
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP, bool DROP>
-int run(const BwdParams& p, int which, cudaStream_t s) {
+// float32: K2 (dkv_kernel with its dq share, then dq_reduce_kernel), K3, K4
+template <int DP, bool DROP>
+int run_f32(const BwdParams& p, int which, cudaStream_t s) {
   const int n_qt = (p.Tq + kB - 1) / kB, n_kt = (p.Tk + kB - 1) / kB;
-  if constexpr (std::is_same_v<T, float>) {  // bf16 K3/K4: run_hopper
-    if (which == 1)
-      return launch(dq_kernel<T, DP, DROP>, dq_smem_bytes<DP>(), dim3(n_qt, p.H, p.B), p, s);
-    if (which == 2)
-      return launch(dkv_kernel<T, DP, DROP, false>, dkv_smem_bytes<DP>(),
-                    dim3(n_kt, p.H, p.B), p, s);
-  }
+  if (which == 1)
+    return launch(dq_kernel<float, DP, DROP>, dq_smem_bytes<DP>(), dim3(n_qt, p.H, p.B), p, s);
+  if (which == 2)
+    return launch(dkv_kernel<float, DP, DROP, false>, dkv_smem_bytes<DP>(),
+                  dim3(n_kt, p.H, p.B), p, s);
   if (which != 0) return -3;
-  const int rc = launch(dkv_kernel<T, DP, DROP, true>, dkv_smem_bytes<DP>(),
+  const int rc = launch(dkv_kernel<float, DP, DROP, true>, dkv_smem_bytes<DP>(),
                         dim3(n_kt, p.H, p.B), p, s);
   if (rc != 0) return rc;
   const long long n = (long long)p.B * p.H * p.Tq * p.D;
-  dq_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
+  dq_reduce_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int run_drop(const BwdParams& p, int which, cudaStream_t s) {
-  if (p.seed != nullptr) return run<T, DP, true>(p, which, s);
-  return run<T, DP, false>(p, which, s);
+template <int DP>
+int run_f32_drop(const BwdParams& p, int which, cudaStream_t s) {
+  if (p.seed != nullptr) return run_f32<DP, true>(p, which, s);
+  return run_f32<DP, false>(p, which, s);
+}
+
+int run_float(const BwdParams& p, int which, cudaStream_t s) {
+  if (p.D <= 32) return run_f32_drop<32>(p, which, s);
+  if (p.D <= 64) return run_f32_drop<64>(p, which, s);
+  return run_f32_drop<128>(p, which, s);
 }
 
 // ---------------------------------------------------------------------------
-// K3 / K4 (bf16) launch: tensor maps and dispatch
+// bf16 launch (K2, K3, K4): tensor maps and dispatch
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
-// link against libcuda)
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// TMA can address a (B, H, T, D) bf16 operand in place: 16-byte aligned
-// start, every stride a positive multiple of 16 bytes (8 elements)
-bool tma_legal(const void* ptr, long long sb, long long sh, long long st) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
-  const long long strides[] = {sb, sh, st};
-  for (long long s : strides)
-    if (s <= 0 || s % 8) return false;
-  return true;
-}
-
-// dims (D, T, H, B) through the operand's strides, 64 x 64 boxes, 128-byte
-// swizzle, zeros out of bounds
-int encode_map(CUtensorMap* map, const void* ptr, const BwdParams& p, int t, long long sb,
-               long long sh, long long st) {
-  EncodeTiledFn encode = tensor_map_encoder();
-  if (encode == nullptr) return -4;
-  const cuuint64_t dims[4] = {(cuuint64_t)p.D, (cuuint64_t)t, (cuuint64_t)p.H, (cuuint64_t)p.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)kTile, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : -4;
-}
 
 struct Maps {
   CUtensorMap q, k, v, dout;
@@ -1114,6 +1119,19 @@ int launch_hop(Kernel kernel, size_t smem, dim3 grid, const Maps& m, const BwdPa
   return (int)cudaGetLastError();
 }
 
+// K2: the single pass, then dq_reduce_kernel over its dq shares
+template <int NC, bool POW2, bool DROP>
+int run_dqkv(const Maps& m, const BwdParams& p, cudaStream_t s) {
+  if (p.dq_part == nullptr) return -7;
+  const int n_kt = (p.Tk + kTile - 1) / kTile;
+  const int rc = launch_hop(dqkv_wgmma_kernel<NC, DROP, POW2>, dqkv_hop_smem_bytes<NC, POW2>(),
+                            dim3(n_kt, p.H, p.B), m, p, s);
+  if (rc != 0) return rc;
+  const long long n = (long long)p.B * p.H * p.Tq * p.D;
+  dq_reduce_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
+  return (int)cudaGetLastError();
+}
+
 template <int NC>
 int run_hop(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
   const bool drop = p.seed != nullptr;
@@ -1124,54 +1142,55 @@ int run_hop(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
                 : launch_hop(dq_wgmma_kernel<NC, false>, smem, grid, m, p, s);
   }
   // round(q * scale) == q * scale exactly when the scale is a power of two
+  // (D = 4^n: 1, 4, 16, 64; never above 64, so only the one-chunk kernels)
   int exponent = 0;
   const bool pow2 = frexpf(p.scale, &exponent) == 0.5f;
-  const dim3 grid((p.Tk + kTile - 1) / kTile, p.H, p.B);
-  if (pow2) {
-    const size_t smem = dkv_hop_smem_bytes<NC, true>();
-    return drop ? launch_hop(dkv_wgmma_kernel<NC, true, true>, smem, grid, m, p, s)
-                : launch_hop(dkv_wgmma_kernel<NC, false, true>, smem, grid, m, p, s);
+  if constexpr (NC == 1) {
+    if (pow2) {
+      if (which == 0) return drop ? run_dqkv<NC, true, true>(m, p, s) : run_dqkv<NC, true, false>(m, p, s);
+      const dim3 grid((p.Tk + kTile - 1) / kTile, p.H, p.B);
+      const size_t smem = dkv_hop_smem_bytes<NC, true>();
+      return drop ? launch_hop(dkv_wgmma_kernel<NC, true, true>, smem, grid, m, p, s)
+                  : launch_hop(dkv_wgmma_kernel<NC, false, true>, smem, grid, m, p, s);
+    }
   }
+  if (which == 0) return drop ? run_dqkv<NC, false, true>(m, p, s) : run_dqkv<NC, false, false>(m, p, s);
+  const dim3 grid((p.Tk + kTile - 1) / kTile, p.H, p.B);
   const size_t smem = dkv_hop_smem_bytes<NC, false>();
   return drop ? launch_hop(dkv_wgmma_kernel<NC, true, false>, smem, grid, m, p, s)
               : launch_hop(dkv_wgmma_kernel<NC, false, false>, smem, grid, m, p, s);
 }
 
-// K3 (which 1) or K4 (which 2) in bf16; with dropout K3 writes the keep
-// bits to p.keep_bits and K4 reads them
+// bf16: K2 (which 0), K3 (which 1) or K4 (which 2); with dropout K3 writes
+// the keep bits to p.keep_bits and K4 reads them, while K2 draws its own
 int run_hopper(const BwdParams& p, int which, cudaStream_t s) {
+  if (which < 0 || which > 2) return -3;
   if (!tma_legal(p.q, p.q_sb, p.q_sh, p.q_st) || !tma_legal(p.k, p.k_sb, p.k_sh, p.k_st) ||
       !tma_legal(p.v, p.v_sb, p.v_sh, p.v_st) ||
       !tma_legal(p.dout, p.do_sb, p.do_sh, p.do_st))
     return -5;
-  if (p.seed != nullptr && p.keep_bits == nullptr) return -6;
+  if (which != 0 && p.seed != nullptr && p.keep_bits == nullptr) return -6;
   Maps m;
-  int rc = encode_map(&m.q, p.q, p, p.Tq, p.q_sb, p.q_sh, p.q_st);
-  if (rc == 0) rc = encode_map(&m.k, p.k, p, p.Tk, p.k_sb, p.k_sh, p.k_st);
-  if (rc == 0) rc = encode_map(&m.v, p.v, p, p.Tk, p.v_sb, p.v_sh, p.v_st);
-  if (rc == 0) rc = encode_map(&m.dout, p.dout, p, p.Tq, p.do_sb, p.do_sh, p.do_st);
+  int rc = encode_map(&m.q, p.q, p.B, p.H, p.Tq, p.D, p.q_sb, p.q_sh, p.q_st);
+  if (rc == 0) rc = encode_map(&m.k, p.k, p.B, p.H, p.Tk, p.D, p.k_sb, p.k_sh, p.k_st);
+  if (rc == 0) rc = encode_map(&m.v, p.v, p.B, p.H, p.Tk, p.D, p.v_sb, p.v_sh, p.v_st);
+  if (rc == 0) rc = encode_map(&m.dout, p.dout, p.B, p.H, p.Tq, p.D, p.do_sb, p.do_sh, p.do_st);
   if (rc != 0) return rc;
   return p.D <= 64 ? run_hop<1>(m, p, which, s) : run_hop<2>(m, p, which, s);
 }
 
-template <typename T>
-int run_type(const BwdParams& p, int which, cudaStream_t s) {
-  if (p.D <= 32) return run_drop<T, 32>(p, which, s);
-  if (p.D <= 64) return run_drop<T, 64>(p, which, s);
-  return run_drop<T, 128>(p, which, s);
-}
-
 }  // namespace
 
-// which: 0 = K2 (dq, dk, dv; dq_part scratch of B*H*ceil(Tk/64)*Tq*D
-// floats), 1 = K3 (dq), 2 = K4 (dk, dv). dtype: 0 = float32, 1 = bfloat16.
-// keep_bits: with dropout in bf16 K3/K4, a (B, H, ceil(Tk/64), 64 ceil(Tq/64),
-// 2) uint32 buffer (the keep bits of each 64x64 tile in 512 contiguous bytes)
-// that K3 fills and K4 reads; null otherwise.
+// which: 0 = K2 (dq, dk, dv), 1 = K3 (dq), 2 = K4 (dk, dv). dtype: 0 =
+// float32, 1 = bfloat16. dq_part: float32 scratch of B*H*ceil(Tk/64)*Tq*D
+// floats for K2's dq shares (null for K3 and K4). keep_bits: with
+// dropout in bf16 K3/K4, a (B, H, ceil(Tk/64), 64 ceil(Tq/64), 2) uint32
+// buffer (the keep bits of each 64x64 tile in 512 contiguous bytes) that K3
+// fills and K4 reads; null otherwise.
 // Returns 0, a cudaError_t code, -1 for an unknown dtype, -2 for a head dim
 // above 128, -3 for an unknown `which`, -4 when the driver refuses a tensor
-// map, -5 for an operand TMA cannot address, -6 for dropout without
-// keep_bits.
+// map, -5 for a bf16 operand TMA cannot address, -6 for dropout without
+// keep_bits, -7 for bf16 K2 without dq_part.
 extern "C" int vimo_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* mask,
     const float* lse, const float* delta, const int* seed,
@@ -1205,10 +1224,29 @@ extern "C" int vimo_flash_attention_bwd(
   p.keep = seed != nullptr ? keep : 1.0f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 128) return -2;
-  if (dtype == 0) return run_type<float>(p, which, s);
-  if (dtype == 1 && (which == 1 || which == 2)) return run_hopper(p, which, s);
-  if (dtype == 1) return run_type<__nv_bfloat16>(p, which, s);
+  if (dtype == 0) return run_float(p, which, s);
+  if (dtype == 1) return run_hopper(p, which, s);
   return -1;
+}
+
+// CTAs of bf16 K2 that fit one SM at head dim D, with or without dropout
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the power-of-two-scale
+// kernel at D <= 64); a negative cudaError_t code on failure
+extern "C" int vimo_flash_attention_bwd_dqkv_occupancy(int D, int drop) {
+  int n = 0;
+  cudaError_t err;
+  if (D <= 64) {
+    const auto kernel = drop ? dqkv_wgmma_kernel<1, true, true> : dqkv_wgmma_kernel<1, false, true>;
+    const size_t smem = dqkv_hop_smem_bytes<1, true>();
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kHopThreads, smem);
+  } else {
+    const auto kernel = drop ? dqkv_wgmma_kernel<2, true, false> : dqkv_wgmma_kernel<2, false, false>;
+    const size_t smem = dqkv_hop_smem_bytes<2, false>();
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kHopThreads, smem);
+  }
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 extern "C" const char* vimo_cuda_error_string(int code) {

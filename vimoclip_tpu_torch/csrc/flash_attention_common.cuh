@@ -53,7 +53,9 @@ __device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_
 
 // Keep bits of a tile of `rows` query rows from r0 by 64 key columns from c0
 // (c0 a multiple of 4): word 2 * r + j / 32, bit j % 32 is column c0 + j of
-// row r0 + r. Each word is 8 Philox calls by one thread.
+// row r0 + r. Each word is 8 Philox calls by one thread, UNROLL of them
+// interleaved (fewer hold fewer registers).
+template <int UNROLL = 8>
 __device__ __forceinline__ void fill_keep_bits(uint32_t* bits, int rows, int r0, int c0,
                                                uint32_t seed, uint32_t threshold,
                                                int tid, int nthreads) {
@@ -61,13 +63,17 @@ __device__ __forceinline__ void fill_keep_bits(uint32_t* bits, int rows, int r0,
     const int r = w >> 1;
     const uint32_t group0 = (uint32_t)((c0 >> 2) + (w & 1) * 8);
     uint32_t word = 0u;
+#pragma unroll 1
+    for (int g0 = 0; g0 < 8; g0 += UNROLL) {
 #pragma unroll
-    for (int g = 0; g < 8; ++g) {
-      const uint4 x = philox4x32_10((uint32_t)(r0 + r), group0 + g, seed);
-      word |= ((uint32_t)(x.x < threshold) << (4 * g)) |
-              ((uint32_t)(x.y < threshold) << (4 * g + 1)) |
-              ((uint32_t)(x.z < threshold) << (4 * g + 2)) |
-              ((uint32_t)(x.w < threshold) << (4 * g + 3));
+      for (int gi = 0; gi < UNROLL; ++gi) {
+        const int g = g0 + gi;
+        const uint4 x = philox4x32_10((uint32_t)(r0 + r), group0 + g, seed);
+        word |= ((uint32_t)(x.x < threshold) << (4 * g)) |
+                ((uint32_t)(x.y < threshold) << (4 * g + 1)) |
+                ((uint32_t)(x.z < threshold) << (4 * g + 2)) |
+                ((uint32_t)(x.w < threshold) << (4 * g + 3));
+      }
     }
     bits[w] = word;
   }

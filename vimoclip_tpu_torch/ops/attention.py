@@ -93,10 +93,12 @@ class MultiHeadAttention(nn.Module):
     # Philox mask from int64 elementwise ops. chip_smoke.py phase 6 on an
     # NVIDIA H100 80GB HBM3 (700 W) timed a full-width train step at the
     # 128-frame bucket at 66.6 ms eager against 32.9 ms on the kernels.
-    # Without dropout the crossover is carried over from the JAX package as
-    # it is, a TPU v5e figure (vimoclip_tpu/ops/attention.py:229-237); its
-    # H100 measurement is still owed (ROADMAP.md).
-    _AUTO_FLASH_MIN_T_NODROP = 2048
+    # Without dropout they win from the shortest bucket measured on: the same
+    # phase timed TFAM's eval step (d512, 8 heads, 4 layers, batch 8) at
+    # 10.68 ms eager against 7.58 ms on the kernels at 128 frames, and
+    # 19.29 against 10.77 ms at 2048 (same card and limit). Shorter keys
+    # were not measured; the TFAM pipelines pad to multiples of 128.
+    _AUTO_FLASH_MIN_T_NODROP = 128
 
     def __init__(
         self,

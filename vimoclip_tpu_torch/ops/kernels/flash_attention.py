@@ -9,14 +9,15 @@ flash_attention`` (wrapper :751) and its kernels:
   ``csrc/flash_attention_fwd.cu``;
 - K2 ``_dqkv_single_kernel`` :282 (keys fit one 512-key tile), K3
   ``_dq_kernel`` :214 and K4 ``_dkv_kernel`` :244 (longer keys):
-  ``csrc/flash_attention_bwd.cu``. In bf16, K3 and K4 run on the tensor
-  cores (wgmma) from tiles that TMA copies into shared memory; with dropout
-  K3 also writes the keep bits of each 64x64 tile to a uint32 buffer that
-  K4 reads instead of drawing them again. TMA needs a 16-byte aligned
-  start and strides of 16-byte multiples: ``backward_kernels`` hands the
-  kernels a padded copy of any operand that lacks them (``tma_legal``,
-  ``tma_operand``). K2 (in both types) and the float32 K3 and K4 do their
-  products with FMAs.
+  ``csrc/flash_attention_bwd.cu``.
+
+In bf16 every kernel runs on the tensor cores (wgmma) from tiles that TMA
+copies into shared memory; with dropout K3 also writes the keep bits of each
+64x64 tile to a uint32 buffer that K4 reads instead of drawing them again
+(K1' and K2 draw their own). TMA needs a 16-byte aligned start and strides
+of 16-byte multiples: ``_launch_fwd`` and ``backward_kernels`` hand the
+kernels a padded copy of any bf16 operand that lacks them (``tma_legal``,
+``tma_operand``). In float32 every kernel does its products with FMAs.
 
 The sources' headers say what bounds each kernel on the H100 and what the
 design does about it.
@@ -329,6 +330,8 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     q, k, v = _rows(q), _rows(k), _rows(v)
+    if q.dtype == torch.bfloat16:  # the wgmma kernel reads them with TMA
+        q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
     mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
     out = _heads_major(b, tq, h, d, q.dtype, q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -415,9 +418,9 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
 def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
                      grad_out):
     """The backward kernels on CUDA tensors: K2 when the keys fit one
-    512-key tile, else K3 + K4 (in bf16 on operands TMA can read, and with
-    dropout through the keep-bit buffer K3 fills for K4). ``seed``: the
-    (B, H) int32 seeds. Returns (dq, dk, dv)."""
+    512-key tile, else K3 + K4 (with dropout in bf16 through the keep-bit
+    buffer K3 fills for K4); bf16 operands are first made readable by TMA.
+    ``seed``: the (B, H) int32 seeds. Returns (dq, dk, dv)."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernels run on CUDA tensors, not {q.device}")
     _check_kernel_inputs(q, k, v)
@@ -430,19 +433,18 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
     dq = _heads_major(b, tq, h, d, q.dtype, q.device)
     dk = _heads_major(b, tk, h, d, k.dtype, q.device)
     dv = _heads_major(b, tk, h, d, v.dtype, q.device)
+    if q.dtype == torch.bfloat16:
+        q, k, v, grad_out = (tma_operand(t) for t in (q, k, v, grad_out))
     args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
     if tk <= SINGLE_PASS_MAX_TK:
         _launch_bwd("bwd_dqkv", *args, dq, dk, dv)
         return dq, dk, dv
     keep_bits = None
-    if q.dtype == torch.bfloat16:
-        q, k, v, grad_out = (tma_operand(t) for t in (q, k, v, grad_out))
-        args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
-        if dropout_rate > 0.0:
-            # K3 writes each 64x64 tile's bits as 512 contiguous bytes, which
-            # K4 copies with one bulk transfer
-            keep_bits = torch.empty((b, h, -(-tk // 64), -(-tq // 64) * 64, 2),
-                                    dtype=torch.int32, device=q.device)
+    if q.dtype == torch.bfloat16 and dropout_rate > 0.0:
+        # K3 writes each 64x64 tile's bits as 512 contiguous bytes, which K4
+        # copies with one bulk transfer
+        keep_bits = torch.empty((b, h, -(-tk // 64), -(-tq // 64) * 64, 2),
+                                dtype=torch.int32, device=q.device)
     _launch_bwd("bwd_dq", *args, dq, None, None, keep_bits)
     _launch_bwd("bwd_dkv", *args, None, dk, dv, keep_bits)
     return dq, dk, dv
