@@ -60,7 +60,25 @@ NVIDIA card:
 9. Motion export: ``MotionEmbeddingExporter._embed_chunk`` on two
    128-frame chunks and a 77-frame tail at 224x224 with the trained
    student, K5 once per chunk, equal to the trainer's own tower.
-10. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+10. Teacher extraction: ``ClipExtractor.extract`` on synthetic videos made
+    from ``--seed`` and fed through its decode seam (no OpenCV or h5py on
+    the card's machine). The AK teacher, ViT-B/16 at full width on random
+    weights, bf16, batch 256, four decode threads, six 360x640 videos of
+    120-700 frames (1,803 frames, 8 dispatches, packing across videos and a
+    padded tail): each video equal to its frames run alone in padded
+    256-frame batches (rel. L2 <= 1e-3, bitwise expected); warm frames/s
+    (the second pass) and peak memory; ``stream_rows=128`` chunks equal to
+    the whole videos while one reader fails after two chunks; one profiled
+    dispatch and one profiled pass (device ms, idle share). The MN teacher,
+    ViT-B/32 on 224x224 frames: K5 once per dispatch, equal to the
+    sequential run. K1 at the
+    towers' shapes (256, 12, 197, 197, 64) and (256, 12, 50, 50, 64) on
+    q/k/v split from one packed projection: TMA legality, against its plain
+    version, its device ms beside SDPA's and the eager path's; both towers
+    on ``attention_impl="flash"`` against the default eager path (frames/s,
+    12 K1 launches per dispatch, per-frame cosine). One 129-frame 360x640
+    chunk through ``frame_diff`` on the card, bitwise equal to the CPU.
+11. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -142,9 +160,11 @@ CROSSOVER_BUCKETS = (128, 256, 512)
 NODROP_BUCKETS = (128, 256, 512, 1024, 2048)
 
 # K5 (fused normalise): (shape, storage offset in bytes) — the MN training
-# step's frames (8 segments x 29), an export chunk, and an odd view whose
+# step's frames (8 segments x 29), an export chunk, a teacher-extraction
+# dispatch of EXTRACT_BATCH 224x224 frames (phase 10), and an odd view whose
 # element count is no multiple of 48 and whose start is misaligned
-NORMALIZE_SHAPES = [((232, 224, 224, 3), 0), ((128, 224, 224, 3), 0), ((3, 17, 31, 3), 5)]
+NORMALIZE_SHAPES = [((232, 224, 224, 3), 0), ((128, 224, 224, 3), 0),
+                    ((256, 224, 224, 3), 0), ((3, 17, 31, 3), 5)]
 STUDENT_SEQ = 30  # teacher frames per segment; 29 motion frames
 EXPORT_CHUNK = 128
 # grad_accum=2 against one full-batch step from the same state, bf16 compute:
@@ -153,6 +173,22 @@ EXPORT_CHUNK = 128
 # 1.8e-3 relative L2; the limits leave 150x and 11x room.
 ACCUM_LOSS_TOL = 1e-5
 ACCUM_GRAD_TOL = 2e-2
+# Teacher extraction (phase 10): the AK teacher (ViT-B/16) at the CLI's batch
+# of 256 over six 360x640 videos, 1,803 frames in 8 dispatches (packing across
+# videos, a padded tail); the MN teacher (ViT-B/32) over 224x224 frames.
+EXTRACT_BATCH = 256
+EXTRACT_LENGTHS = (120, 200, 300, 450, 700, 33)
+EXTRACT_HW = (360, 640)
+MN_EXTRACT_LENGTHS = (300, 170, 90)  # 560 frames: 3 dispatches
+EXTRACT_STREAM_ROWS = 128
+# The extractor against each video run alone in padded batches of the same
+# shape: the same kernels compute every row, so bitwise is expected; the limit
+# is 1e-3 relative L2 per video.
+EXTRACT_TOL = 1e-3
+# flash (K1) against eager towers, per-frame cosine of the bf16 embeddings.
+# Measured on an H100 80GB HBM3 at 700 W: at least 0.999982 (ViT-B/32) and
+# 0.999985 (ViT-B/16), a gap of 1.8e-5; the limit's gap of 5e-4 leaves 27x room.
+TOWER_COS_MIN = 0.9995
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1146,6 +1182,291 @@ def phase_export(torch, trainer, seed: int, smi: str) -> dict:
     return stats
 
 
+def _decoder(videos: dict, fail: str | None = None):
+    """``decode_fn`` over in-memory videos keyed by path: chunks of
+    ``chunk_size`` views; the video named ``fail`` raises after two chunks."""
+    def decode(path, chunk_size):
+        frames = videos[path]
+        for j, i in enumerate(range(0, len(frames), chunk_size)):
+            if path == fail and j == 2:
+                raise IOError("synthetic mid-decode failure")
+            yield frames[i:i + chunk_size]
+    return decode
+
+
+def _run_extract(torch, extractor, videos: dict, **kw) -> tuple[dict, dict, dict]:
+    """One ``extract`` pass ending in a synchronise: (whole-video results,
+    streamed chunks when ``stream_rows`` is given, errors)."""
+    done, chunks = {}, {}
+    if "stream_rows" in kw:
+        kw["on_video_chunk"] = lambda v, c: chunks.setdefault(v, []).append(c)
+    errors = extractor.extract([(k, k) for k in videos],
+                               lambda v, e: done.__setitem__(v, e), **kw)
+    torch.cuda.synchronize()
+    return done, chunks, errors
+
+
+def _rel_l2(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _sequential(torch, extractor, frames):
+    """One video alone: padded ``EXTRACT_BATCH``-frame batches through the
+    extractor's preprocessing and encoder."""
+    import numpy as np
+
+    from vimoclip_tpu_torch.ops.batching import pad_to_batch
+
+    out = []
+    for i in range(0, len(frames), EXTRACT_BATCH):
+        part = frames[i:i + EXTRACT_BATCH]
+        x = torch.from_numpy(pad_to_batch(part, EXTRACT_BATCH)).cuda()
+        out.append(extractor._embed(x)[:len(part)].cpu().numpy())
+    return np.concatenate(out)
+
+
+def _tower_kernel(torch, shape, smi: str) -> dict:
+    """K1 at a tower's attention shape, on q/k/v split from one packed
+    projection as ``MultiHeadAttention`` makes them: TMA legality, the
+    kernel against its plain version, and its device time beside SDPA's and
+    the eager path's."""
+    import torch.nn.functional as F
+
+    from vimoclip_tpu_torch.ops.attention import dot_product_attention
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+        tma_legal,
+    )
+
+    b, h, t, _, d = shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g).to(torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    legal = all(tma_legal(x) for x in (q, k, v))
+    check(legal, f"the tower's q/k/v at {shape} are not TMA-legal")
+    out = flash_attention(q, k, v)
+    err = (out.float() - flash_attention_reference(q, k, v).float()).abs().max().item()
+    check(err <= KERNEL_TOL["bfloat16"], f"K1 at {shape}: max|d| {err}")
+    ms = device_ms(torch, lambda: flash_attention(q, k, v),
+                   names=KERNEL_NAMES["fwd"]["bfloat16"],
+                   per_call=KERNEL_PER_CALL["fwd"]["bfloat16"])
+    sdpa_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                        required=False)
+    eager_ms = device_ms(torch, lambda: dot_product_attention(q, k, v))
+    moved = 4 * b * h * t * d * 2  # q, k, v in, o out, bf16
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * b * h * t * t * d / PEAK_FLOPS["bfloat16"] * 1e3
+    row = {"shape": list(shape), "tma_legal": legal, "max_abs_err": err, "ms": ms,
+           "sdpa_ms": sdpa_ms, "eager_ms": eager_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print("[extract-k1] " + json.dumps(row) + f" [{smi}]")
+    return row
+
+
+def _tower_pair(torch, cfg, state, videos: dict, smi: str, label: str) -> dict:
+    """The same teacher with eager attention ("xla", the default) and with
+    K1 ("flash"): warm frames/s of each, K1 launches per dispatch, and the
+    per-frame cosine of the two paths' embeddings."""
+    import dataclasses
+
+    import numpy as np
+
+    from vimoclip_tpu_torch.extraction import ClipExtractor
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        reset_launch_counts,
+    )
+
+    n = sum(len(v) for v in videos.values())
+    dispatches = -(-n // EXTRACT_BATCH)
+    out, emb = {}, {}
+    for impl in ("xla", "flash"):
+        ext = ClipExtractor(state, dataclasses.replace(cfg, attention_impl=impl),
+                            batch_size=EXTRACT_BATCH, decode_fn=_decoder(videos),
+                            device="cuda")
+        _run_extract(torch, ext, videos)  # cold
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        emb[impl], _, errors = _run_extract(torch, ext, videos)
+        out[f"{impl}_frames_per_s"] = n / (time.perf_counter() - t0)
+        check(errors == {}, f"{label} {impl}: {errors}")
+        out[f"{impl}_k1_launches"] = flash_attention.launches["fwd"]
+    layers = cfg.num_layers
+    check(out["xla_k1_launches"] == 0, f"{label}: the eager towers launched K1")
+    check(out["flash_k1_launches"] == layers * dispatches,
+          f"{label}: K1 launched {out['flash_k1_launches']} times, expected "
+          f"{layers} per dispatch x {dispatches}")
+    cos = []
+    for vid in videos:
+        a, b = emb["flash"][vid], emb["xla"][vid]
+        cos.append(float((np.sum(a * b, 1) / (np.linalg.norm(a, axis=1)
+                                                * np.linalg.norm(b, axis=1))).min()))
+    out["min_cosine_flash_vs_xla"] = min(cos)
+    check(out["min_cosine_flash_vs_xla"] >= TOWER_COS_MIN,
+          f"{label}: flash vs eager cosine {min(cos)} < {TOWER_COS_MIN}")
+    print(f"[extract-{label}] " + json.dumps(out) + f" [{smi}]")
+    return out
+
+
+def phase_extraction(torch, seed: int, smi: str) -> dict:
+    """Teacher extraction through ``ClipExtractor.extract`` with synthetic
+    videos fed through its decode seam (the card's machine has no OpenCV or
+    h5py): the AK teacher at full width against each video run alone, warm
+    frames/s, streaming, a failing reader, a profiled dispatch and pass; the MN
+    teacher's 224x224 frames with K5 once per dispatch; K1 at the towers'
+    shapes and the towers on it; the frame difference on the card."""
+    import numpy as np
+
+    # these import on the card's machine, which has no cv2, h5py, pandas or
+    # PyYAML: they import those where they use them
+    import vimoclip_tpu_torch.pipeline  # noqa: F401
+    from vimoclip_tpu_torch.extraction import ClipExtractor
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.motion import DIFF_CHUNK
+    from vimoclip_tpu_torch.ops.batching import pad_to_batch
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+    from vimoclip_tpu_torch.ops.preprocess import frame_diff
+
+    host_libs = {m: m in sys.modules for m in ("cv2", "h5py", "pandas", "yaml")}
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+
+    def corpus(lengths, hw):
+        frames = torch.randint(0, 256, (sum(lengths), *hw, 3), device="cuda",
+                               generator=g, dtype=torch.uint8).cpu().numpy()
+        starts = np.cumsum((0,) + lengths)
+        return {f"v{i}": frames[starts[i]:starts[i + 1]] for i in range(len(lengths))}
+
+    def teacher(cfg):
+        return init_parameters_(ClipVisionEncoder(cfg), g).state_dict()
+
+    # --- the AK teacher: ViT-B/16 at full width, 360x640 frames ---------------
+    ak_cfg = ClipVisionConfig.vit_b_16()
+    ak_state = teacher(ak_cfg)
+    videos = corpus(EXTRACT_LENGTHS, EXTRACT_HW)
+    n_frames = sum(EXTRACT_LENGTHS)
+    dispatches = -(-n_frames // EXTRACT_BATCH)
+    ext = ClipExtractor(ak_state, ak_cfg, batch_size=EXTRACT_BATCH, decode_workers=4,
+                        decode_fn=_decoder(videos), device="cuda")
+    fused_normalize.launches = 0
+    t0 = time.perf_counter()
+    first, _, errors = _run_extract(torch, ext, videos)
+    cold_s = time.perf_counter() - t0
+    check(errors == {} and set(first) == set(videos), f"AK extraction: {errors}")
+    check(fused_normalize.launches == 0, "360x640 frames launched K5 (the resize branch "
+                                         "launches none)")
+    gaps = []
+    for vid, frames in videos.items():
+        e = first[vid]
+        check(e.shape == (len(frames), 512), f"{vid}: embeddings {e.shape}")
+        check(bool(np.isfinite(e).all()), f"{vid}: non-finite embeddings")
+        gaps.append(_rel_l2(e, _sequential(torch, ext, frames)))
+    check(max(gaps) <= EXTRACT_TOL, f"extractor vs sequential: rel. L2 {max(gaps)} > "
+                                    f"{EXTRACT_TOL}")
+
+    # warm: the second pass over the same corpus, ending in a synchronise
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    second, _, errors = _run_extract(torch, ext, videos)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(errors == {}, f"warm pass: {errors}")
+    repeat = max(_rel_l2(second[v], first[v]) for v in videos)
+    check(repeat <= EXTRACT_TOL, f"two passes differ by rel. L2 {repeat}")
+
+    # streaming at 128 rows with a reader that fails after two chunks
+    ext_fail = ClipExtractor(ak_state, ak_cfg, batch_size=EXTRACT_BATCH, decode_workers=4,
+                             decode_fn=_decoder(videos, fail="v4"), device="cuda")
+    aborted = []
+    done, chunks, errors = _run_extract(torch, ext_fail, videos, stream_rows=EXTRACT_STREAM_ROWS,
+                                        on_video_abort=aborted.append)
+    check(set(errors) == {"v4"}, f"failing reader: errors {errors}")
+    check("v4" not in done, "the failed video finished")
+    stream_gap = 0.0
+    for vid, frames in videos.items():
+        if vid == "v4":
+            continue
+        if done[vid] is None:  # streamed
+            check(all(len(c) < EXTRACT_STREAM_ROWS + EXTRACT_BATCH for c in chunks[vid]),
+                  f"{vid}: a chunk over the bound")
+            got = np.concatenate(chunks[vid])
+        else:
+            check(len(frames) < EXTRACT_STREAM_ROWS and vid not in chunks,
+                  f"{vid}: a short video streamed")
+            got = done[vid]
+        check(got.shape == first[vid].shape, f"{vid}: streamed {got.shape}")
+        stream_gap = max(stream_gap, _rel_l2(got, first[vid]))
+    check(stream_gap <= EXTRACT_TOL, f"streamed vs whole: rel. L2 {stream_gap}")
+
+    # one dispatch, host packing and pinning included, under the profiler
+    stack_src = np.concatenate([videos["v4"][:EXTRACT_BATCH - 10], videos["v5"][:10]])
+    prof = profile_request(
+        torch, lambda: ext._fetch(ext._dispatch(pad_to_batch(stack_src, EXTRACT_BATCH))),
+        smi, label="extract-dispatch")
+    # and a whole warm pass: how much of it the card sits idle
+    pass_prof = profile_request(torch, lambda: _run_extract(torch, ext, videos), smi,
+                                label="extract-pass")
+
+    # --- the MN teacher: ViT-B/32 over 224x224 frames, K5 once per dispatch ------
+    mn_cfg = ClipVisionConfig.vit_b_32()
+    mn_state = teacher(mn_cfg)
+    mn_videos = corpus(MN_EXTRACT_LENGTHS, (224, 224))
+    mn_dispatches = -(-sum(MN_EXTRACT_LENGTHS) // EXTRACT_BATCH)
+    mn = ClipExtractor(mn_state, mn_cfg, batch_size=EXTRACT_BATCH,
+                       decode_fn=_decoder(mn_videos), device="cuda")
+    fused_normalize.launches = 0
+    mn_done, _, errors = _run_extract(torch, mn, mn_videos)
+    k5_launches = fused_normalize.launches
+    check(errors == {}, f"MN extraction: {errors}")
+    check(k5_launches == mn_dispatches, f"K5 launched {k5_launches} times for "
+                                        f"{mn_dispatches} dispatches")
+    mn_gap = max(_rel_l2(mn_done[v], _sequential(torch, mn, f)) for v, f in mn_videos.items())
+    check(mn_gap <= EXTRACT_TOL, f"MN extractor vs sequential: rel. L2 {mn_gap}")
+    check(all(np.isfinite(e).all() for e in mn_done.values()), "non-finite MN embeddings")
+
+    # --- K1 at the towers' shapes, and the towers on it --------------------------
+    k1 = {"vit_b_16": _tower_kernel(torch, (EXTRACT_BATCH, 12, ak_cfg.num_patches + 1,
+                                            ak_cfg.num_patches + 1, 64), smi),
+          "vit_b_32": _tower_kernel(torch, (EXTRACT_BATCH, 12, mn_cfg.num_patches + 1,
+                                            mn_cfg.num_patches + 1, 64), smi)}
+    towers = {"vit_b_16": _tower_pair(torch, ak_cfg, ak_state, videos, smi, "vit_b_16"),
+              "vit_b_32": _tower_pair(torch, mn_cfg, mn_state, mn_videos, smi, "vit_b_32")}
+
+    # --- the frame difference on the card -----------------------------------------
+    chunk = videos["v4"][:DIFF_CHUNK]
+    x = torch.from_numpy(chunk).cuda()
+    with torch.inference_mode():
+        diff = frame_diff(x, replicate_channels=False)
+        diff_ms = cuda_ms(torch, lambda: frame_diff(x, replicate_channels=False),
+                          iters=10, warmup=2)
+    check(torch.equal(diff.cpu(), frame_diff(torch.from_numpy(chunk),
+                                             replicate_channels=False)),
+          "frame_diff on the card differs from the CPU")
+
+    stats = {
+        "frames": n_frames, "dispatches": dispatches, "batch": EXTRACT_BATCH,
+        "cold_s": cold_s, "warm_frames_per_s": n_frames / warm_s,
+        "peak_mem_bytes": peak, "max_rel_l2_vs_sequential": max(gaps),
+        "max_rel_l2_stream_vs_whole": stream_gap, "max_rel_l2_pass_to_pass": repeat,
+        "tol_rel_l2": EXTRACT_TOL, "bitwise_vs_sequential": max(gaps) == 0.0,
+        "aborted": aborted, "dispatch_device_ms": prof["device_busy_ms"],
+        "dispatch_wall_ms": prof["profiled_wall_ms"],
+        "dispatch_idle_share": prof["device_idle_share"],
+        "pass_device_ms": pass_prof["device_busy_ms"],
+        "pass_wall_ms": pass_prof["profiled_wall_ms"],
+        "pass_idle_share": pass_prof["device_idle_share"],
+        "mn_frames": sum(MN_EXTRACT_LENGTHS), "mn_dispatches": mn_dispatches,
+        "k5_launches": k5_launches, "mn_max_rel_l2_vs_sequential": mn_gap,
+        "frame_diff_ms": diff_ms, "frame_diff_shape": list(diff.shape),
+        "host_libraries_present": host_libs,
+    }
+    print("[extract] " + json.dumps(stats) + f" [{smi}]")
+    return {"stats": stats, "k1": k1, "towers": towers}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1181,6 +1502,8 @@ def main() -> int:
     k5 = phase_normalize_kernel(torch, args.seed, smi)
     student, student_trainer = phase_student(torch, args.seed, smi)
     export = phase_export(torch, student_trainer, args.seed, smi)
+    del student_trainer
+    extraction = phase_extraction(torch, args.seed, smi)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
@@ -1204,7 +1527,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    k5_launches = student["mn_k5_launches"] + export["k5_launches"]
+    k5_launches = (student["mn_k5_launches"] + export["k5_launches"]
+                   + extraction["stats"]["k5_launches"])
     check(k5_launches > 0, "fused_normalize never launched on the stage-1 path")
     kernels.append({
         "name": "fused_normalize", "route": "cuda",

@@ -440,3 +440,51 @@ def test_export_chunk_path_on_card(cuda):
     with torch.inference_mode():
         ref = exp.encoder(clip_preprocess(padded, 32, dtype=torch.bfloat16)).float()[:11]
     np.testing.assert_array_equal(emb, ref.cpu().numpy())
+
+
+def _synthetic_decoder(videos):
+    """A ``decode_fn`` over in-memory uint8 videos keyed by path."""
+    def decode(path, chunk_size):
+        frames = videos[path]
+        for i in range(0, len(frames), chunk_size):
+            yield frames[i:i + chunk_size]
+    return decode
+
+
+def _tiny_extractor(videos, **kw):
+    from vimoclip_tpu_torch.extraction import ClipExtractor
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+
+    cfg = ClipVisionConfig(**_TINY_VIT)
+    tower = init_parameters_(ClipVisionEncoder(cfg), torch.Generator().manual_seed(0))
+    return ClipExtractor(tower.state_dict(), cfg, batch_size=8, device="cuda",
+                         decode_fn=_synthetic_decoder(videos), **kw)
+
+
+@pytest.mark.parametrize("hw, per_dispatch", [((32, 32), 1), ((36, 48), 0)],
+                         ids=["no-resize", "resize"])
+def test_extractor_equals_sequential_and_counts_k5(cuda, hw, per_dispatch):
+    """Frames packed across videos in padded 8-frame batches give the
+    embeddings of each video run alone in padded batches; K5 launches once
+    per dispatch when the frames have the encoder's size."""
+    from vimoclip_tpu_torch.ops.batching import pad_to_batch
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+
+    rng = np.random.default_rng(2)
+    videos = {f"v{t}": rng.integers(0, 256, (t, *hw, 3), dtype=np.uint8) for t in (5, 11, 3)}
+    extractor = _tiny_extractor(videos, decode_workers=2)
+    got = {}
+    before = fused_normalize.launches
+    errors = extractor.extract([(k, k) for k in videos], lambda v, e: got.__setitem__(v, e))
+    assert errors == {} and set(got) == set(videos)
+    assert fused_normalize.launches == before + per_dispatch * 3  # 19 frames, batch 8
+    for vid, frames in videos.items():
+        ref = []
+        for i in range(0, len(frames), 8):
+            x = torch.from_numpy(pad_to_batch(frames[i:i + 8], 8)).to(cuda)
+            with torch.inference_mode():
+                emb = extractor.encoder(clip_preprocess(x, 32, dtype=torch.bfloat16))
+            ref.append(emb.float()[:len(frames[i:i + 8])].cpu().numpy())
+        np.testing.assert_array_equal(got[vid], np.concatenate(ref))

@@ -91,3 +91,65 @@ def test_chip_smoke_refuses_without_card(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+NEW_MODULES = ["vimoclip_tpu_torch.extraction", "vimoclip_tpu_torch.motion",
+               "vimoclip_tpu_torch.pipeline", "vimoclip_tpu_torch.data.hdf5_schema",
+               "vimoclip_tpu_torch.cli.extract_embeddings", "vimoclip_tpu_torch.cli.h5_merge",
+               "vimoclip_tpu_torch.cli.h5_structure_checker",
+               "vimoclip_tpu_torch.cli.generate_motion", "vimoclip_tpu_torch.cli.extract_frames",
+               "vimoclip_tpu_torch.cli.run_pipeline"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_module_imports_without_host_libraries(module):
+    """The card's machine has no cv2, h5py, pandas or PyYAML: the modules
+    import them only where they are used."""
+    code = (
+        "import sys\n"
+        "for name in ('cv2', 'h5py', 'pandas', 'yaml'): sys.modules[name] = None\n"
+        f"import importlib; importlib.import_module({module!r})\n"
+        "print('OK')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and "OK" in res.stdout, res.stderr
+
+
+def test_new_entry_points_default_to_the_card(tmp_path):
+    """Without a card, each new entry point raises at its default device,
+    before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from vimoclip_tpu_torch.extraction import ClipExtractor, create_hdf5_dataset
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
+    from vimoclip_tpu_torch.motion import (
+        PtlflowAdapter,
+        generate_frame_diff_video,
+        process_video_list,
+    )
+    from vimoclip_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    (tmp_path / "ann.txt").write_text("v.mp4 0\n")
+    (tmp_path / "cls.csv").write_text("id,name\n0,a\n")
+    (tmp_path / "list.txt").write_text("v.mp4\n")
+    calls = [
+        lambda: ClipExtractor({}, ClipVisionConfig()),
+        lambda: ClipExtractor({}, ClipVisionConfig(), device="cuda"),
+        lambda: create_hdf5_dataset(str(tmp_path), str(tmp_path / "ann.txt"),
+                                    str(tmp_path / "cls.csv"), str(tmp_path / "out.h5"),
+                                    {}, ClipVisionConfig()),
+        lambda: PtlflowAdapter(torch.nn.Identity()),
+        lambda: PtlflowAdapter(torch.nn.Identity(), device="cuda"),
+        lambda: generate_frame_diff_video(str(tmp_path / "v.mp4"), str(tmp_path / "o.mp4")),
+        lambda: process_video_list(str(tmp_path / "list.txt"), str(tmp_path),
+                                   str(tmp_path / "motion")),
+        lambda: run_pipeline(PipelineConfig(
+            workdir=str(tmp_path / "run"), data_root=str(tmp_path),
+            train_annotations="", val_annotations="", class_file="", clip_weights="",
+            tfam_config="")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ann.txt", "cls.csv", "list.txt"]

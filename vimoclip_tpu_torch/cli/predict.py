@@ -15,7 +15,6 @@ directories are not read here: ``vimo-convert`` exports them to ``.pth``.
 from __future__ import annotations
 
 import argparse
-import csv
 import json
 import logging
 import os
@@ -80,24 +79,10 @@ def validate_model_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--data-parallel > 1 comes with the multi-GPU slice of the port")
 
 
-def load_class_names(class_file: str) -> dict[int, str]:
-    """``id,name`` rows, headered or not: rows whose id is not an integer
-    (a header) are skipped."""
-    out: dict[int, str] = {}
-    with open(class_file, newline="") as f:
-        for row in csv.reader(f):
-            if len(row) < 2:
-                continue
-            try:
-                out[int(row[0])] = row[1]
-            except ValueError:
-                continue
-    return out
-
-
 def build_predictor(args):
     """Load the three stages' weights and build the predictor."""
     from vimoclip_tpu_torch.config import load_experiment_config
+    from vimoclip_tpu_torch.extraction import load_class_names
     from vimoclip_tpu_torch.models.convert import (
         student_visual_state_from_checkpoint,
         tfam_state_from_checkpoint,

@@ -95,9 +95,10 @@ class MultiHeadAttention(nn.Module):
     # 128-frame bucket at 66.6 ms eager against 32.9 ms on the kernels.
     # Without dropout they win from the shortest bucket measured on: the same
     # phase timed TFAM's eval step (d512, 8 heads, 4 layers, batch 8) at
-    # 10.68 ms eager against 7.58 ms on the kernels at 128 frames, and
-    # 19.29 against 10.77 ms at 2048 (same card and limit). Shorter keys
-    # were not measured; the TFAM pipelines pad to multiples of 128.
+    # 8.94 ms eager against 6.79 ms on the kernels at 128 frames, and
+    # 18.62 against 5.18 ms at 2048 (same card and limit; the run PERF.md
+    # quotes). Shorter keys were not measured; the TFAM pipelines pad to
+    # multiples of 128.
     _AUTO_FLASH_MIN_T_NODROP = 128
 
     def __init__(

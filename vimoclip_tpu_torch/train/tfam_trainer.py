@@ -303,7 +303,7 @@ class TFAMTester:
         self.class_names: dict[str, str] = {}
         path = trainer.config.data.class_names_dir
         if path and os.path.exists(path):
-            from vimoclip_tpu_torch.cli.predict import load_class_names
+            from vimoclip_tpu_torch.extraction import load_class_names
 
             self.class_names = {str(k): v for k, v in load_class_names(path).items()}
 
