@@ -78,7 +78,25 @@ NVIDIA card:
     on ``attention_impl="flash"`` against the default eager path (frames/s,
     12 K1 launches per dispatch, per-frame cosine). One 129-frame 360x640
     chunk through ``frame_diff`` on the card, bitwise equal to the CPU.
-11. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+11. The serving daemon: ``DynamicBatcher`` (8 videos, 10 ms) and the HTTP
+    frontend (``make_http_server``, ``serve_http`` on a thread) on 127.0.0.1
+    over phase 4's predictor (``batch_invariant``), fed six clips from
+    ``--seed`` (three 360x640, 120-300 frames; three 224x224, 64-250
+    frames) through a stand-in for the ``read_video`` name of ``serving``
+    (the card's machine has no OpenCV). Eight client threads POST two rounds
+    of 16 requests of 1-2 clips (top_k 3 or 5), cold then warm: every answer
+    200, coalescing seen in ``/stats``, every record equal to a solo
+    ``predict_batch`` of its clip and the raw probabilities within 1e-3, K1
+    launches 8 per predictor call, K5 launches over the 224x224 clips and
+    none for a request of 360x640 clips only; warm requests/s, p50/p95
+    latency and peak memory; one profiled coalesced call; ``predict_batch``
+    over the six clips against a loop of ``predict`` (the pooled/serial
+    ratio); a drain with a request in flight (answered 200, then new
+    connections refused).
+12. ``vimo-benchmark-torch``'s device section (``_bench_gpu``) at its CLI
+    defaults: ViT-B/16 extraction frames/s on 128 360x640 frames, TFAM
+    clips/s on 8 clips of 450 frames, ``device_memory_stats()``.
+13. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -87,10 +105,12 @@ needs a CUDA card (exits 2 without one) and the package beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -189,6 +209,18 @@ EXTRACT_TOL = 1e-3
 # Measured on an H100 80GB HBM3 at 700 W: at least 0.999982 (ViT-B/32) and
 # 0.999985 (ViT-B/16), a gap of 1.8e-5; the limit's gap of 5e-4 leaves 27x room.
 TOWER_COS_MIN = 0.9995
+
+# The serving daemon (phase 11): six clips from --seed (three 360x640, the
+# resize branch; three 224x224, K5), two rounds of 16 requests of 1-2 clips
+# from eight client threads through the HTTP frontend and the batcher. Pooled
+# against solo probabilities: the fusion runs over another batch and padded
+# length, so bf16 products may round differently; the limit is 1e-3.
+SERVE_CLIPS = (((360, 640), (120, 200, 300)), ((224, 224), (64, 150, 250)))
+SERVE_REQUESTS = 16
+SERVE_CLIENTS = 8
+SERVE_MAX_BATCH = 8
+SERVE_WAIT_MS = 10.0
+SERVE_TOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1467,6 +1499,263 @@ def phase_extraction(torch, seed: int, smi: str) -> dict:
     return {"stats": stats, "k1": k1, "towers": towers}
 
 
+class _Observed:
+    """The daemon's predictor, observed: each call is passed on unchanged
+    and the raw probabilities it returns are kept by video. After each call
+    it sets ``started`` and waits for ``gate``, which is set except while
+    the drain check holds its request in flight."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.raw: dict[str, list] = {}
+        self.started = threading.Event()
+        self.gate = threading.Event()
+        self.gate.set()
+
+    def _seen(self, preds):
+        self.started.set()
+        check(self.gate.wait(timeout=300), "the drain check never released its request")
+        for p in preds:
+            self.raw.setdefault(p.video_id, []).append(p.probabilities)
+        return preds
+
+    def predict_batch(self, videos, top_k=5, max_frames=None):
+        return self._seen(self.inner.predict_batch(videos, top_k=top_k,
+                                                   max_frames=max_frames))
+
+    def predict(self, video, motion_video_path=None, top_k=5, max_frames=None):
+        return self._seen([self.inner.predict(video, motion_video_path=motion_video_path,
+                                              top_k=top_k, max_frames=max_frames)])[0]
+
+
+def _post(url: str, payload: dict, timeout: float = 300) -> tuple[int, dict, float]:
+    """POST JSON; (status, body, seconds until the response arrived)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e), time.perf_counter() - t0
+
+
+def _requests(rng, clips: list[str], n: int) -> list[dict]:
+    """``n`` requests of 1-2 distinct clips each, top_k 3 or 5."""
+    out = []
+    for _ in range(n):
+        pick = rng.choice(len(clips), int(rng.integers(1, 3)), replace=False)
+        out.append({"videos": [clips[i] for i in pick], "top_k": int(rng.choice([3, 5]))})
+    return out
+
+
+def phase_serving(torch, seed: int, smi: str) -> dict:
+    """The serving daemon (``cli/serve.py``) at full width: ``DynamicBatcher``
+    and the HTTP frontend on 127.0.0.1 over the phase-4 predictor, eight
+    client threads, two rounds of concurrent requests (cold, warm), checked
+    against solo calls; K1 and K5 launches over the rounds; a request of
+    360x640 clips only; one profiled coalesced call; the pooled/serial
+    ratio; a drain with a request in flight."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from vimoclip_tpu_torch import serving
+    from vimoclip_tpu_torch.cli.serve import (
+        DynamicBatcher,
+        make_http_server,
+        prediction_record,
+        serve_http,
+    )
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        reset_launch_counts,
+    )
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+
+    teacher_cfg, student_cfg, tfam_cfg, states = _predictor_states(torch, seed)
+    pred = serving.ViMoCLIPPredictor(
+        teacher_state=states["teacher"], teacher_config=teacher_cfg,
+        student_state=states["student"], student_config=student_cfg,
+        tfam_state=states["tfam"], tfam_config=tfam_cfg, num_classes=140,
+        frame_batch=128, length_bucket=128, max_seq_len=2048, half_precision=True,
+        batch_invariant=True, device="cuda")
+    del states
+    rng = np.random.default_rng(seed + 11)
+    clips = {f"/serve/{h}x{w}_{t}.mp4": rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)
+             for (h, w), lengths in SERVE_CLIPS for t in lengths}
+    names = list(clips)
+    small = [n for n in names if clips[n].shape[1:3] == SERVE_CLIPS[1][0]]  # K5
+    # the card's machine has no OpenCV: the script decodes from memory
+    real_read = serving.read_video
+    serving.read_video = lambda path, max_frames=None: clips[path][:max_frames]
+    observed = _Observed(pred)
+    batcher = DynamicBatcher(observed, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    server = make_http_server(observed, "127.0.0.1", 0, batcher=batcher)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    serve_thread = threading.Thread(target=serve_http, args=(server, batcher),
+                                    kwargs={"install_signal_handlers": False}, daemon=True)
+    serve_thread.start()
+    try:
+        import urllib.request
+
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            check(r.status == 200, f"/healthz answered {r.status}")
+
+        def round_(reqs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                out = list(pool.map(lambda body: _post(f"{url}/predict", body), reqs))
+            wall = time.perf_counter() - t0
+            for body, (code, resp, _) in zip(reqs, out):
+                check(code == 200, f"request {body} answered {code}: {resp}")
+            return out, wall
+
+        rounds = [_requests(rng, names, SERVE_REQUESTS), _requests(rng, names, SERVE_REQUESTS)]
+        check(all(any(v in small for r in reqs for v in r["videos"]) for reqs in rounds),
+              "a round without a 224x224 clip")
+        reset_launch_counts()
+        fused_normalize.launches = 0
+        calls0 = batcher.stats()["predictor_calls"]
+        cold, cold_s = round_(rounds[0])
+        torch.cuda.reset_peak_memory_stats()
+        warm, warm_s = round_(rounds[1])
+        peak = torch.cuda.max_memory_allocated()
+        k1 = flash_attention.launches["fwd"]
+        k5 = fused_normalize.launches
+        stats = batcher.stats()
+        calls = stats["predictor_calls"] - calls0
+        check(sum(flash_attention.launches.values()) == k1,
+              f"the daemon launched other attention kernels: {flash_attention.launches}")
+        check(k1 == 8 * calls, f"K1 launched {k1} times for {calls} predictor calls "
+                               "(8 each: 4 layers x self + cross)")
+        check(k5 > 0, "no K5 launch over requests with 224x224 clips")
+        check(stats["predictor_calls"] < stats["requests"],
+              f"no coalescing: {stats}")
+        check(stats["max_coalesced"] >= 2, f"no pooled group of 2 or more: {stats}")
+        with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+            check(json.load(r) == batcher.stats(), "/stats differs from the batcher's")
+
+        # one request of 360x640 clips only: the resize branch, no K5
+        reset_launch_counts()
+        fused_normalize.launches = 0
+        calls0 = batcher.stats()["predictor_calls"]
+        big = [n for n in names if n not in small]
+        code, resp, _ = _post(f"{url}/predict", {"videos": big, "top_k": 5})
+        check(code == 200, f"360x640 request answered {code}")
+        big_calls = batcher.stats()["predictor_calls"] - calls0
+        check(fused_normalize.launches == 0, f"360x640 clips launched K5 "
+                                             f"{fused_normalize.launches} times")
+        check(flash_attention.launches["fwd"] == 8 * big_calls,
+              f"K1 {flash_attention.launches['fwd']} for {big_calls} calls")
+
+        # every record against a solo predict_batch of its clip
+        solo = {v: pred.predict_batch([v], top_k=5)[0] for v in names}
+        for (reqs, out) in ((rounds[0], cold), (rounds[1], warm)):
+            for body, (_, resp, _) in zip(reqs, out):
+                for v, rec in zip(body["videos"], resp["results"]):
+                    want = prediction_record(v, dataclasses.replace(
+                        solo[v], top_classes=solo[v].top_classes[: body["top_k"]]))
+                    check(rec == want, f"{v}: daemon {rec} vs solo {want}")
+        raw_err, bitwise = 0.0, True
+        for v, probs in observed.raw.items():
+            for p in probs:
+                raw_err = max(raw_err, float(np.abs(p - solo[v].probabilities).max()))
+                bitwise &= bool(np.array_equal(p, solo[v].probabilities))
+        check(raw_err <= SERVE_TOL, f"pooled vs solo probabilities: max|d| {raw_err} "
+                                    f"> {SERVE_TOL}")
+
+        # one coalesced call under the profiler
+        group = small[:2] + big[:2]
+        prof = profile_request(torch, lambda: pred.predict_batch(group), smi,
+                               label="serve-coalesced")
+
+        # the pooled/serial ratio: all six clips, warm, in turns
+        def pooled():
+            pred.predict_batch(names)
+            torch.cuda.synchronize()
+
+        def serial():
+            for v in names:
+                pred.predict(v)
+            torch.cuda.synchronize()
+
+        times = {"pooled": [], "serial": []}
+        pooled()
+        serial()
+        for name in ("serial", "pooled", "pooled", "serial"):
+            t0 = time.perf_counter()
+            (pooled if name == "pooled" else serial)()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        pooled_ms, serial_ms = min(times["pooled"]), min(times["serial"])
+
+        # the drain: a request in flight when the server is shut down
+        observed.started.clear()
+        observed.gate.clear()
+        inflight = {}
+        client = threading.Thread(target=lambda: inflight.update(
+            r=_post(f"{url}/predict", {"video": small[0], "top_k": 3})), daemon=True)
+        client.start()
+        check(observed.started.wait(timeout=120), "the drain's request never started")
+        server.shutdown()  # the accept loop stops; the handler is still waiting
+        observed.gate.set()
+        serve_thread.join(timeout=300)
+        client.join(timeout=60)
+        check(not serve_thread.is_alive() and not client.is_alive(), "the drain hung")
+        check(inflight.get("r", (None,))[0] == 200, f"in-flight request: {inflight}")
+        refused = False
+        try:
+            urllib.request.urlopen(f"{url}/healthz", timeout=10)
+        except OSError:
+            refused = True
+        check(refused, "a new connection was accepted after the drain")
+    finally:
+        observed.gate.set()
+        serving.read_video = real_read
+        if serve_thread.is_alive():
+            server.shutdown()
+            serve_thread.join(timeout=60)
+        batcher.shutdown()
+
+    lat = sorted(e for _, _, e in warm)
+    out = {
+        "requests_per_round": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+        "max_batch": SERVE_MAX_BATCH, "max_wait_ms": SERVE_WAIT_MS,
+        "videos_per_round": [sum(len(r["videos"]) for r in reqs) for reqs in rounds],
+        "cold_round_s": cold_s, "warm_round_s": warm_s,
+        "warm_requests_per_s": SERVE_REQUESTS / warm_s,
+        "warm_p50_ms": statistics.median(lat) * 1e3,
+        "warm_p95_ms": float(np.percentile(lat, 95)) * 1e3,
+        "cold_p50_ms": statistics.median(e for _, _, e in cold) * 1e3,
+        "peak_mem_bytes": peak, "batcher": stats, "rounds_predictor_calls": calls,
+        "k1_launches": k1, "k5_launches": k5, "big_only_calls": big_calls,
+        "pooled_vs_solo_max_abs": raw_err, "pooled_vs_solo_bitwise": bitwise,
+        "coalesced_device_ms": prof["device_busy_ms"],
+        "coalesced_wall_ms": prof["profiled_wall_ms"],
+        "coalesced_idle_share": prof["device_idle_share"],
+        "pooled_ms": pooled_ms, "serial_ms": serial_ms,
+        "pooled_over_serial": serial_ms / pooled_ms, "pooled_serial_runs_ms": times,
+    }
+    print("[serve] " + json.dumps(out) + f" [{smi}]")
+    return out
+
+
+def phase_benchmark(torch, seed: int, smi: str) -> dict:
+    """``vimo-benchmark-torch``'s device section at its CLI defaults."""
+    from vimoclip_tpu_torch.cli.benchmark import _bench_gpu
+
+    out = _bench_gpu(seed=seed)
+    check(out["device"] == torch.cuda.get_device_name(0), f"benchmark device {out['device']}")
+    for key in ("extract_frames_per_s", "tfam_clips_per_s"):
+        check(out[key] > 0 and out[key] < float("inf"), f"benchmark {key} {out[key]}")
+    print("[benchmark] " + json.dumps(out) + f" [{smi}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1504,13 +1793,16 @@ def main() -> int:
     export = phase_export(torch, student_trainer, args.seed, smi)
     del student_trainer
     extraction = phase_extraction(torch, args.seed, smi)
+    served = phase_serving(torch, args.seed, smi)
+    phase_benchmark(torch, args.seed, smi)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": fwd_src,
         "replaces": f"{tpu}:113",
-        "launches": stats["flash_launches"], "max_abs_err": k1["max_abs_err"],
+        "launches": stats["flash_launches"] + served["k1_launches"],
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
     }]
@@ -1528,7 +1820,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     k5_launches = (student["mn_k5_launches"] + export["k5_launches"]
-                   + extraction["stats"]["k5_launches"])
+                   + extraction["stats"]["k5_launches"] + served["k5_launches"])
     check(k5_launches > 0, "fused_normalize never launched on the stage-1 path")
     kernels.append({
         "name": "fused_normalize", "route": "cuda",

@@ -488,3 +488,40 @@ def test_extractor_equals_sequential_and_counts_k5(cuda, hw, per_dispatch):
                 emb = extractor.encoder(clip_preprocess(x, 32, dtype=torch.bfloat16))
             ref.append(emb.float()[:len(frames[i:i + 8])].cpu().numpy())
         np.testing.assert_array_equal(got[vid], np.concatenate(ref))
+
+
+def test_coalesced_predict_batch_matches_solo_calls(cuda, monkeypatch):
+    """The daemon's pooled call on the card: ``predict_batch`` over clips of
+    two resolutions (K5 on the 32x32 ones) against each clip alone, with one
+    fusion call (two K1 launches at one layer) per call."""
+    from vimoclip_tpu_torch import serving
+    from vimoclip_tpu_torch.config import TFAMModelConfig
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.models.tfam import TFAM
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+
+    rng = np.random.default_rng(5)
+    clips = {f"c{i}": rng.integers(0, 256, (t, *hw, 3), dtype=np.uint8)
+             for i, (t, hw) in enumerate([(9, (32, 32)), (20, (36, 48)), (13, (32, 32)),
+                                          (6, (36, 48))])}
+    monkeypatch.setattr(serving, "read_video",
+                        lambda path, max_frames=None: clips[path][:max_frames])
+    g = torch.Generator().manual_seed(0)
+    cfg = ClipVisionConfig(**_TINY_VIT)
+    tcfg = TFAMModelConfig(d_model=16, nhead=2, num_layers=1, dim_feedforward=32,
+                           attention_impl="flash")
+    pred = serving.ViMoCLIPPredictor(
+        init_parameters_(ClipVisionEncoder(cfg), g).state_dict(), cfg,
+        init_parameters_(ClipVisionEncoder(cfg), g).state_dict(), cfg,
+        init_parameters_(TFAM(tcfg, num_classes=7), g).state_dict(), tcfg, num_classes=7,
+        frame_batch=8, length_bucket=8, device="cuda")
+    fwd, k5 = flash_attention.launches["fwd"], fused_normalize.launches
+    pooled = pred.predict_batch(list(clips), top_k=3)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["fwd"] == fwd + 2
+    assert fused_normalize.launches > k5
+    for p, vid in zip(pooled, clips):
+        solo = pred.predict_batch([vid], top_k=3)[0]
+        assert p.video_id == vid and np.isfinite(p.probabilities).all()
+        np.testing.assert_allclose(p.probabilities, solo.probabilities, atol=1e-3, rtol=0)

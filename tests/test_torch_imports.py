@@ -98,7 +98,10 @@ NEW_MODULES = ["vimoclip_tpu_torch.extraction", "vimoclip_tpu_torch.motion",
                "vimoclip_tpu_torch.cli.extract_embeddings", "vimoclip_tpu_torch.cli.h5_merge",
                "vimoclip_tpu_torch.cli.h5_structure_checker",
                "vimoclip_tpu_torch.cli.generate_motion", "vimoclip_tpu_torch.cli.extract_frames",
-               "vimoclip_tpu_torch.cli.run_pipeline"]
+               "vimoclip_tpu_torch.cli.run_pipeline", "vimoclip_tpu_torch.cli.serve",
+               "vimoclip_tpu_torch.cli.benchmark", "vimoclip_tpu_torch.cli.convert",
+               "vimoclip_tpu_torch.cli.run_experiments", "vimoclip_tpu_torch.utils.profiling",
+               "vimoclip_tpu_torch.data.native", "vimoclip_tpu_torch.data.video_reader"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

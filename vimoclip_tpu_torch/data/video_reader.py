@@ -1,13 +1,27 @@
-"""Host-side video decode and encode with OpenCV (the port's copy of
-``vimoclip_tpu/data/video_reader.py``). ``cv2`` is imported inside each
-function: the package imports without it. The JAX package's native libav
-backend is not ported yet (ROADMAP.md). Frames are RGB uint8 NHWC numpy."""
+"""Host-side video decode and encode (the port's copy of
+``vimoclip_tpu/data/video_reader.py``): OpenCV, or for whole videos and
+windows the C++ libav data plane (``data/native.py``) when it is built and
+``VIMO_NATIVE_DECODE=1`` opts in. ``cv2`` is imported inside each function:
+the package imports without it. Frames are RGB uint8 NHWC numpy."""
 
 from __future__ import annotations
 
+import os
 from typing import Iterator
 
 import numpy as np
+
+
+def _native_backend():
+    """``data/native.py`` when the library is built and opted in
+    (``VIMO_NATIVE_DECODE=1``), else None. Opt-in: its decode pool wins on
+    hosts with many cores, while OpenCV's SIMD colour conversion is faster
+    per core; both give the same frames (tests/test_torch_native.py)."""
+    if os.environ.get("VIMO_NATIVE_DECODE", "0") != "1":
+        return None
+    from vimoclip_tpu_torch.data import native
+
+    return native if native.available() else None
 
 
 def _open(path: str):
@@ -45,6 +59,9 @@ def video_frame_count(path: str) -> int:
 
 def read_video(path: str, max_frames: int | None = None) -> np.ndarray:
     """Decode a whole video -> (T, H, W, 3) RGB uint8."""
+    native = _native_backend()
+    if native is not None:
+        return native.read_video(path, max_frames=max_frames)
     cap = _open(path)
     try:
         frames = _read_frames(cap, max_frames)
@@ -59,6 +76,9 @@ def read_video_window(path: str, start: int, num_frames: int) -> np.ndarray:
     """Decode exactly ``[start, start + num_frames)`` -> (n, H, W, 3) RGB
     uint8 (n <= num_frames near the end), seeking instead of decoding the
     frames before ``start``."""
+    native = _native_backend()
+    if native is not None:
+        return native.read_video_window(path, start, num_frames)
     import cv2
 
     cap = _open(path)

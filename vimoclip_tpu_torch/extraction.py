@@ -6,7 +6,7 @@ The reference decodes a video, preprocesses each frame with PIL, runs the
 frozen CLIP ViT and writes the video's HDF5 group, one video after another.
 Here the four phases overlap:
 
-  decode threads (OpenCV)  ->  frame queue
+  decode threads (OpenCV) or the native decode pool  ->  frame queue
   -> fixed-size uint8 batches packed across videos -> pinned upload
   -> CLIP preprocessing + bf16 ViT forward on the card (one batch shape)
   -> embeddings copied back to pinned host memory -> HDF5 writer thread
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from vimoclip_tpu_torch.data.hdf5_schema import AsyncWriter, EmbeddingWriter
-from vimoclip_tpu_torch.data.video_reader import iter_video_chunks
+from vimoclip_tpu_torch.data.video_reader import _native_backend, iter_video_chunks
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
 from vimoclip_tpu_torch.models.convert import to_tensors
 from vimoclip_tpu_torch.ops.batching import pad_to_batch, upload
@@ -124,7 +124,9 @@ class ClipExtractor:
 
     ``decode_fn(path, chunk_size=n)`` yields a video's (<= n, H, W, 3) RGB
     uint8 chunks; it defaults to ``data/video_reader.py::iter_video_chunks``
-    (OpenCV). Only tests and ``chip_smoke.py`` pass another.
+    (OpenCV), which the native decode pool replaces when the data plane is
+    built and ``VIMO_NATIVE_DECODE=1``. Only tests and ``chip_smoke.py``
+    pass another.
     """
 
     def __init__(
@@ -211,9 +213,22 @@ class ClipExtractor:
                 blocks.put(_FrameBlock(video_id, np.zeros((0, 1, 1, 3), np.uint8), True))
 
     def _start_decoders(self, videos, blocks, errors) -> list[threading.Thread]:
-        """``decode_workers`` threads run the decoder (OpenCV releases the
-        GIL while it decodes). Each video's blocks arrive in frame order,
-        with exactly one final block; a failure lands in ``errors``."""
+        """Start the decode backend that feeds ``blocks``.
+
+        With the default decoder, the native data plane built and
+        ``VIMO_NATIVE_DECODE=1``, the C++ corpus pool (``data/native.py``
+        ``DecodePool``) decodes the videos concurrently with no Python in
+        the decode path, and one pump thread drains its bounded queue into
+        ``blocks``. Otherwise ``decode_workers`` threads run the decoder
+        (OpenCV releases the GIL while it decodes). Either way each video's
+        blocks arrive in frame order, with exactly one final block, and a
+        failure lands in ``errors``."""
+        native = _native_backend() if self._decode is iter_video_chunks else None
+        if native is not None:
+            t = threading.Thread(target=self._pump_native,
+                                 args=(native, videos, blocks, errors), daemon=True)
+            t.start()
+            return [t]
         jobs: queue.Queue = queue.Queue()
         for v in videos:
             jobs.put(v)
@@ -228,6 +243,35 @@ class ClipExtractor:
             t.start()
             workers.append(t)
         return workers
+
+    def _pump_native(self, native, videos, blocks, errors) -> None:
+        """Drain the native pool into ``blocks``. The consumer waits for one
+        final block per video, so if the pool fails, every video without
+        its final block gets an error final."""
+        finals_sent: set[str] = set()
+        empty = np.zeros((0, 1, 1, 3), np.uint8)
+        try:
+            # a small native queue: ``blocks`` is the real buffer, and two
+            # full-size queues would double the decoded frames held
+            with native.DecodePool(workers=self.decode_workers,
+                                   chunk_frames=self.batch_size, max_ready=4) as pool:
+                for vid, path in videos:
+                    pool.submit(vid, path)
+                pool.seal()
+                for vid, frames, final, error in pool:
+                    if error is not None:
+                        errors[vid] = error
+                        finals_sent.add(vid)
+                        blocks.put(_FrameBlock(vid, empty, True))
+                        continue
+                    if final:
+                        finals_sent.add(vid)
+                    blocks.put(_FrameBlock(vid, frames, final))
+        except Exception as e:  # noqa: BLE001 — the pool died: fail the rest
+            for vid, _ in videos:
+                if vid not in finals_sent:
+                    errors[vid] = f"native decode pool failed: {e}"
+                    blocks.put(_FrameBlock(vid, empty, True))
 
     def extract(
         self,

@@ -245,6 +245,14 @@ class ViMoCLIPPredictor:
                 ofs += n
         return out
 
+    def predict_batch(self, video_paths: list[str], top_k: int = 5,
+                      max_frames: int | None = None) -> list[Prediction]:
+        """Several video files: the frames of all clips share the embedding
+        windows (pooled per resolution) and fusion runs once over the padded
+        batch."""
+        videos = [read_video(p, max_frames=max_frames) for p in video_paths]
+        return self.predict_videos(videos, video_paths, top_k=top_k)
+
     def predict_videos(self, videos: list, video_ids: list[str] | None = None,
                        top_k: int = 5) -> list[Prediction]:
         """In-memory (T, H, W, 3) uint8 stacks (numpy, or tensors on any
