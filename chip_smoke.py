@@ -96,7 +96,22 @@ NVIDIA card:
 12. ``vimo-benchmark-torch``'s device section (``_bench_gpu``) at its CLI
     defaults: ViT-B/16 extraction frames/s on 128 360x640 frames, TFAM
     clips/s on 8 clips of 450 frames, ``device_memory_stats()``.
-13. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+13. The opt-in accelerators (int8 matmuls, ToMe, the fidelity probe):
+    ``_int_mm`` bit for bit against the exact product at 8, 16, 17 and 512
+    rows and at the ViT-B/16 blocks' shapes (timed beside bf16); K1 against
+    its plain version at every token count the ToMe schedules leave
+    (ViT-B/16 r = 16: 197 to 21; ViT-B/32 r = 4: 50 to 8) on q/k/v of the
+    merged stream, with limits shown to refuse a key dropped or added at
+    the tail; both towers at batch 256, bf16, exact / int8 / ToMe / int8 +
+    ToMe on eager attention and on K1 (frames/s, dispatch device ms,
+    per-frame cosine against exact; K1 against eager held per variant, and
+    with the eager run's merges replayed on both); the fidelity probe on
+    frames from the decode seam; ``vimo-predict-torch``
+    (``cli.predict.main``) with ``--quantize int8 --token-merge 16
+    --verify-fidelity 8`` on reference-format files of phase 4's weights,
+    two 360x640 clips, K1 8 times per predictor call, then
+    ``FidelityError`` at ``--fidelity-threshold 0.99999``.
+14. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -105,7 +120,9 @@ needs a CUDA card (exits 2 without one) and the package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -221,6 +238,41 @@ SERVE_CLIENTS = 8
 SERVE_MAX_BATCH = 8
 SERVE_WAIT_MS = 10.0
 SERVE_TOL = 1e-3
+# phase 13: the opt-in accelerators. Each tower's ToMe r: ViT-B/16 at 197
+# tokens, r = 16 (down to 21); ViT-B/32 at 50, r = 4 (down to 8)
+ACCEL_TOWERS = {"vit_b_16": (197, 16), "vit_b_32": (50, 4)}
+ACCEL_BATCH = EXTRACT_BATCH
+# (rows, K, N): below and at _int_mm's 16-row floor, and the ViT-B/16 blocks'
+# packed q/k/v and MLP-out products at the extraction batch
+INT_MM_SHAPES = [(8, 768, 2304), (16, 768, 2304), (17, 768, 2304), (512, 768, 2304),
+                 (ACCEL_BATCH * 197, 768, 2304), (ACCEL_BATCH * 197, 3072, 768)]
+# K1 at the ToMe token counts, on q/k/v ~ N(0, 1) (the packed projection of
+# the layer-normed merged stream, as a block makes them), whose attention is
+# peaked enough that one key moves the output. Two readings against the plain
+# version: max|d| / max|ref|, and the gain sum(got * ref) / sum(ref * ref) - 1,
+# which a zero-filled key left unmasked shifts (it shrinks every row by its
+# weight) where max|d| cannot see it. At every count the run also takes both
+# readings of three planted faults (the last key dropped; one key past the end
+# read as real, the next frame's first token; a zero key past the end) and
+# checks that the limits refuse each one. Readings on an H100 80GB HBM3 at
+# 700 W over the 24 counts: K1 at most 5.5e-3 and |gain| 1.7e-6; the dropped
+# and the next-token key at least 0.51 in max|d|/max|ref|; the zero key's gain
+# -3.0e-3 at 197 tokens (its max|d|/max|ref| only 5.7e-3) to -7.6e-2 at 8.
+K1_TOME_REL = 2e-2
+K1_TOME_GAIN = 1e-4
+# bf16 towers on K1 against eager attention, per-frame cosine (phase 13).
+# Int8 codes and ToMe merges follow each path's rounding, so the variants are
+# held apart. Readings on an H100 80GB HBM3 at 700 W: exact 0.99998, int8
+# 0.99978, ToMe 0.9909, int8 + ToMe 0.9895 (the least over both towers).
+ACCEL_EAGER_COS_MIN = {"exact": TOWER_COS_MIN, "int8": 0.999, "tome": 0.97,
+                       "int8+tome": 0.97}
+# the ToMe tower on K1 and on eager attention, both given the merges the eager
+# run chose (``bipartite_merge``'s ``plan``): only the kernel's rounding is
+# left. Read 0.99998 on both towers (H100 80GB HBM3, 700 W), as exact reads.
+ACCEL_REPLAY_COS_MIN = 0.9999
+ACCEL_CLIPS = (96, 160)  # frames of the two 360x640 clips the CLI predicts
+ACCEL_PROBE = 8  # --verify-fidelity N
+ACCEL_STRICT = 0.99999  # a threshold the approximations cannot reach
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1756,6 +1808,364 @@ def phase_benchmark(torch, seed: int, smi: str) -> dict:
     return out
 
 
+def _int_mm_check(torch, smi: str) -> dict:
+    """``ops/quant.int_mm`` (``torch._int_mm`` behind row, K and N padding)
+    bit for bit against the exact product in float64 (every partial sum of
+    int8 products is an integer below 2^53), at 8, 16, 17 and 512 rows and
+    at the ViT-B/16 blocks' shapes at the extraction batch; and the int8
+    route (quantise both operands, ``_int_mm``, rescale) timed beside the
+    bf16 ``F.linear`` it replaces."""
+    import torch.nn.functional as F
+
+    from vimoclip_tpu_torch.ops.quant import int8_linear, int_mm
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for m, k, n in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), device="cuda", generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), device="cuda", generator=g, dtype=torch.int8)
+        got = int_mm(a, b)
+        exact = a.double() @ b.double().t()
+        check(got.dtype == torch.int32 and tuple(got.shape) == (m, n),
+              f"int_mm at {(m, k, n)}: {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(got.double(), exact), f"int_mm at {(m, k, n)} differs from the "
+                                                "exact product")
+        row = {"shape": [m, k, n], "bitwise": True}
+        if m >= 4096:
+            x = torch.randn(m, k, device="cuda", generator=g)
+            w = torch.randn(n, k, device="cuda", generator=g) * 0.02
+            xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            row["int_mm_ms"] = cuda_ms(torch, lambda: int_mm(a, b), iters=10)
+            row["int8_linear_ms"] = cuda_ms(torch, lambda: int8_linear(x, w, None,
+                                                                       torch.bfloat16),
+                                            iters=10)
+            row["bf16_linear_ms"] = cuda_ms(torch, lambda: F.linear(xb, wb), iters=10)
+        rows.append(row)
+        del a, b, got, exact
+    print("[accel-int-mm] " + json.dumps(rows) + f" [{smi}]")
+    return {"shapes": rows}
+
+
+def _k1_readings(ref, got) -> tuple[float, float]:
+    """max|got - ref| / max|ref| and sum(got * ref) / sum(ref * ref) - 1."""
+    ref, got = ref.double(), got.double()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    gain = ((got * ref).sum() / (ref * ref).sum()).item() - 1.0
+    return rel, gain
+
+
+def _k1_under_tome(torch, smi: str) -> dict:
+    """K1 at every token count the two ToMe schedules leave, on q/k/v of a
+    packed projection of the layer-normed merged residual stream (as
+    ``MultiHeadAttention`` makes them, ~N(0, 1)): the stream stays
+    contiguous, TMA reads the operands in place, and K1 agrees with its plain
+    version within ``K1_TOME_REL`` and ``K1_TOME_GAIN``, limits that refuse
+    a key dropped or added at the ragged tail (planted at every count)."""
+    import torch.nn.functional as F
+
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+        tma_legal,
+    )
+    from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_schedule
+
+    def refused(rel, gain):
+        return rel > K1_TOME_REL or abs(gain) > K1_TOME_GAIN
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    h, d = 12, 64
+    e = h * d
+    w = (torch.randn(3 * e, e, device="cuda", generator=g) * e ** -0.5).to(torch.bfloat16)
+    out = {"rel_limit": K1_TOME_REL, "gain_limit": K1_TOME_GAIN}
+    launches = 0
+    for name, (n, r) in ACCEL_TOWERS.items():
+        x = torch.randn(ACCEL_BATCH, n, e, device="cuda", generator=g)
+        sizes = torch.ones(x.shape[:2], device="cuda")
+        schedule = merge_schedule(n, 12, r) + [0]
+        rows, legal = [], True
+        for step in schedule:
+            t = x.shape[1]
+            qkv = F.linear(F.layer_norm(x, (e,)).to(torch.bfloat16), w)
+            q, k, v = (y.view(ACCEL_BATCH, t, h, d).transpose(1, 2)
+                       for y in qkv.split(e, dim=-1))
+            legal &= x.is_contiguous() and all(tma_legal(y) for y in (q, k, v))
+            got = flash_attention(q, k, v)
+            launches += 1
+            ref = flash_attention_reference(q, k, v)
+            rel, gain = _k1_readings(ref, got)
+            check(not refused(rel, gain), f"K1 at {t} tokens ({name}, ToMe r={r}): "
+                                          f"max|d|/max|ref| {rel}, gain {gain}")
+            zero = torch.zeros_like(k[:, :, :1])
+            faults = {
+                "drop_last": (k[:, :, :-1], v[:, :, :-1]),
+                "add_next": (torch.cat([k, k[:, :, :1].roll(-1, 0)], 2),
+                             torch.cat([v, v[:, :, :1].roll(-1, 0)], 2)),
+                "add_zero": (torch.cat([k, zero], 2), torch.cat([v, zero], 2)),
+            }
+            row = {"tokens": t, "rel": rel, "gain": gain}
+            for fault, (fk, fv) in faults.items():
+                f_rel, f_gain = _k1_readings(ref, flash_attention_reference(q, fk, fv))
+                check(refused(f_rel, f_gain), f"K1's limits at {t} tokens ({name}) pass "
+                      f"a planted {fault}: max|d|/max|ref| {f_rel}, gain {f_gain}")
+                row[fault] = [f_rel, f_gain]
+            rows.append(row)
+            del qkv, q, k, v, got, ref, faults
+            if step:
+                x, sizes = bipartite_merge(x, sizes, step)
+        check(legal, f"{name}: a merged stream or its q/k/v is not TMA-legal")
+        out[name] = {"r": r, "readings": rows, "tma_legal": legal}
+    torch.cuda.synchronize()
+    out["k1_launches"] = launches
+    print("[accel-k1] " + json.dumps(out) + f" [{smi}]")
+    return out
+
+
+def _replayed_merges_cos(torch, base, state, frames, r: int) -> float:
+    """The bf16 ToMe tower on K1 against the same tower on eager attention,
+    both applying the merges the eager run chose (``bipartite_merge``'s
+    ``plan``): the per-frame cosine's minimum, with the kernel's rounding
+    the only difference left."""
+    from vimoclip_tpu_torch.models import clip_vit
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionEncoder
+    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+    from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_plan
+
+    plans = []
+    replay = None
+
+    def record(x, sizes, step):
+        plans.append(merge_plan(x, step))
+        return bipartite_merge(x, sizes, step, plan=plans[-1])
+
+    def apply(x, sizes, step):
+        return bipartite_merge(x, sizes, step, plan=next(replay))
+
+    emb = {}
+    try:
+        for impl, merge in (("xla", record), ("flash", apply)):
+            replay = iter(plans)
+            clip_vit.bipartite_merge = merge
+            cfg = dataclasses.replace(base, attention_impl=impl, token_merge_r=r)
+            enc = ClipVisionEncoder(cfg, dtype=torch.bfloat16)
+            enc.load_state_dict(state, strict=True)
+            enc = enc.to("cuda").eval()
+            with torch.inference_mode():
+                emb[impl] = enc(clip_preprocess(frames, 224, dtype=torch.bfloat16)).double()
+            del enc
+    finally:
+        clip_vit.bipartite_merge = bipartite_merge
+    check(next(replay, None) is None and plans, f"{len(plans)} merges recorded, not all "
+                                                "replayed")
+    return torch.nn.functional.cosine_similarity(emb["flash"], emb["xla"],
+                                                 dim=-1).min().item()
+
+
+def _accel_towers(torch, seed: int, smi: str) -> dict:
+    """Both towers at full width, bf16, the extraction batch of 256 frames
+    at 224x224 (K5 then the tower), exact / int8 / ToMe / int8 + ToMe, each
+    on eager attention and on K1: warm frames/s (CUDA events), the device
+    ms of one dispatch, the per-frame cosine min/mean against the exact
+    tower on the same attention path, K1 launches per dispatch, and each
+    variant on K1 against the same variant on eager attention."""
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    frames = torch.randint(0, 256, (ACCEL_BATCH, 224, 224, 3), device="cuda", generator=g,
+                           dtype=torch.uint8)
+    out = {}
+    for name, (_, r) in ACCEL_TOWERS.items():
+        base = getattr(ClipVisionConfig, name)()
+        state = init_parameters_(ClipVisionEncoder(base), g).state_dict()
+        variants = {"exact": {}, "int8": {"matmul_quant": "int8"},
+                    "tome": {"token_merge_r": r},
+                    "int8+tome": {"matmul_quant": "int8", "token_merge_r": r}}
+        rows, eager = {}, {}
+        for impl in ("xla", "flash"):
+            exact = None
+            for tag, approx in variants.items():
+                cfg = dataclasses.replace(base, attention_impl=impl, **approx)
+                enc = ClipVisionEncoder(cfg, dtype=torch.bfloat16)
+                enc.load_state_dict(state, strict=True)
+                enc = enc.to("cuda").eval()
+
+                def run():
+                    return enc(clip_preprocess(frames, 224, dtype=torch.bfloat16))
+
+                with torch.inference_mode():
+                    before = flash_attention.launches["fwd"]
+                    emb = run().double()
+                    torch.cuda.synchronize()
+                    k1 = flash_attention.launches["fwd"] - before
+                    ms = cuda_ms(torch, run, iters=4, warmup=1)
+                    dev_ms = device_ms(torch, run, iters=2)
+                check(bool(torch.isfinite(emb).all()), f"{name} {tag} {impl}: non-finite")
+                check(k1 == (cfg.num_layers if impl == "flash" else 0),
+                      f"{name} {tag} {impl}: K1 launched {k1} times in one dispatch")
+                if exact is None:
+                    exact = emb
+                cos = torch.nn.functional.cosine_similarity(emb, exact, dim=-1)
+                rows[f"{tag}/{impl}"] = row = {
+                    "frames_per_s": ACCEL_BATCH / ms * 1e3, "call_ms": ms,
+                    "dispatch_device_ms": dev_ms, "cos_min": cos.min().item(),
+                    "cos_mean": cos.mean().item(), "k1_per_dispatch": k1}
+                if impl == "xla":
+                    eager[tag] = emb
+                else:  # bf16 rounding differs between the paths; int8 codes
+                    # and ToMe's discrete merges follow it
+                    row["cos_min_vs_eager"] = vs = torch.nn.functional.cosine_similarity(
+                        emb, eager[tag], dim=-1).min().item()
+                    check(vs >= ACCEL_EAGER_COS_MIN[tag], f"{name} {tag}: K1 against eager "
+                          f"attention, cosine {vs} < {ACCEL_EAGER_COS_MIN[tag]}")
+                del enc
+        rows["tome/flash"]["cos_min_vs_eager_replayed_merges"] = vs = _replayed_merges_cos(
+            torch, base, state, frames, r)
+        check(vs >= ACCEL_REPLAY_COS_MIN, f"{name} ToMe on K1 against eager attention with "
+              f"the same merges: cosine {vs} < {ACCEL_REPLAY_COS_MIN}")
+        for tag in variants:
+            rows[tag + "/speedup_vs_exact_xla"] = (rows[f"{tag}/xla"]["frames_per_s"]
+                                                   / rows["exact/xla"]["frames_per_s"])
+        out[name] = rows
+        print(f"[accel-{name}] " + json.dumps(rows) + f" [{smi}]")
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _json_yaml_stand_in():
+    """The card's machine has no PyYAML: the script writes the stage-2
+    config as JSON, which YAML parses alike, and reads it through a stand-in
+    ``yaml`` whose ``safe_load`` is ``json.load``. None when PyYAML is
+    installed."""
+    try:
+        import yaml  # noqa: F401
+        return None
+    except ImportError:
+        import types
+
+        mod = types.ModuleType("yaml")
+        mod.safe_load = json.load
+        return mod
+
+
+def phase_accelerators(torch, seed: int, smi: str) -> dict:
+    """The opt-in accelerators at full width: ``_int_mm`` against the exact
+    product; K1 at every ToMe token count; both towers in every variant; the
+    fidelity probe on frames from the decode seam; and ``vimo-predict-torch``
+    (``cli.predict.main``) with ``--quantize int8 --token-merge 16
+    --verify-fidelity 8`` on reference-format files, answering two clips
+    with K1 8 times per predictor call, then refusing to start at
+    ``--fidelity-threshold 0.99999`` with ``FidelityError``."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from vimoclip_tpu_torch import serving
+    from vimoclip_tpu_torch.cli import predict as predict_cli
+    from vimoclip_tpu_torch.data import video_reader
+    from vimoclip_tpu_torch.fidelity import (
+        FidelityError,
+        check_encoder_fidelity,
+        sample_motion_probe_frames,
+    )
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        reset_launch_counts,
+    )
+
+    t_phase = time.perf_counter()
+    int_mm = _int_mm_check(torch, smi)
+    k1 = _k1_under_tome(torch, smi)
+    towers = _accel_towers(torch, seed, smi)
+
+    teacher_cfg, student_cfg, tfam_cfg, states = _predictor_states(torch, seed)
+    rng = np.random.default_rng(seed + 13)
+    clips = {f"/accel/clip{i}.mp4": rng.integers(0, 256, (t, 360, 640, 3), dtype=np.uint8)
+             for i, t in enumerate(ACCEL_CLIPS)}
+    names = list(clips)
+    probe_frames = clips[names[0]][np.unique(np.linspace(0, ACCEL_CLIPS[0] - 1,
+                                                         ACCEL_PROBE).astype(int))]
+    # the card's machine has no OpenCV: both readers decode from memory
+    reads = (serving.read_video, video_reader.read_video)
+    serving.read_video = lambda path, max_frames=None: clips[path][:max_frames]
+    video_reader.read_video = serving.read_video
+    stand_in = _json_yaml_stand_in()
+    if stand_in is not None:
+        sys.modules["yaml"] = stand_in
+    try:
+        teacher_q = dataclasses.replace(teacher_cfg, matmul_quant="int8",
+                                        token_merge_r=ACCEL_TOWERS["vit_b_16"][1])
+        student_q = dataclasses.replace(student_cfg, matmul_quant="int8")
+        probes = {
+            "teacher_int8_tome16": check_encoder_fidelity(
+                states["teacher"], teacher_q, names[0], ACCEL_PROBE, 0.0,
+                encoder_name="teacher ViT", frames=probe_frames),
+            "student_int8_frame_diff": check_encoder_fidelity(
+                states["student"], student_q, names[0], ACCEL_PROBE, 0.0,
+                encoder_name="student ViT",
+                frames=sample_motion_probe_frames(names[0], ACCEL_PROBE)),
+        }
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {n: os.path.join(tmp, f"{n}.pth") for n in ("teacher", "student", "tfam")}
+            torch.save({f"visual.{k}": v.cpu() for k, v in states["teacher"].items()},
+                       paths["teacher"])
+            torch.save({f"visual_encoder.{k}": v.cpu() for k, v in states["student"].items()},
+                       paths["student"])
+            torch.save({k: v.cpu() for k, v in states["tfam"].items()}, paths["tfam"])
+            config = os.path.join(tmp, "tfam.yaml")
+            with open(config, "w") as f:
+                json.dump({"data": {"num_classes": 140, "length_bucket": 128,
+                                    "max_seq_len": 2048},
+                           "model": dataclasses.asdict(tfam_cfg)}, f)
+            del states
+            argv = names + [
+                "--teacher-weights", paths["teacher"],
+                "--student-torch-checkpoint", paths["student"],
+                "--tfam-torch-checkpoint", paths["tfam"], "--tfam-config", config,
+                "--quantize", "int8", "--token-merge", str(ACCEL_TOWERS["vit_b_16"][1]),
+                "--verify-fidelity", str(ACCEL_PROBE), "--top-k", "140",
+                "--output", os.path.join(tmp, "pred.json")]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # 140 lines a clip
+                predict_cli.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = dict(flash_attention.launches)
+            with open(os.path.join(tmp, "pred.json")) as f:
+                records = json.load(f)
+            check(launches["fwd"] == 8 * len(names) and sum(launches.values()) == launches["fwd"],
+                  f"vimo-predict-torch launched {launches} for {len(names)} predictor calls "
+                  "(K1 8 each: 4 layers x self + cross; the towers run eager attention)")
+            check([r["video"] for r in records] == names, f"records {records}")
+            probs = np.array([[p["probability"] for p in r["predictions"]] for r in records])
+            check(probs.shape == (len(names), 140), f"probabilities {probs.shape}")
+            check(bool(np.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()),
+                  "probabilities not finite or outside [0, 1]")
+            refused = None
+            try:
+                predict_cli.main(argv + ["--fidelity-threshold", str(ACCEL_STRICT)])
+            except FidelityError as e:
+                refused = str(e)
+            check(refused is not None, f"--fidelity-threshold {ACCEL_STRICT} did not stop "
+                                       "vimo-predict-torch")
+    finally:
+        serving.read_video, video_reader.read_video = reads
+        if stand_in is not None:
+            sys.modules.pop("yaml", None)
+    out = {"int_mm": int_mm, "k1": k1, "towers": towers, "probes": probes,
+           "cli_predict_s": cli_s, "cli_k1_launches": launches["fwd"],
+           "cli_calls": len(names), "strict_threshold": ACCEL_STRICT,
+           "strict_refusal": refused[:160], "phase_s": time.perf_counter() - t_phase}
+    print("[accel] " + json.dumps({k: v for k, v in out.items() if k not in
+                                   ("int_mm", "k1", "towers")}) + f" [{smi}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1795,13 +2205,15 @@ def main() -> int:
     extraction = phase_extraction(torch, args.seed, smi)
     served = phase_serving(torch, args.seed, smi)
     phase_benchmark(torch, args.seed, smi)
+    accel = phase_accelerators(torch, args.seed, smi)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda", "source": fwd_src,
         "replaces": f"{tpu}:113",
-        "launches": stats["flash_launches"] + served["k1_launches"],
+        "launches": (stats["flash_launches"] + served["k1_launches"]
+                     + accel["cli_k1_launches"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],

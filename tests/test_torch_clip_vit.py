@@ -153,8 +153,16 @@ def test_seeded_init_is_reproducible():
     assert abs(a["proj"].std().item() - 0.02) < 0.005
 
 
-def test_opt_in_accelerators_refused():
-    with pytest.raises(NotImplementedError):
-        ClipVisionEncoder(ClipVisionConfig(**GEOM, matmul_quant="int8"))
-    with pytest.raises(NotImplementedError):
-        ClipVisionEncoder(ClipVisionConfig(**GEOM, token_merge_r=2))
+@pytest.mark.parametrize("approx", [dict(matmul_quant="int8"), dict(token_merge_r=2)],
+                         ids=["int8", "tome"])
+def test_opt_in_accelerators_match_jax(jax_params, approx):
+    """The opt-in approximations build from the config and load the exact
+    tower's weights: both within 1e-4 of JAX's tower with the same option
+    (ops/quant.py and ops/tome.py have their own tests)."""
+    pixels = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    ref = jax.jit(lambda p, x: JEncoder(JConfig(**GEOM, **approx)).apply({"params": p}, x))(
+        jax_params, pixels)
+    enc = _port_encoder(jax_params, ClipVisionConfig(**GEOM, **approx))
+    with torch.no_grad():
+        got = enc(torch.from_numpy(pixels))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=0)

@@ -525,3 +525,142 @@ def test_coalesced_predict_batch_matches_solo_calls(cuda, monkeypatch):
         solo = pred.predict_batch([vid], top_k=3)[0]
         assert p.video_id == vid and np.isfinite(p.probabilities).all()
         np.testing.assert_allclose(p.probabilities, solo.probabilities, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [8, 16, 17, 512])
+def test_int_mm_is_the_exact_product_on_card(cuda, rows):
+    """``torch._int_mm`` behind ``ops/quant.int_mm``: the int32 sums bit for
+    bit against the exact product (float64 sums of int8 products are exact
+    below 2^53), including at <= 16 rows, which the wrapper pads."""
+    from vimoclip_tpu_torch.ops.quant import int_mm
+
+    g = torch.Generator(device="cpu").manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 768), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (2304, 768), generator=g, dtype=torch.int8)
+    got = int_mm(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (rows, 2304)
+    exact = a.double() @ b.double().t()
+    assert torch.equal(got.cpu().double(), exact)
+
+
+def test_merged_tower_flash_matches_eager_at_full_width(cuda):
+    """ViT-B/16 at full width merging 16 tokens a block, float32: K1 at every
+    token count the schedule leaves (197 down to 21) against the eager
+    attention, per-frame cosine >= 0.9999. In bf16 the two paths round
+    differently enough to change which tokens merge on noise frames (cosine
+    0.998 there, chip_smoke.py phase 13); float32 keeps the merges equal."""
+    import dataclasses
+
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+
+    cfg = ClipVisionConfig.vit_b_16()
+    g = torch.Generator().manual_seed(0)
+    state = init_parameters_(ClipVisionEncoder(cfg), g).state_dict()
+    pixels = torch.randn(8, 224, 224, 3, generator=g).to(cuda)
+    out = {}
+    for impl in ("xla", "flash"):
+        enc = ClipVisionEncoder(dataclasses.replace(cfg, token_merge_r=16,
+                                                    attention_impl=impl))
+        enc.load_state_dict(state)
+        enc = enc.to(cuda).eval()
+        before = flash_attention.launches["fwd"]
+        with torch.inference_mode():
+            out[impl] = enc(pixels).double()
+        torch.cuda.synchronize()
+        assert flash_attention.launches["fwd"] - before == (12 if impl == "flash" else 0)
+    cos = torch.nn.functional.cosine_similarity(out["flash"], out["xla"], dim=-1)
+    assert cos.min().item() >= 0.9999, cos
+
+
+def test_merged_tower_flash_matches_eager_with_the_same_merges_in_bf16(cuda):
+    """ViT-B/16 at full width merging 16 tokens a block, bf16: K1 against the
+    eager attention with both towers applying the merges the eager run chose
+    (``bipartite_merge``'s ``plan``), so only the kernel's rounding is left;
+    per-frame cosine >= 0.9999 (chip_smoke.py phase 13 holds the same at
+    batch 256)."""
+    import dataclasses
+
+    from vimoclip_tpu_torch.models import clip_vit, init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_plan
+
+    cfg = dataclasses.replace(ClipVisionConfig.vit_b_16(), token_merge_r=16)
+    g = torch.Generator().manual_seed(0)
+    state = init_parameters_(ClipVisionEncoder(cfg), g).state_dict()
+    pixels = torch.randn(8, 224, 224, 3, generator=g).to(cuda, torch.bfloat16)
+    plans, out = [], {}
+
+    def record(x, sizes, step):
+        plans.append(merge_plan(x, step))
+        return bipartite_merge(x, sizes, step, plan=plans[-1])
+
+    try:
+        for impl in ("xla", "flash"):
+            replay = iter(plans)
+            clip_vit.bipartite_merge = record if impl == "xla" else (
+                lambda x, sizes, step, replay=replay: bipartite_merge(
+                    x, sizes, step, plan=next(replay)))
+            enc = ClipVisionEncoder(dataclasses.replace(cfg, attention_impl=impl),
+                                    dtype=torch.bfloat16)
+            enc.load_state_dict(state)
+            enc = enc.to(cuda).eval()
+            with torch.inference_mode():
+                out[impl] = enc(pixels).double()
+    finally:
+        clip_vit.bipartite_merge = bipartite_merge
+    assert len(plans) == 11 and next(replay, None) is None
+    cos = torch.nn.functional.cosine_similarity(out["flash"], out["xla"], dim=-1)
+    assert cos.min().item() >= 0.9999, cos
+
+
+# K1 under ToMe (as chip_smoke.py's K1_TOME_*, where the readings are): max|d|
+# / max|ref|, and the gain sum(got * ref) / sum(ref * ref) - 1, which an
+# unmasked zero key shifts
+K1_TOME_REL = 2e-2
+K1_TOME_GAIN = 1e-4
+
+
+def _k1_readings(ref, got):
+    ref, got = ref.double(), got.double()
+    return (((got - ref).abs().max() / ref.abs().max()).item(),
+            ((got * ref).sum() / (ref * ref).sum()).item() - 1.0)
+
+
+@pytest.mark.parametrize("n, r", [(197, 16), (50, 4)], ids=["vit_b_16", "vit_b_32"])
+def test_k1_at_every_merged_token_count(cuda, n, r):
+    """bf16 K1 on q/k/v of a packed projection of the layer-normed merged
+    stream (~N(0, 1), as a block makes them), at each token count of the
+    tower's ToMe schedule: TMA reads them in place and K1 agrees with its
+    plain version within limits that refuse a key dropped at the tail, a
+    key read past the end (the next frame's first token) and an unmasked
+    zero key past the end, each planted at every count."""
+    import torch.nn.functional as F
+
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import tma_legal
+    from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_schedule
+
+    def refused(rel, gain):
+        return rel > K1_TOME_REL or abs(gain) > K1_TOME_GAIN
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+    b, h, d = 8, 12, 64
+    e = h * d
+    x = torch.randn(b, n, e, generator=g).to(cuda)
+    w = (torch.randn(3 * e, e, generator=g) * e ** -0.5).to(cuda, torch.bfloat16)
+    sizes = torch.ones(b, n, device=cuda)
+    for step in merge_schedule(n, 12, r) + [0]:
+        t = x.shape[1]
+        qkv = F.linear(F.layer_norm(x, (e,)).to(torch.bfloat16), w)
+        q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in qkv.split(e, dim=-1))
+        assert x.is_contiguous() and all(tma_legal(y) for y in (q, k, v))
+        ref = flash_attention_reference(q, k, v)
+        assert not refused(*_k1_readings(ref, flash_attention(q, k, v))), t
+        zero = torch.zeros_like(k[:, :, :1])
+        for fk, fv in ((k[:, :, :-1], v[:, :, :-1]),
+                       (torch.cat([k, k[:, :, :1].roll(-1, 0)], 2),
+                        torch.cat([v, v[:, :, :1].roll(-1, 0)], 2)),
+                       (torch.cat([k, zero], 2), torch.cat([v, zero], 2))):
+            assert refused(*_k1_readings(ref, flash_attention_reference(q, fk, fv))), t
+        if step:
+            x, sizes = bipartite_merge(x, sizes, step)

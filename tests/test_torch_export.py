@@ -27,6 +27,8 @@ from vimoclip_tpu_torch.export import (
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
 from vimoclip_tpu_torch.models.convert import student_state_from_jax, to_tensors
 
+from test_torch_extraction import assert_int8_frames
+
 torch.set_num_threads(1)
 
 GEOM = dict(image_size=32, patch_size=8, hidden_size=32, num_layers=1,
@@ -191,12 +193,63 @@ def test_cli_exports_from_a_torch_checkpoint_and_a_run_directory(videos, params,
     for vid in a:
         assert a[vid][2] == "lzf" and b[vid][2] is None
         np.testing.assert_array_equal(a[vid][1], b[vid][1])
-    for extra in (["--quantize", "int8"], ["--token-merge", "4"],
-                  ["--verify-fidelity", "8"]):
-        with pytest.raises(SystemExit):
-            export_motion_embeddings.main(common + ["--output", "x.h5", "--torch-checkpoint",
-                                                    str(tmp_path / "student_best.pth")] + extra)
     (tmp_path / "orbax").mkdir()
     with pytest.raises(SystemExit):
         export_motion_embeddings.main(common + ["--output", "x.h5",
                                                 "--checkpoint-dir", str(tmp_path / "orbax")])
+
+
+@pytest.fixture(scope="module")
+def deep_student(tmp_path_factory):
+    """A reference-format ``student_best.pth`` of 2 layers at hidden 64 (the
+    JAX loader infers hidden // 64 heads, so narrower towers are not shared):
+    17 tokens, 4 merged after the first block under --token-merge 4."""
+    geom = GEOM | dict(hidden_size=64, num_layers=2, num_heads=1, intermediate_size=128)
+    model = JStudent(vision_config=JConfig(**geom), num_classes=3)
+    params = jax.jit(model.init)(jax.random.key(1),
+                                 jnp.zeros((1, 2, 32, 32, 3), jnp.uint8))["params"]
+    path = tmp_path_factory.mktemp("deep_student") / "student_best.pth"
+    torch.save(to_tensors(student_state_from_jax(params, ClipVisionConfig(**geom))), path)
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [["--quantize", "int8"], ["--token-merge", "4"],
+                                   ["--quantize", "int8", "--verify-fidelity", "3"]],
+                         ids=["quantize", "token-merge", "verify-fidelity"])
+def test_cli_accelerator_flags_match_jax(videos, deep_student, tmp_path, extra):
+    """Each opt-in flag of ``export_motion_embeddings`` against the JAX CLI on
+    the same videos and checkpoint. Merged float32 embeddings agree within
+    1e-4; int8 ones frame by frame as ``assert_int8_frames`` holds them
+    (within a thousandth of int8's own effect, but for at most one frame
+    whose quantiser input sat at a rounding boundary). Under
+    --verify-fidelity both stop with FidelityError at threshold 1.0 before
+    writing anything."""
+    from vimoclip_tpu.cli.export_motion_embeddings import main as jax_cli
+    from vimoclip_tpu.fidelity import FidelityError as JFidelityError
+    from vimoclip_tpu_torch.fidelity import FidelityError
+
+    base = ["--videos-dir", videos, "--chunk-size", "4", "--float32",
+            "--torch-checkpoint", deep_student]
+    common = base + extra
+    ours, theirs = str(tmp_path / "ours.h5"), str(tmp_path / "jax.h5")
+    export_motion_embeddings.main(common + ["--output", ours, "--device", "cpu"])
+    jax_cli(common + ["--output", theirs])
+    exact = str(tmp_path / "exact.h5")
+    export_motion_embeddings.main(base + ["--output", exact, "--device", "cpu"])
+    a, b, e = _read(ours), _read(theirs), _read(exact)
+    assert sorted(a) == sorted(b) == ["x", "y", "z"]
+    for vid in b:
+        assert a[vid][0] == b[vid][0] and a[vid][1].shape == b[vid][1].shape
+        if "--quantize" not in extra:
+            np.testing.assert_allclose(a[vid][1], b[vid][1], atol=1e-4, rtol=0)
+    if "--quantize" in extra:
+        assert_int8_frames(*({vid: g[1] for vid, g in f.items()} for f in (a, b, e)))
+    assert not np.allclose(a["x"][1], e["x"][1], atol=1e-4)
+    if "--verify-fidelity" in extra:
+        strict = common + ["--fidelity-threshold", "1.0"]
+        with pytest.raises(FidelityError):
+            export_motion_embeddings.main(strict + ["--output", str(tmp_path / "o.h5"),
+                                                    "--device", "cpu"])
+        with pytest.raises(JFidelityError):
+            jax_cli(strict + ["--output", str(tmp_path / "j.h5")])
+        assert not (tmp_path / "o.h5").exists() and not (tmp_path / "j.h5").exists()

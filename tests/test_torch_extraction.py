@@ -107,7 +107,39 @@ def _read(path):
         return groups, dict(f.attrs), ids
 
 
-def assert_same_file(ours, theirs):
+def _frame_rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+# int8 on both sides: the two stacks' quantiser inputs differ by ~5e-7
+# relative (float32 sums in other orders), so a value within that of a
+# rounding boundary takes the next code in one stack (seen once, 0.50007
+# from the boundary, in a 2-layer tower); the flip moves that frame by a
+# share of the int8 error itself (rel. L2 6.4e-3 there, against 1.0-1.1% of
+# int8 vs exact). So a file may hold one such frame, moved by less than its
+# own int8 error; every other frame agrees within INT8_REL, a thousandth of
+# what int8 moves it. A flag that did nothing, reached one tower only or
+# quantised otherwise would move every frame.
+INT8_REL = 1e-5
+
+
+def assert_int8_frames(ours, theirs, exact):
+    """Per-frame embeddings ``{video: (frames, dim)}``: ours against JAX's
+    int8 ones, with ``exact`` (no int8) giving int8's own effect."""
+    flips = 0
+    for vid, ref in theirs.items():
+        effect = _frame_rel_l2(exact[vid], ref)
+        assert effect.min() >= 100 * INT8_REL, (vid, effect)
+        rel = _frame_rel_l2(ours[vid], ref)
+        assert (rel < 0.75 * effect).all(), (vid, rel, effect)
+        flips += int((rel > INT8_REL).sum())
+    assert flips <= 1, flips
+
+
+def assert_same_file(ours, theirs, exact=None):
+    """Equal files; with ``exact``, ours and theirs are int8 files held by
+    ``assert_int8_frames`` against that file without int8."""
     a, b = _read(ours), _read(theirs)
     assert sorted(a[0]) == sorted(b[0])
     assert a[1] == b[1] and a[2] == b[2]
@@ -115,10 +147,27 @@ def assert_same_file(ours, theirs):
         assert a[0][vid][0] == attrs
         np.testing.assert_array_equal(a[0][vid][2], labels)
         assert a[0][vid][1].shape == emb.shape
-        np.testing.assert_allclose(a[0][vid][1], emb, atol=ATOL, rtol=0)
+        if exact is None:
+            np.testing.assert_allclose(a[0][vid][1], emb, atol=ATOL, rtol=0)
+    if exact is not None:
+        assert_int8_frames(*({vid: g[1] for vid, g in f[0].items()}
+                             for f in (a, b, _read(exact))))
     for analyze, compare in ((analyze_structure, compare_structures),
                              (jax_analyze, jax_compare)):
         assert compare(analyze(ours), analyze(theirs)) == (True, [])
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 3])
+def test_shard_annotations_is_the_strided_slice(corpus, num_shards):
+    """What each shard extracts and probes: JAX's strided slice of the
+    annotation list (``vimoclip_tpu/extraction.py``), the shards covering
+    it once; an index outside [0, num_shards) raises."""
+    ann = jex.load_annotations(os.path.join(corpus, "train.txt"))
+    shards = [ex.shard_annotations(ann, num_shards, i) for i in range(num_shards)]
+    assert shards == [ann[i::num_shards] for i in range(num_shards)]
+    assert sorted(sum(shards, [])) == sorted(ann)
+    with pytest.raises(ValueError, match="not in"):
+        ex.shard_annotations(ann, num_shards, num_shards)
 
 
 def test_annotation_and_class_parsing(corpus):
@@ -363,15 +412,15 @@ def test_float32_flag_reaches_the_extractor(corpus, state, tmp_path, monkeypatch
     assert _read(str(tmp_path / "bf16.h5"))[0]["v0.mp4"][1].dtype == np.float32
 
 
-def _hf_checkpoint(tmp_path):
+def _hf_checkpoint(tmp_path, layers=1):
     from transformers import CLIPVisionConfig as HFConfig
     from transformers import CLIPVisionModelWithProjection
 
-    path = tmp_path / "clip.pt"
+    path = tmp_path / ("clip.pt" if layers == 1 else f"clip{layers}.pt")
     if not path.exists():
         torch.manual_seed(1)
         hf = CLIPVisionModelWithProjection(HFConfig(
-            hidden_size=64, intermediate_size=128, num_hidden_layers=1,
+            hidden_size=64, intermediate_size=128, num_hidden_layers=layers,
             num_attention_heads=4, image_size=32, patch_size=8, projection_dim=16))
         torch.save(hf.state_dict(), path)
     return str(path)
@@ -390,10 +439,41 @@ def test_extract_embeddings_cli_matches_jax(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--quantize", "int8"], ["--token-merge", "4"],
-                                   ["--verify-fidelity", "8"], ["--fidelity-threshold", "0.9"],
-                                   ["--data-parallel", "2"]],
+                                   ["--quantize", "int8", "--verify-fidelity", "3"],
+                                   ["--token-merge", "4", "--verify-fidelity", "3",
+                                    "--fidelity-threshold", "1.0"]],
                          ids=["quantize", "token-merge", "verify-fidelity",
-                              "fidelity-threshold", "data-parallel"])
+                              "fidelity-threshold"])
+def test_cli_accelerator_flags_match_jax(corpus, tmp_path, extra):
+    """Each opt-in flag against the JAX CLI on the same corpus and a 2-layer
+    checkpoint (17 tokens, 4 merged after the first block): equal files, or
+    both stopping with FidelityError before any file is written."""
+    from vimoclip_tpu.fidelity import FidelityError as JFidelityError
+    from vimoclip_tpu_torch.fidelity import FidelityError
+
+    base = ["--data-root", corpus, "--annotation-file", os.path.join(corpus, "train.txt"),
+            "--class-file", os.path.join(corpus, "classes.csv"),
+            "--clip-weights", _hf_checkpoint(tmp_path, layers=2), "--batch-size", "8",
+            "--split", "train", "--float32", "--max-frames", "6"]
+    common = base + extra
+    ours, theirs = str(tmp_path / "ours.h5"), str(tmp_path / "jax.h5")
+    if "1.0" in extra:
+        with pytest.raises(FidelityError):
+            extract_embeddings.main(common + ["--output", ours, "--device", "cpu"])
+        with pytest.raises(JFidelityError):
+            jax_cli(common + ["--output", theirs])
+        assert not os.path.exists(ours) and not os.path.exists(theirs)
+        return
+    extract_embeddings.main(common + ["--output", ours, "--device", "cpu"])
+    jax_cli(common + ["--output", theirs])
+    exact = str(tmp_path / "exact.h5")
+    extract_embeddings.main(base + ["--output", exact, "--device", "cpu"])
+    assert_same_file(ours, theirs, exact if "--quantize" in extra else None)
+    assert not np.allclose(_read(ours)[0]["v3.mp4"][1], _read(exact)[0]["v3.mp4"][1],
+                           atol=ATOL)
+
+
+@pytest.mark.parametrize("extra", [["--data-parallel", "2"]], ids=["data-parallel"])
 def test_cli_refuses_later_slices(corpus, tmp_path, extra):
     with pytest.raises(SystemExit):
         extract_embeddings.main([

@@ -101,7 +101,9 @@ NEW_MODULES = ["vimoclip_tpu_torch.extraction", "vimoclip_tpu_torch.motion",
                "vimoclip_tpu_torch.cli.run_pipeline", "vimoclip_tpu_torch.cli.serve",
                "vimoclip_tpu_torch.cli.benchmark", "vimoclip_tpu_torch.cli.convert",
                "vimoclip_tpu_torch.cli.run_experiments", "vimoclip_tpu_torch.utils.profiling",
-               "vimoclip_tpu_torch.data.native", "vimoclip_tpu_torch.data.video_reader"]
+               "vimoclip_tpu_torch.data.native", "vimoclip_tpu_torch.data.video_reader",
+               "vimoclip_tpu_torch.ops.quant", "vimoclip_tpu_torch.ops.tome",
+               "vimoclip_tpu_torch.fidelity"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

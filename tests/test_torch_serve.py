@@ -171,10 +171,10 @@ def test_stdin_daemon_matches_jax_daemon(predictor, jax_predictor, videos, tmp_p
         np.testing.assert_allclose(b, a, atol=1e-4, rtol=0)
 
 
-def test_serve_main_stdin_on_reference_checkpoints(weights, videos, tmp_path,
-                                                   monkeypatch, capsys):
-    """``main`` builds the predictor from reference-format files and answers
-    stdin lines as the JAX daemon answers them."""
+def _reference_files(weights, tmp_path):
+    """The three stages' weights as reference-format ``.pth`` files and a
+    stage-2 YAML; returns the model flags and the JAX predictor built from
+    the same files (``**approx`` on both towers' configs)."""
     tp, sp, fp = weights
     cfg = ClipVisionConfig(**VGEOM)
     teacher = {f"visual.{k}": torch.from_numpy(np.array(v))
@@ -192,33 +192,87 @@ def test_serve_main_stdin_on_reference_checkpoints(weights, videos, tmp_path,
     config.write_text(yaml.safe_dump({
         "data": {"num_classes": C, "length_bucket": 8, "class_names_dir": str(classes)},
         "model": TGEOM}))
+    flags = ["--teacher-weights", paths["teacher"],
+             "--student-torch-checkpoint", paths["student"],
+             "--tfam-torch-checkpoint", paths["tfam"], "--tfam-config", str(config),
+             "--device", "cpu", "--float32", "--frame-batch", "8"]
+
+    def jax_predictor(**approx):
+        # checkpoints carry no head count: the loaders infer max(1, hidden // 64)
+        jvision = JVision(**(VGEOM | {"num_heads": 1}), **approx)
+        return JPredictor(
+            teacher_params=clip_vision_params_from_openai(
+                {k: v.numpy() for k, v in teacher.items()}, jvision),
+            teacher_config=jvision,
+            student_params=clip_vision_params_from_openai(
+                {k.replace("module.visual_encoder.", "visual."): v.numpy()
+                 for k, v in student.items()}, jvision),
+            student_config=jvision,
+            tfam_params=tfam_params_from_torch({k: v.numpy() for k, v in tfam.items()},
+                                               num_layers=1, d_model=16),
+            tfam_config=JTFAMConfig(**TGEOM), num_classes=C, class_names=NAMES,
+            frame_batch=8, length_bucket=8, half_precision=False)
+
+    return flags, jax_predictor
+
+
+def test_serve_main_stdin_on_reference_checkpoints(weights, videos, tmp_path,
+                                                   monkeypatch, capsys):
+    """``main`` builds the predictor from reference-format files and answers
+    stdin lines as the JAX daemon answers them."""
+    flags, jax_predictor = _reference_files(weights, tmp_path)
     lines = [{"video": videos[0], "top_k": 3}, {"videos": videos}]
     text = "\n".join(map(json.dumps, lines))
     monkeypatch.setattr(sys, "stdin", io.StringIO(text))
-    serve.main(["--teacher-weights", paths["teacher"],
-                "--student-torch-checkpoint", paths["student"],
-                "--tfam-torch-checkpoint", paths["tfam"], "--tfam-config", str(config),
-                "--device", "cpu", "--float32", "--frame-batch", "8"])
+    serve.main(flags)
     got = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-
-    # checkpoints carry no head count: the loaders infer max(1, hidden // 64)
-    jvision = JVision(**(VGEOM | {"num_heads": 1}))
-    jpred = JPredictor(
-        teacher_params=clip_vision_params_from_openai(
-            {k: v.numpy() for k, v in teacher.items()}, jvision),
-        teacher_config=jvision,
-        student_params=clip_vision_params_from_openai(
-            {k.replace("module.visual_encoder.", "visual."): v.numpy()
-             for k, v in student.items()}, jvision),
-        student_config=jvision,
-        tfam_params=tfam_params_from_torch({k: v.numpy() for k, v in tfam.items()},
-                                           num_layers=1, d_model=16),
-        tfam_config=JTFAMConfig(**TGEOM), num_classes=C, class_names=NAMES,
-        frame_batch=8, length_bucket=8, half_precision=False)
     out = io.StringIO()
-    jax_serve.serve_stdin(jpred, io.StringIO(text), out)
+    jax_serve.serve_stdin(jax_predictor(), io.StringIO(text), out)
     assert got == [json.loads(line) for line in out.getvalue().splitlines()]
     assert len(got[0]["predictions"]) == 3
+
+
+@pytest.mark.parametrize("threshold", ["0.5", "1.0"], ids=["passes", "refuses"])
+def test_serve_verify_fidelity_with_probe_video(weights, videos, tmp_path, monkeypatch,
+                                                capsys, threshold):
+    """--verify-fidelity with --probe-video: above the threshold the daemon
+    runs int8 in both towers and no ToMe, and answers within 1e-6 of JAX's
+    int8 predictor, a hundredth of what int8 moves the answer (JAX int8
+    against JAX exact); its JSON is that answer rounded to 4 decimals.
+    Below the threshold the daemon refuses to start and answers nothing."""
+    from vimoclip_tpu_torch.cli import predict as predict_cli
+    from vimoclip_tpu_torch.fidelity import FidelityError
+
+    flags, jax_predictor = _reference_files(weights, tmp_path)
+    flags += ["--quantize", "int8", "--verify-fidelity", "4", "--probe-video", videos[0],
+              "--fidelity-threshold", threshold]
+    text = json.dumps({"videos": videos, "top_k": C})
+    monkeypatch.setattr(sys, "stdin", io.StringIO(text))
+    if threshold == "1.0":
+        with pytest.raises(FidelityError, match="below --fidelity-threshold 1.0"):
+            serve.main(flags)
+        assert capsys.readouterr().out == ""
+        return
+    built = []
+    build = predict_cli.build_predictor
+    monkeypatch.setattr(predict_cli, "build_predictor",
+                        lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    serve.main(flags)
+    got = json.loads(capsys.readouterr().out)["results"]
+    (pred,) = built
+    for tower in (pred.teacher, pred.student):
+        assert (tower.config.matmul_quant, tower.config.token_merge_r) == ("int8", 0)
+    full = pred.predict_batch(videos, top_k=C)
+    ref = jax_predictor(matmul_quant="int8").predict_batch(videos, top_k=C)
+    exact = jax_predictor().predict_batch(videos, top_k=C)
+    assert max(np.abs(r.probabilities - e.probabilities).max()
+               for r, e in zip(ref, exact)) >= 100 * 1e-6  # int8's effect
+    for record, f, r in zip(got, full, ref):
+        np.testing.assert_allclose(f.probabilities, r.probabilities, atol=1e-6, rtol=0)
+        probs = {p["class_id"]: p["probability"] for p in record["predictions"]}
+        assert record["video"] == r.video_id and sorted(probs) == list(range(C))
+        for c, p in probs.items():  # JSON rounds to 4 decimals
+            assert abs(p - float(f.probabilities[c])) <= 5e-5 + 1e-7
 
 
 # --------------------------------------------------------------------------
@@ -509,19 +563,15 @@ _MODEL_ARGS = ["--teacher-weights", "w.pt", "--student-torch-checkpoint", "s.pth
                "--tfam-config", "c.yaml", "--tfam-torch-checkpoint", "t.pth"]
 
 
-@pytest.mark.parametrize("flags", [["--warmup"], ["--verify-fidelity", "4"],
-                                   ["--verify-fidelity", "4", "--probe-video", "v.mp4"]],
-                         ids=["warmup", "fidelity", "fidelity-with-probe"])
+@pytest.mark.parametrize("flags", [["--warmup"], ["--verify-fidelity", "4"]],
+                         ids=["warmup", "fidelity"])
 def test_serve_usage_errors(flags, capsys):
-    """--warmup needs --probe-video; --verify-fidelity comes with the opt-in
-    accelerators slice and is refused with or without one. Both exit before
-    any weights load."""
+    """--warmup and --verify-fidelity each need --probe-video (a daemon has no
+    request video at startup). Both exit before any weights load."""
     with pytest.raises(SystemExit) as e:
         serve.main(_MODEL_ARGS + flags)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    want = "needs --probe-video" if flags == ["--warmup"] else "accelerators slice"
-    assert want in err
+    assert f"{flags[0]} needs --probe-video" in capsys.readouterr().err
 
 
 def test_serve_help_lists_daemon_flags(capsys):

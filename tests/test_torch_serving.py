@@ -140,7 +140,6 @@ def test_cli_help(capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--tfam-checkpoint-dir", "x"], ["--student-checkpoint-dir", "x"],
-    ["--quantize", "int8"], ["--token-merge", "4"], ["--verify-fidelity", "2"],
     ["--data-parallel", "2"],
 ])
 def test_cli_refuses_later_slices(flag, capsys):
@@ -152,9 +151,12 @@ def test_cli_refuses_later_slices(flag, capsys):
     assert ("vimo-convert" in capsys.readouterr().err) == ("dir" in flag[0])
 
 
-def test_cli_tiny_run_matches_jax(weights, tmp_path):
+def _reference_files(weights, tmp_path, geom=VGEOM):
+    """The three stages' weights as reference-format ``.pth`` files, a
+    stage-2 YAML and a 13-frame clip; returns the paths, the YAML, the clip
+    and the JAX predictor's parameters read back from the files."""
     tp, sp, fp = weights
-    cfg = ClipVisionConfig(**VGEOM)
+    cfg = ClipVisionConfig(**geom)
     teacher = {f"visual.{k}": torch.from_numpy(np.array(v))
                for k, v in clip_vision_state_from_jax(tp, cfg, prefix="").items()}
     student = {f"module.visual_encoder.{k}": torch.from_numpy(np.array(v))
@@ -177,32 +179,118 @@ def test_cli_tiny_run_matches_jax(weights, tmp_path):
     video = str(tmp_path / "clip.mp4")
     write_video(video, np.random.default_rng(0).integers(0, 256, (13, 36, 48, 3),
                                                          dtype=np.uint8))
-    out = tmp_path / "pred.json"
-    cli.main([video, "--teacher-weights", paths["teacher"],
-              "--student-torch-checkpoint", paths["student"],
-              "--tfam-torch-checkpoint", paths["tfam"], "--tfam-config", str(config),
-              "--device", "cpu", "--float32", "--frame-batch", "8",
-              "--top-k", str(C), "--output", str(out)])
-    record = json.loads(out.read_text())[0]
-    assert record["video"] == video
-    got = {p["class_id"]: p["probability"] for p in record["predictions"]}
-    names = {p["class_id"]: p["class_name"] for p in record["predictions"]}
-    assert names[0] == "eat" and names[1] == "swim"
-
     # checkpoints carry no head count: the loaders infer max(1, hidden // 64)
-    jvision = JVision(**(VGEOM | {"num_heads": 1}))
-    jpred = JPredictor(
+    jvision = JVision(**(geom | {"num_heads": 1}))
+    jparams = dict(
         teacher_params=clip_vision_params_from_openai(
             {k: v.numpy() for k, v in teacher.items()}, jvision),
-        teacher_config=jvision,
         student_params=clip_vision_params_from_openai(
             {k.replace("module.visual_encoder.", "visual."): v.numpy()
              for k, v in student.items()}, jvision),
-        student_config=jvision,
         tfam_params=tfam_params_from_torch(
-            {k: v.numpy() for k, v in tfam.items()}, num_layers=1, d_model=16),
+            {k: v.numpy() for k, v in tfam.items()}, num_layers=1, d_model=16))
+    return paths, str(config), video, jvision, jparams
+
+
+def _cli_probabilities(paths, config, video, tmp_path, extra=()):
+    out = tmp_path / "pred.json"
+    cli.main([video, "--teacher-weights", paths["teacher"],
+              "--student-torch-checkpoint", paths["student"],
+              "--tfam-torch-checkpoint", paths["tfam"], "--tfam-config", config,
+              "--device", "cpu", "--float32", "--frame-batch", "8",
+              "--top-k", str(C), "--output", str(out), *extra])
+    record = json.loads(out.read_text())[0]
+    assert record["video"] == video
+    names = {p["class_id"]: p["class_name"] for p in record["predictions"]}
+    assert names[0] == "eat" and names[1] == "swim"
+    return {p["class_id"]: p["probability"] for p in record["predictions"]}
+
+
+def _capture_predictors(monkeypatch):
+    """The predictors ``cli.predict.build_predictor`` builds from here on
+    (``cli.predict.main`` and ``cli.serve.main`` both call it)."""
+    built = []
+    build = cli.build_predictor
+
+    def capture(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(cli, "build_predictor", capture)
+    return built
+
+
+def _jax_probabilities(jvision, jparams, video, teacher=None, student=None):
+    return JPredictor(
+        teacher_config=teacher or jvision, student_config=student or jvision,
         tfam_config=JTFAMConfig(**TGEOM), num_classes=C, frame_batch=8,
-        length_bucket=8, max_seq_len=64, half_precision=False)
-    ref = jpred.predict(video)
+        length_bucket=8, max_seq_len=64, half_precision=False,
+        **jparams).predict(video).probabilities
+
+
+def test_cli_tiny_run_matches_jax(weights, tmp_path):
+    paths, config, video, jvision, jparams = _reference_files(weights, tmp_path)
+    got = _cli_probabilities(paths, config, video, tmp_path)
+    ref = _jax_probabilities(jvision, jparams, video)
     for c in range(C):  # JSON rounds to 4 decimals
-        assert abs(got[c] - float(ref.probabilities[c])) <= 1e-4
+        assert abs(got[c] - float(ref[c])) <= 1e-4
+
+
+@pytest.fixture(scope="module")
+def deep_weights():
+    """Towers of 2 layers: 17 tokens, 4 merged after the first block under
+    --token-merge 4."""
+    enc = JEncoder(JVision(**(VGEOM | {"num_layers": 2})))
+    init = jax.jit(enc.init)
+    tp = init(jax.random.key(3), jnp.zeros((1, 32, 32, 3)))["params"]
+    sp = init(jax.random.key(4), jnp.zeros((1, 32, 32, 3)))["params"]
+    fp = JTFAM(config=JTFAMConfig(**TGEOM), num_classes=C).init(
+        jax.random.key(5), jnp.zeros((1, 4, 16)), jnp.zeros((1, 3, 16)),
+        jnp.ones((1, 4), bool), jnp.ones((1, 3), bool))["params"]
+    return tp, sp, fp
+
+
+@pytest.mark.parametrize("flag", [["--quantize", "int8"], ["--token-merge", "4"],
+                                  ["--quantize", "int8", "--verify-fidelity", "3"]],
+                         ids=["quantize", "token-merge", "verify-fidelity"])
+def test_cli_accelerator_flags_match_jax(deep_weights, tmp_path, monkeypatch, flag):
+    """Each opt-in flag of ``cli.predict`` against the JAX predictor with the
+    configs JAX's ``build_predictor`` makes from it: int8 in both towers,
+    ToMe in the teacher only. The predictor the CLI built answers within
+    1e-6 of JAX's, a hundredth of what the flag itself moves the answer
+    (JAX with the flag against JAX without it), so a flag that did nothing
+    or reached one tower only would fail; the JSON is that answer rounded to
+    4 decimals. Under --verify-fidelity the run stops with FidelityError at
+    threshold 1.0, as JAX's probe does on the same frames."""
+    import dataclasses
+
+    from vimoclip_tpu.fidelity import FidelityError as JFidelityError
+    from vimoclip_tpu.fidelity import check_encoder_fidelity as jax_check
+    from vimoclip_tpu_torch.fidelity import FidelityError
+
+    geom = VGEOM | {"num_layers": 2}
+    paths, config, video, jvision, jparams = _reference_files(deep_weights, tmp_path, geom)
+    built = _capture_predictors(monkeypatch)
+    got = _cli_probabilities(paths, config, video, tmp_path, flag)
+    quant = "int8" if "--quantize" in flag else None
+    merge = 4 if "--token-merge" in flag else 0
+    (pred,) = built
+    assert (pred.teacher.config.matmul_quant, pred.teacher.config.token_merge_r) == (quant, merge)
+    assert (pred.student.config.matmul_quant, pred.student.config.token_merge_r) == (quant, 0)
+    teacher = dataclasses.replace(jvision, matmul_quant=quant, token_merge_r=merge)
+    student = dataclasses.replace(jvision, matmul_quant=quant)
+    ref = _jax_probabilities(jvision, jparams, video, teacher, student)
+    exact = _jax_probabilities(jvision, jparams, video)
+    full = pred.predict(video).probabilities
+    assert np.abs(ref - exact).max() >= 100 * 1e-6  # the flag's effect
+    np.testing.assert_allclose(full, ref, atol=1e-6, rtol=0)
+    for c in range(C):
+        assert abs(got[c] - float(full[c])) <= 5e-5 + 1e-7  # JSON rounds to 4 decimals
+    if "--verify-fidelity" in flag:
+        with pytest.raises(FidelityError):
+            _cli_probabilities(paths, config, video, tmp_path,
+                               flag + ["--fidelity-threshold", "1.0"])
+        # JAX's probe refuses the same teacher on the same frames
+        with pytest.raises(JFidelityError):
+            jax_check(jparams["teacher_params"], teacher, video, 3, 1.0,
+                      half_precision=False)

@@ -11,12 +11,15 @@ The student comes from a reference-format ``student_best.pth``
 port's stage-1 trainer wrote (``--checkpoint-dir``). Orbax directories of
 the JAX package are not read: ``vimo-convert student-to-torch`` exports them
 to ``.pth`` first. It runs on the card (``--device``, default ``cuda``) and
-raises when there is none.
+raises when there is none. ``--quantize int8`` and ``--token-merge R`` are
+opt-in approximations of the student's tower; ``--verify-fidelity N``
+measures them on the first motion video before the export starts.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 
@@ -47,17 +50,23 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an error")
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="opt-in dynamic-int8 matmuls in the student's ViT blocks "
+                        "(ops/quant.py; the checkpoint loads unchanged): "
+                        "approximate, not the default path")
     p.add_argument("--token-merge", type=int, default=0, metavar="R",
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="opt-in ToMe token merging in the student's ViT "
+                        "(ops/tome.py): approximate, not the default path")
     p.add_argument("--verify-fidelity", type=int, default=0, metavar="N",
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="before exporting, run N frames sampled from the first "
+                        "motion video through both the exact and the "
+                        "--quantize/--token-merge student tower and log the "
+                        "cosine (fidelity.py); stops below --fidelity-threshold")
+    p.add_argument("--fidelity-threshold", type=float, default=0.97,
+                   help="minimum per-frame cosine the --verify-fidelity probe "
+                        "must reach (default 0.97)")
     args = p.parse_args(argv)
     if (args.checkpoint_dir is None) == (args.torch_checkpoint is None):
         p.error("exactly one of --checkpoint-dir / --torch-checkpoint is required")
-    if args.quantize or args.token_merge or args.verify_fidelity:
-        p.error("--quantize / --token-merge / --verify-fidelity come with the opt-in "
-                "accelerators slice of the port (ROADMAP slice 8)")
     checkpoint = args.torch_checkpoint
     if args.checkpoint_dir:
         checkpoint = os.path.join(args.checkpoint_dir, "best", "best_model.pth")
@@ -77,9 +86,23 @@ def main(argv: list[str] | None = None) -> None:
 
         vision_config, _ = load_clip_vision(args.clip_weights)
     vision_config, state = student_state_from_checkpoint(checkpoint, vision_config)
+    if args.quantize or args.token_merge:
+        vision_config = dataclasses.replace(
+            vision_config, matmul_quant=args.quantize or vision_config.matmul_quant,
+            token_merge_r=args.token_merge or vision_config.token_merge_r)
 
     videos = find_motion_videos(args.videos_dir)
     logging.info("found %d motion videos", len(videos))
+    if args.verify_fidelity and (vision_config.matmul_quant or vision_config.token_merge_r):
+        if not videos:
+            raise SystemExit("--verify-fidelity: no motion videos to probe")
+        from vimoclip_tpu_torch.fidelity import check_encoder_fidelity
+        from vimoclip_tpu_torch.models.convert import student_tower_state
+
+        check_encoder_fidelity(student_tower_state(state), vision_config, videos[0],
+                               args.verify_fidelity, args.fidelity_threshold,
+                               half_precision=not args.float32,
+                               encoder_name="student ViT", device=args.device)
     exporter = MotionEmbeddingExporter(
         state, vision_config, chunk_size=args.chunk_size,
         half_precision=not args.float32,

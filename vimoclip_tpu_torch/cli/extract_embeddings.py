@@ -8,16 +8,47 @@
         --output rgb_train.h5 --clip-weights clip.pt --split train [--device cpu]
 
 It runs on the card (``--device``, default ``cuda``) and raises when there is
-none; ``--device cpu`` runs on the CPU.
+none; ``--device cpu`` runs on the CPU. ``--quantize int8`` and
+``--token-merge R`` are opt-in approximations of the tower;
+``--verify-fidelity N`` measures them on this shard's first readable video
+before anything is written, and stops below ``--fidelity-threshold``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
+import os
 import time
 
 from vimoclip_tpu_torch.utils.logging import setup_logging
+
+
+def _probe_fidelity(args, config, state) -> None:
+    """--verify-fidelity on this shard's own videos: an unreadable video is
+    skipped with a warning, as extraction skips it; a shard with no
+    readable video raises."""
+    from vimoclip_tpu_torch.extraction import load_annotations, shard_annotations
+    from vimoclip_tpu_torch.fidelity import check_encoder_fidelity, sample_video_frames
+
+    annotations = shard_annotations(load_annotations(args.annotation_file),
+                                    args.num_shards, args.shard_index)
+    for vid, _ in annotations:
+        path = os.path.join(args.data_root, vid)
+        try:
+            frames = sample_video_frames(path, args.verify_fidelity)
+        except Exception as e:  # noqa: BLE001 — any decode fault skips the video
+            logging.warning("fidelity probe: cannot read %s (%s); trying the next "
+                            "annotated video", path, e)
+            continue
+        check_encoder_fidelity(state, config, path, args.verify_fidelity,
+                               args.fidelity_threshold, half_precision=not args.float32,
+                               encoder_name="teacher ViT", frames=frames,
+                               device=args.device)
+        return
+    raise RuntimeError("--verify-fidelity: no readable video in this shard's "
+                       "annotation list to probe")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -45,13 +76,20 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--float32", action="store_true",
                    help="full-precision forward (default bfloat16)")
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="opt-in dynamic-int8 matmuls in the ViT blocks "
+                        "(ops/quant.py): approximate, not the default path")
     p.add_argument("--token-merge", type=int, default=0, metavar="R",
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="opt-in ToMe token merging: merge R patch tokens after "
+                        "every encoder block (ops/tome.py): approximate, not "
+                        "the default path")
     p.add_argument("--verify-fidelity", type=int, default=0, metavar="N",
-                   help="not ported yet (opt-in accelerators slice)")
-    p.add_argument("--fidelity-threshold", type=float, default=None,
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="before extracting, run N frames sampled from the first "
+                        "readable video of this shard through both the exact "
+                        "and the --quantize/--token-merge tower and log the "
+                        "cosine (fidelity.py); stops below --fidelity-threshold")
+    p.add_argument("--fidelity-threshold", type=float, default=0.97,
+                   help="minimum per-frame cosine the --verify-fidelity probe "
+                        "must reach (default 0.97)")
     p.add_argument("--num-shards", type=int, default=1,
                    help="split the annotation list over this many extraction jobs "
                         "(pair with --shard-index; merge with vimo-h5-merge-torch)")
@@ -61,11 +99,6 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an error")
     args = p.parse_args(argv)
-    if (args.quantize or args.token_merge or args.verify_fidelity
-            or args.fidelity_threshold is not None):
-        p.error("--quantize / --token-merge / --verify-fidelity / --fidelity-threshold "
-                "come with the opt-in "
-                "accelerators slice of the port (ROADMAP slice 8)")
     if args.data_parallel > 1:
         p.error("--data-parallel > 1 comes with the multi-GPU slice of the port "
                 "(ROADMAP slice 7)")
@@ -75,6 +108,14 @@ def main(argv: list[str] | None = None) -> None:
     from vimoclip_tpu_torch.models.pretrained import load_clip_vision
 
     config, state = load_clip_vision(args.clip_weights)
+    if args.quantize or args.token_merge:
+        config = dataclasses.replace(
+            config, matmul_quant=args.quantize or config.matmul_quant,
+            token_merge_r=args.token_merge or config.token_merge_r)
+        logging.info("approximate encoder options: quantize=%s token_merge=%d",
+                     args.quantize, args.token_merge)
+    if args.verify_fidelity and (config.matmul_quant or config.token_merge_r):
+        _probe_fidelity(args, config, state)
     logging.info("CLIP visual tower: patch %d, %d layers, proj %d",
                  config.patch_size, config.num_layers, config.projection_dim)
     start = time.time()

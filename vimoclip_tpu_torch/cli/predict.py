@@ -10,11 +10,15 @@ Weights are reference-format files: the CLIP visual tower (safetensors /
 torch state dict / HF dir, ``models/pretrained.py``), the stage-1
 ``student_best.pth`` and the stage-2 ``best_model.pth``. Orbax checkpoint
 directories are not read here: ``vimo-convert`` exports them to ``.pth``.
+``--quantize int8`` (both towers) and ``--token-merge R`` (the teacher) are
+opt-in approximations; ``--verify-fidelity N`` measures them on the first
+video before any prediction and stops below ``--fidelity-threshold``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -53,11 +57,19 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="restore the reference's batch-max pooling for "
                         "multi-video requests")
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="opt-in dynamic-int8 matmuls in both ViT towers "
+                        "(ops/quant.py): approximate, not the default path")
     p.add_argument("--token-merge", type=int, default=0, metavar="R",
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="opt-in ToMe token merging in the teacher tower "
+                        "(ops/tome.py): approximate, not the default path")
     p.add_argument("--verify-fidelity", type=int, default=0, metavar="N",
-                   help="not ported yet (opt-in accelerators slice)")
+                   help="before predicting, run N frames sampled from the "
+                        "first video through both the exact and the "
+                        "--quantize/--token-merge towers and log the cosine "
+                        "(fidelity.py); stops below --fidelity-threshold")
+    p.add_argument("--fidelity-threshold", type=float, default=0.97,
+                   help="minimum per-frame cosine the --verify-fidelity probe "
+                        "must reach (default 0.97)")
     p.add_argument("--data-parallel", type=int, default=1,
                    help="values above 1 need the multi-GPU slice")
 
@@ -72,15 +84,14 @@ def validate_model_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--tfam-torch-checkpoint is required")
     if args.student_torch_checkpoint is None:
         p.error("--student-torch-checkpoint is required")
-    if args.quantize or args.token_merge or args.verify_fidelity:
-        p.error("--quantize / --token-merge / --verify-fidelity come with the "
-                "opt-in accelerators slice of the port (int8, ToMe, fidelity)")
     if args.data_parallel > 1:
         p.error("--data-parallel > 1 comes with the multi-GPU slice of the port")
 
 
-def build_predictor(args):
-    """Load the three stages' weights and build the predictor."""
+def build_predictor(args, probe_video: str | None = None):
+    """Load the three stages' weights and build the predictor (shared by
+    vimo-predict-torch and vimo-serve-torch). ``probe_video`` feeds the
+    --verify-fidelity guard."""
     from vimoclip_tpu_torch.config import load_experiment_config
     from vimoclip_tpu_torch.extraction import load_class_names
     from vimoclip_tpu_torch.models.convert import (
@@ -98,7 +109,36 @@ def build_predictor(args):
     student_config, student_state = student_visual_state_from_checkpoint(
         args.student_torch_checkpoint, student_config
     )
+    if args.quantize or args.token_merge:
+        # the flags add to, never clear, what the loaded configs carry; the
+        # student's 50 tokens are too few for merging to pay (as in JAX)
+        teacher_config = dataclasses.replace(
+            teacher_config, matmul_quant=args.quantize or teacher_config.matmul_quant,
+            token_merge_r=args.token_merge or teacher_config.token_merge_r)
+        student_config = dataclasses.replace(
+            student_config, matmul_quant=args.quantize or student_config.matmul_quant)
     tfam_state = tfam_state_from_checkpoint(args.tfam_torch_checkpoint)
+
+    if args.verify_fidelity and probe_video is not None:
+        from vimoclip_tpu_torch.fidelity import (
+            check_encoder_fidelity,
+            sample_motion_probe_frames,
+        )
+
+        common = dict(half_precision=not args.float32, device=args.device)
+        if teacher_config.matmul_quant or teacher_config.token_merge_r:
+            check_encoder_fidelity(teacher_state, teacher_config, probe_video,
+                                   args.verify_fidelity, args.fidelity_threshold,
+                                   encoder_name="teacher ViT", **common)
+        if student_config.matmul_quant or student_config.token_merge_r:
+            # the cascade feeds the student frame differences: probe on those
+            check_encoder_fidelity(
+                student_state, student_config, probe_video,
+                args.verify_fidelity, args.fidelity_threshold,
+                encoder_name="student ViT (frame-diff probe)",
+                frames=sample_motion_probe_frames(probe_video, args.verify_fidelity,
+                                                  device=args.device),
+                **common)
 
     class_names: dict[int, str] = {}
     path = cfg.data.class_names_dir
@@ -152,7 +192,7 @@ def main(argv: list[str] | None = None) -> None:
     validate_model_args(p, args)
 
     setup_logging(log_file=None)
-    predictor = build_predictor(args)
+    predictor = build_predictor(args, probe_video=args.videos[0])
     results = []
     for video in args.videos:
         pred = predictor.predict(

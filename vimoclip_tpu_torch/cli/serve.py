@@ -486,7 +486,10 @@ def main(argv: list[str] | None = None) -> None:
                    help="serve HTTP on this port instead of stdin/stdout")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--probe-video", default=None,
-                   help="the video --warmup runs once at startup")
+                   help="the video --warmup runs once at startup, and the one "
+                        "the --verify-fidelity probe samples (a daemon has no "
+                        "request video yet; it refuses to start below "
+                        "--fidelity-threshold)")
     p.add_argument("--warmup", action="store_true",
                    help="run one throwaway predict on --probe-video before "
                         "accepting traffic, so cuBLAS and the allocator are "
@@ -508,6 +511,9 @@ def main(argv: list[str] | None = None) -> None:
                         "batcher past this answers 504 (default: none)")
     args = p.parse_args(argv)
     validate_model_args(p, args)
+    if args.verify_fidelity and not args.probe_video:
+        p.error("--verify-fidelity needs --probe-video PATH in the daemon "
+                "(no request video exists at startup to sample from)")
     if args.warmup and not args.probe_video:
         p.error("--warmup needs --probe-video PATH (a representative video)")
 
@@ -515,7 +521,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.output:
         logging.warning("--output is ignored by the daemon: responses stream to "
                         "stdout/HTTP per request (vimo-predict-torch writes a file)")
-    predictor = build_predictor(args)
+    predictor = build_predictor(args, probe_video=args.probe_video)
     if args.warmup:
         t0 = time.monotonic()
         predictor.predict(args.probe_video, top_k=1)

@@ -476,6 +476,14 @@ class ClipExtractor:
         return errors
 
 
+def shard_annotations(annotations: list, num_shards: int, shard_index: int) -> list:
+    """The strided slice of the annotation list that shard ``shard_index``
+    of ``num_shards`` extracts (and probes, under --verify-fidelity)."""
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+    return annotations[shard_index::num_shards]
+
+
 def create_hdf5_dataset(
     data_root: str,
     annotation_file: str,
@@ -507,11 +515,8 @@ def create_hdf5_dataset(
     """
     class_map = load_class_map(class_file)
     num_classes = len(class_map)
-    annotations = load_annotations(annotation_file)
-    if not 0 <= shard_index < num_shards:
-        raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
-    if num_shards > 1:
-        annotations = annotations[shard_index::num_shards]
+    annotations = shard_annotations(load_annotations(annotation_file), num_shards,
+                                    shard_index)
 
     videos, labels_by_vid, skipped = [], {}, {}
     for vid, labels in annotations:

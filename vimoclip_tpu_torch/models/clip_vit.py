@@ -14,6 +14,13 @@ The public input is NHWC, as in JAX. Patchify is a reshape plus one matmul
 (no cuDNN convolution, so no TF32 rounding of float32 inputs). Linear layers
 run in the compute ``dtype`` and LayerNorms in float32, mirroring flax's
 type promotion: the residual stream is float32.
+
+Two opt-in approximations, off by default (``fidelity.py`` measures them):
+``matmul_quant="int8"`` runs the blocks' attention projections and both MLP
+linears in dynamic int8 (``ops/quant.py``; the patch embedding and ``proj``
+stay in ``dtype``, as in JAX), and ``token_merge_r`` merges that many tokens
+after every block but the last (``ops/tome.py``). With merging off the
+schedule is all zeros: one layer loop for both paths, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
+from vimoclip_tpu_torch.ops.quant import make_dense
+from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +49,8 @@ class ClipVisionConfig:
     hidden_act: str = "quick_gelu"
     attention_impl: str = "xla"
     head_proj: str = "fused"
-    matmul_quant: str | None = None  # int8: opt-in accelerators slice
-    token_merge_r: int = 0  # ToMe: opt-in accelerators slice
+    matmul_quant: str | None = None  # None | "int8" (ops/quant.py), opt-in
+    token_merge_r: int = 0  # tokens merged after each block (ops/tome.py), opt-in
 
     @property
     def num_patches(self) -> int:
@@ -69,8 +78,9 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 class _MLP(nn.Module):
     def __init__(self, cfg: ClipVisionConfig):
         super().__init__()
-        self.c_fc = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.c_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        linear = make_dense(cfg.matmul_quant)
+        self.c_fc = linear(cfg.hidden_size, cfg.intermediate_size)
+        self.c_proj = linear(cfg.intermediate_size, cfg.hidden_size)
 
 
 class _Transformer(nn.Module):
@@ -93,7 +103,8 @@ class ClipEncoderLayer(nn.Module):
         self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.attn = MultiHeadAttention(
             cfg.hidden_size, cfg.num_heads, dtype=dtype,
-            implementation=cfg.attention_impl, head_proj=cfg.head_proj,
+            implementation=cfg.attention_impl, quant=cfg.matmul_quant,
+            head_proj=cfg.head_proj,
         )
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg)
@@ -111,11 +122,6 @@ class ClipVisionEncoder(nn.Module):
 
     def __init__(self, config: ClipVisionConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.matmul_quant is not None or config.token_merge_r:
-            raise NotImplementedError(
-                "matmul_quant / token_merge_r come with the opt-in "
-                "accelerators slice of the port (int8, ToMe)"
-            )
         cfg = self.config = config
         self.dtype = dtype
         e, p = cfg.hidden_size, cfg.patch_size
@@ -148,8 +154,15 @@ class ClipVisionEncoder(nn.Module):
         cls = self.class_embedding.to(dt).expand(b, 1, cfg.hidden_size)
         x = torch.cat([cls, patches], dim=1) + self.positional_embedding.to(dt)
         x = layer_norm(x, self.ln_pre)
-        for block in self.transformer.resblocks:
+        schedule = [0] * (cfg.num_layers - 1)
+        sizes = None
+        if cfg.token_merge_r:
+            schedule = merge_schedule(cfg.num_patches + 1, cfg.num_layers, cfg.token_merge_r)
+            sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+        for i, block in enumerate(self.transformer.resblocks):
             x = block(x)
+            if i < cfg.num_layers - 1 and schedule[i]:
+                x, sizes = bipartite_merge(x, sizes, schedule[i])
         pooled = layer_norm(x[:, 0, :], self.ln_post)
         embeds = pooled.to(dt) @ self.proj.to(dt)
         if return_hidden:

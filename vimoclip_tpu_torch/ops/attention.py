@@ -15,6 +15,9 @@
 
 Linear layers run in the module's compute ``dtype`` (weights are cast at
 the call, kept float32), as the JAX modules do with ``nn.Dense(dtype=...)``.
+With ``quant="int8"`` the q/k/v and out projections run in dynamic int8
+from the float32 weights (``ops/quant.py``); the attention products stay in
+``dtype``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from vimoclip_tpu_torch.ops.kernels.flash_attention import (
     expand_seed,
     flash_attention,
 )
+from vimoclip_tpu_torch.ops.quant import Int8Linear, int8_linear, make_dense
 
 # Additive mask value. Large-finite (not -inf) so a fully masked row comes
 # out uniform instead of NaN; the flash kernel uses the same constant.
@@ -39,7 +43,11 @@ IMPLEMENTATIONS = ("xla", "flash", "auto")
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` with input, weight and bias cast to ``dtype``."""
+    """``layer(x)`` with input, weight and bias cast to ``dtype``; an
+    ``Int8Linear`` quantises ``x`` as it comes and its float32 weight, and
+    returns ``dtype``."""
+    if isinstance(layer, Int8Linear):
+        return int8_linear(x, layer.weight, layer.bias, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -87,6 +95,11 @@ class MultiHeadAttention(nn.Module):
       otherwise.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
     transposes in JAX; the math is one, and the port runs one layout.
+    ``quant="int8"``: the projections in dynamic int8. The packed
+    ``in_proj_weight``'s per-row scales are JAX's per-column scales of its
+    q/k/v kernels, and every projection of a token shares its activation
+    scale, so the result equals JAX's for every ``head_proj`` (its fused
+    int8 paths are bit-identical to Int8Dense-then-split).
     """
 
     # With dropout the kernels win at every length: the eager path builds its
@@ -123,20 +136,17 @@ class MultiHeadAttention(nn.Module):
             )
         if implementation not in IMPLEMENTATIONS:
             raise ValueError(f"unknown attention implementation {implementation!r}")
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r}: int8 matmuls come with the opt-in "
-                "accelerators slice of the port"
-            )
+        linear = make_dense(quant)
         if head_proj not in ("split", "fused", "fused_qkv"):
             raise ValueError(f"unknown head_proj {head_proj!r}")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout = dropout
         self.dtype = dtype
         self.implementation = implementation
+        self.quantized = linear is Int8Linear
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
@@ -156,12 +166,17 @@ class MultiHeadAttention(nn.Module):
         if dropping and generator is None:
             raise ValueError("attention dropout in train() mode needs a generator")
         e, dt = self.embed_dim, self.dtype
-        w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        if not self.quantized:
+            w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+            proj = lambda t, w_, b_: F.linear(t.to(dt), w_, b_)
+        else:  # from the float32 weight and the activations as they come
+            w, bias = self.in_proj_weight, self.in_proj_bias
+            proj = lambda t, w_, b_: int8_linear(t, w_, b_, dt)
         if kv is None:  # self-attention: one packed projection
-            q, k, v = F.linear(x.to(dt), w, bias).split(e, dim=-1)
+            q, k, v = proj(x, w, bias).split(e, dim=-1)
         else:
-            q = F.linear(x.to(dt), w[:e], bias[:e])
-            k, v = F.linear(kv.to(dt), w[e:], bias[e:]).split(e, dim=-1)
+            q = proj(x, w[:e], bias[:e])
+            k, v = proj(kv, w[e:], bias[e:]).split(e, dim=-1)
         q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
 
         rate, seed = 0.0, None
