@@ -58,9 +58,24 @@ def test_tpu_fields_parsed_not_dropped(tmp_path, caplog):
     ({"model": {"attention_impl": "ring_inner"}}, NotImplementedError, "multi-GPU"),
     ({"model": {"attention_impl": "pallas"}}, ValueError, "attention_impl"),
     ({"training": {"parallelism": {"seq": 2}}}, NotImplementedError, "multi-GPU"),
-    ({"training": {"data_parallel": 4}}, NotImplementedError, "multi-GPU"),
+    ({"training": {"pipeline_parallel": 2}}, NotImplementedError, "multi-GPU"),
     ({"training": {"device": "gpu0"}}, ValueError, "device"),
 ])
 def test_refusals_name_their_slice(tmp_path, doc, exc, words):
     with pytest.raises(exc, match=words):
         tcfg.load_experiment_config(_write(tmp_path, doc))
+
+
+def test_data_parallel_parses_and_the_trainer_wants_its_ranks(tmp_path):
+    """``training.data_parallel: 4`` parses in both packages since slice 7a;
+    a lone process (no ``torchrun``) asking for four ranks is refused by the
+    trainer with the command to run, before any data is read."""
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    path = _write(tmp_path, {"training": {"data_parallel": 4, "device": "cpu"},
+                             "data": {"train_dataset_path": "missing.h5"}})
+    ours, theirs = tcfg.load_experiment_config(path), jcfg.load_experiment_config(path)
+    assert ours.training.data_parallel == theirs.training.data_parallel == 4
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4 -m "
+                                         "vimoclip_tpu_torch.cli.tfam_train_eval"):
+        TFAMTrainer(ours, str(tmp_path / "logs"), str(tmp_path / "ck"))

@@ -664,3 +664,75 @@ def test_k1_at_every_merged_token_count(cuda, n, r):
             assert refused(*_k1_readings(ref, flash_attention_reference(q, fk, fv))), t
         if step:
             x, sizes = bipartite_merge(x, sizes, step)
+
+
+def test_replica_extraction_splits_each_dispatch(cuda):
+    """Two replicas of the tower on the one card: each packed 8-frame batch
+    splits into two 4-frame blocks, K5 launches once per replica dispatch,
+    and the embeddings equal one tower's on each block."""
+    from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
+    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+
+    rng = np.random.default_rng(3)
+    videos = {f"v{t}": rng.integers(0, 256, (t, 32, 32, 3), dtype=np.uint8) for t in (5, 11)}
+    extractor = _tiny_extractor(videos, devices=["cuda:0", "cuda:0"])
+    assert len(extractor.replicas) == 2
+    got = {}
+    before = fused_normalize.launches
+    errors = extractor.extract([(k, k) for k in videos], lambda v, e: got.__setitem__(v, e))
+    assert errors == {} and fused_normalize.launches == before + 2 * 2  # 16 frames
+    stack = np.concatenate([videos["v5"], videos["v11"]])
+    with torch.inference_mode():
+        ref = torch.cat([extractor.encoder(clip_preprocess(
+            torch.from_numpy(stack[i:i + 4]).to(cuda), 32, dtype=torch.bfloat16)).float()
+            for i in range(0, 16, 4)]).cpu().numpy()
+    np.testing.assert_array_equal(np.concatenate([got["v5"], got["v11"]]), ref)
+
+
+def test_world_one_nccl_step_equals_the_single_card_step(cuda, tmp_path):
+    """A TFAM step with dropout in a one-rank NCCL group (the mesh, the
+    collectives, the global draws) equals the step without a process group,
+    bit for bit: every collective of one rank is the identity."""
+    import torch.distributed as dist
+
+    from vimoclip_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        LoggingConfig,
+        TFAMModelConfig,
+        TrainingConfig,
+    )
+    from vimoclip_tpu_torch.data.embedding_dataset import collate_pad
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    cfg = ExperimentConfig(
+        training=TrainingConfig(batch_size=4, num_workers=1, device="cuda", seed=5,
+                                half_precision=True),
+        logging=LoggingConfig(), data=DataConfig(num_classes=12),
+        model=TFAMModelConfig(d_model=128, nhead=4, num_layers=2, dim_feedforward=256,
+                              dropout=0.1, mlp_dropout=0.1, attention_impl="flash"))
+    rng = np.random.default_rng(6)
+    items = [{"video_id": f"v{i}",
+              "embeddings": rng.standard_normal((n, 128)).astype(np.float32),
+              "motion_embeddings": rng.standard_normal((n - 1, 128)).astype(np.float32),
+              "labels": (rng.random(12) < 0.3).astype(np.float32)}
+             for i, n in enumerate((40, 90, 64, 17))]
+    batch = {k: v for k, v in collate_pad(items, bucket=32).items() if k != "video_id"}
+    out = []
+    for grouped in (False, True):
+        if grouped:
+            dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                                    rank=0, world_size=1)
+        try:
+            trainer = TFAMTrainer(cfg, str(tmp_path / f"l{grouped}"),
+                                  str(tmp_path / f"c{grouped}"), items, items)
+            assert (trainer.mesh is not None) == grouped
+            loss, logits = trainer.train_step(batch)
+            out.append((loss, logits, [p.grad.clone() for p in trainer.model.parameters()
+                                       if p.grad is not None]))
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    (l0, z0, g0), (l1, z1, g1) = out
+    assert torch.equal(l0, l1) and torch.equal(z0, z1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))

@@ -291,7 +291,7 @@ def test_extractor_temporal_dedup_matches_jax(tmp_path, params, state):
     extractor = _extractor(state, decode_workers=1, dedup_threshold=2.0)
     calls = []
     embed = extractor._embed
-    extractor._embed = lambda x: (calls.append(int(x.shape[0])), embed(x))[1]
+    extractor._embed = lambda x, *replica: (calls.append(int(x.shape[0])), embed(x, *replica))[1]
     ours, errors = _collect(extractor, videos)
     assert errors == {}
     jextractor = jex.ClipExtractor(params, JCFG, batch_size=4, half_precision=False,
@@ -475,15 +475,31 @@ def test_cli_accelerator_flags_match_jax(corpus, tmp_path, extra):
 
 @pytest.mark.parametrize("extra", [["--data-parallel", "2"]], ids=["data-parallel"])
 def test_cli_refuses_later_slices(corpus, tmp_path, extra):
-    with pytest.raises(SystemExit):
-        extract_embeddings.main([
-            "--data-root", corpus, "--annotation-file", os.path.join(corpus, "train.txt"),
-            "--class-file", os.path.join(corpus, "classes.csv"),
-            "--output", str(tmp_path / "x.h5"), "--clip-weights", "none",
-            "--device", "cpu"] + extra)
+    """Slice 7a runs ``--data-parallel``: two CPU replicas of the tower write
+    the file one tower writes (each replica embeds half of every batch); a
+    batch that does not split over the replicas is refused before any file
+    is opened."""
+    common = ["--data-root", corpus, "--annotation-file", os.path.join(corpus, "train.txt"),
+              "--class-file", os.path.join(corpus, "classes.csv"),
+              "--clip-weights", _hf_checkpoint(tmp_path), "--batch-size", "8",
+              "--float32", "--device", "cpu"]
+    one, two = str(tmp_path / "one.h5"), str(tmp_path / "two.h5")
+    extract_embeddings.main(common + ["--output", one])
+    extract_embeddings.main(common + extra + ["--output", two])
+    assert_same_file(two, one)
+    with pytest.raises(ValueError, match="not divisible by data axis 3"):
+        extract_embeddings.main(common + ["--data-parallel", "3",
+                                          "--output", str(tmp_path / "x.h5")])
     assert not (tmp_path / "x.h5").exists()
 
 
 def test_mesh_is_refused(state):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ex.ClipExtractor(state, CFG, mesh=object(), device="cpu")
+    """The port's data axis is a list of replica devices: one the batch does
+    not split over is refused, and so is a card the machine lacks."""
+    with pytest.raises(ValueError, match="batch_size 8 not divisible by data axis 3"):
+        ex.ClipExtractor(state, CFG, batch_size=8, devices=["cpu"] * 3)
+    two = ex.ClipExtractor(state, CFG, batch_size=8, devices=["cpu"] * 2)
+    assert len(two.replicas) == 2 and two.replicas.modules[1] is not two.encoder
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ex.ClipExtractor(state, CFG, batch_size=8, devices=["cuda:0", "cuda:1"])

@@ -153,13 +153,29 @@ def test_force_reruns_every_stage(cascade, monkeypatch):
     assert "--device" not in calls["tfam"][0][0][0]
 
 
-def test_pipeline_refuses_multi_gpu(cascade):
+def test_pipeline_refuses_multi_gpu(cascade, tmp_path, monkeypatch):
+    """What this test refused before slice 7a now runs: ``--data-parallel
+    2`` extracts with two replicas of the tower (the file one tower writes)
+    and trains stage 1 under ``torchrun`` on two gloo ranks; stage 2 reads
+    its own ``training.data_parallel: 2`` and runs under ``torchrun`` too.
+    Every marker lands, and rank 0's checkpoints and results are there."""
+    from test_torch_parallel_entry import without_tensorflow
+
     tmp, argv = cascade
-    with pytest.raises(SystemExit):
-        pipeline_main(argv + ["--data-parallel", "2"])
-    cfg = PipelineConfig(workdir=str(tmp / "x"), data_root="", train_annotations="",
-                         val_annotations="", class_file="", clip_weights="",
-                         tfam_config="", device="cpu", data_parallel=2)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        run_pipeline(cfg)
-    assert not (tmp / "x").exists()
+    without_tensorflow(tmp_path, monkeypatch)
+    doc = yaml.safe_load((tmp / "tfam.yaml").read_text())
+    doc["training"]["data_parallel"] = 2
+    (tmp_path / "tfam.yaml").write_text(yaml.safe_dump(doc))
+    argv = list(argv)
+    argv[argv.index("--workdir") + 1] = str(tmp_path / "run")
+    argv[argv.index("--tfam-config") + 1] = str(tmp_path / "tfam.yaml")
+    pipeline_main(argv + ["--data-parallel", "2"])
+    run = tmp_path / "run"
+    for stage in STAGES:
+        assert (run / f".{stage}.done").exists(), stage
+    for split in ("train", "val"):
+        assert_same_file(str(run / f"rgb_{split}.h5"), str(tmp / "run" / f"rgb_{split}.h5"))
+    assert (run / "student_ckpt" / "best" / "best_model.pth").exists()
+    results = sorted((run / "tfam").glob("results/results_*.json"))
+    assert len(results) == 1  # rank 0 alone writes
+    assert np.isfinite(json.loads(results[-1].read_text())["metrics"]["mAP"])

@@ -142,7 +142,17 @@ def test_cli_help(capsys):
     ["--tfam-checkpoint-dir", "x"], ["--student-checkpoint-dir", "x"],
     ["--data-parallel", "2"],
 ])
-def test_cli_refuses_later_slices(flag, capsys):
+def test_cli_refuses_later_slices(flag, capsys, weights, tmp_path):
+    """Orbax directories stay refused. ``--data-parallel 2`` runs since
+    slice 7a: two CPU replicas of each tower answer as one does, and a frame
+    batch that does not split over the replicas is refused."""
+    if flag[0] == "--data-parallel":
+        paths, config, video, _, _ = _reference_files(weights, tmp_path)
+        one = _cli_probabilities(paths, config, video, tmp_path)
+        assert _cli_probabilities(paths, config, video, tmp_path, flag) == one
+        with pytest.raises(ValueError, match="frame_batch 8 not divisible by data axis 3"):
+            _cli_probabilities(paths, config, video, tmp_path, ["--data-parallel", "3"])
+        return
     base = ["v.mp4", "--teacher-weights", "t", "--tfam-config", "c",
             "--student-torch-checkpoint", "s", "--tfam-torch-checkpoint", "f"]
     with pytest.raises(SystemExit) as e:

@@ -238,6 +238,15 @@ def test_segment_dataset_matches_jax(corpus, layout, cache):
 
 
 def test_cli_trains_on_the_cpu_and_refuses_multi_gpu(corpus, tmp_path, monkeypatch):
+    """The CLI on the CPU; ``--data-parallel 2`` in a lone process is refused
+    with the ``torchrun`` command to run, and under ``torchrun`` (two gloo
+    ranks, one segment each) it trains and rank 0 writes the full
+    reference-layout student."""
+    from test_torch_parallel_entry import without_tensorflow
+
+    from vimoclip_tpu_torch.pipeline import run_stage
+
+    without_tensorflow(tmp_path, monkeypatch)
     monkeypatch.chdir(tmp_path)
     h5, vdir, _ = corpus["ak"]
     clip = tmp_path / "clip.pt"
@@ -247,12 +256,22 @@ def test_cli_trains_on_the_cpu_and_refuses_multi_gpu(corpus, tmp_path, monkeypat
     torch.save({f"visual.{k}": v for k, v in ClipVisionEncoder(CFG).state_dict().items()},
                clip)
     args = ["--train-embeddings", h5, "--val-embeddings", h5, "--motion-videos-dir", vdir,
-            "--checkpoint-dir", str(tmp_path / "ck"), "--log-dir", str(tmp_path / "logs"),
+            "--log-dir", str(tmp_path / "logs"),
             "--clip-weights", str(clip), "--num-classes", str(C), "--sequence-length", "6",
             "--batch-size", "2", "--epochs", "1", "--num-workers", "1", "--float32",
             "--lr", "1e-3", "--device", "cpu"]
-    train_student.main(args)
+    train_student.main(args + ["--checkpoint-dir", str(tmp_path / "ck")])
     best = torch.load(tmp_path / "ck" / "best" / "best_model.pth", weights_only=True)
     assert best["visual_encoder.conv1.weight"].shape == (32, 3, 8, 8)
-    with pytest.raises(SystemExit):
-        train_student.main(args + ["--data-parallel", "2"])
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        train_student.main(args + ["--checkpoint-dir", str(tmp_path / "x"),
+                                   "--data-parallel", "2"])
+    run_stage(None, "vimoclip_tpu_torch.cli.train_student",
+              args + ["--checkpoint-dir", str(tmp_path / "dp2"), "--data-parallel", "2"],
+              world=2)
+    dp2 = torch.load(tmp_path / "dp2" / "best" / "best_model.pth", weights_only=True)
+    model = StudentModel(CFG, num_classes=C)
+    model.load_state_dict(dp2, strict=True)
+    assert dp2.keys() == best.keys()
+    assert not torch.equal(dp2["classification_head.0.weight"],
+                           best["classification_head.0.weight"] * 0)

@@ -95,17 +95,17 @@ def main(argv: list[str] | None = None) -> None:
                         "(pair with --shard-index; merge with vimo-h5-merge-torch)")
     p.add_argument("--shard-index", type=int, default=0)
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="values above 1 need the multi-GPU slice (slice 7)")
+                   help="one replica of the tower on each of N cards (cuda:0..N-1; "
+                        "N times the CPU with --device cpu); --batch-size must "
+                        "divide by N")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an error")
     args = p.parse_args(argv)
-    if args.data_parallel > 1:
-        p.error("--data-parallel > 1 comes with the multi-GPU slice of the port "
-                "(ROADMAP slice 7)")
 
     setup_logging(log_file=None)
     from vimoclip_tpu_torch.extraction import create_hdf5_dataset
     from vimoclip_tpu_torch.models.pretrained import load_clip_vision
+    from vimoclip_tpu_torch.parallel.mesh import replica_devices
 
     config, state = load_clip_vision(args.clip_weights)
     if args.quantize or args.token_merge:
@@ -116,6 +116,11 @@ def main(argv: list[str] | None = None) -> None:
                      args.quantize, args.token_merge)
     if args.verify_fidelity and (config.matmul_quant or config.token_merge_r):
         _probe_fidelity(args, config, state)
+    devices = None
+    if args.data_parallel > 1:
+        devices = replica_devices(args.data_parallel, args.device)
+        logging.info("extraction: %d-way data parallel over %s", args.data_parallel,
+                     [str(d) for d in devices])
     logging.info("CLIP visual tower: patch %d, %d layers, proj %d",
                  config.patch_size, config.num_layers, config.projection_dim)
     start = time.time()
@@ -134,6 +139,7 @@ def main(argv: list[str] | None = None) -> None:
         compression=None if args.no_compression else "gzip",
         dedup_threshold=args.dedup_threshold,
         half_precision=not args.float32,
+        devices=devices,
         num_shards=args.num_shards,
         shard_index=args.shard_index,
         device=args.device,

@@ -71,7 +71,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="minimum per-frame cosine the --verify-fidelity probe "
                         "must reach (default 0.97)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="values above 1 need the multi-GPU slice")
+                   help="one replica of each tower on each of N cards (cuda:0..N-1; "
+                        "N times the CPU with --device cpu), each fixed-shape "
+                        "frame batch split over them (--frame-batch must divide "
+                        "by N)")
 
 
 def validate_model_args(p: argparse.ArgumentParser, args) -> None:
@@ -84,8 +87,6 @@ def validate_model_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--tfam-torch-checkpoint is required")
     if args.student_torch_checkpoint is None:
         p.error("--student-torch-checkpoint is required")
-    if args.data_parallel > 1:
-        p.error("--data-parallel > 1 comes with the multi-GPU slice of the port")
 
 
 def build_predictor(args, probe_video: str | None = None):
@@ -99,6 +100,7 @@ def build_predictor(args, probe_video: str | None = None):
         tfam_state_from_checkpoint,
     )
     from vimoclip_tpu_torch.models.pretrained import load_clip_vision
+    from vimoclip_tpu_torch.parallel.mesh import replica_devices
     from vimoclip_tpu_torch.serving import ViMoCLIPPredictor
 
     cfg = load_experiment_config(args.tfam_config)
@@ -156,6 +158,8 @@ def build_predictor(args, probe_video: str | None = None):
         half_precision=not args.float32,
         batch_invariant=not args.quirk_batch_pooling,
         device=args.device,
+        devices=(replica_devices(args.data_parallel, args.device)
+                 if args.data_parallel > 1 else None),
     )
 
 

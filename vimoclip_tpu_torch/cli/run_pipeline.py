@@ -10,7 +10,9 @@ Extract -> motion -> distil -> export -> fuse/eval, with a fixed artifact
 layout under ``--workdir`` and stages that skip once done: rerun the same
 command after a crash and only the missing stages run
 (``vimoclip_tpu_torch/pipeline.py``). It runs on the card (``--device``,
-default ``cuda``) and raises when there is none.
+default ``cuda``) and raises when there is none. A training stage with more
+than one rank (``--data-parallel`` x ``--model-parallel`` for stage 1, the
+YAML's for stage 2) runs under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -52,18 +54,17 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--sequence-length", type=int, default=30)
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="values above 1 need the multi-GPU slice (slice 7)")
+                   help="stage-0 tower replicas (when > 1) and the stage-1 mesh "
+                        "data axis (-1 = every card); stage 2 reads its own "
+                        "training.data_parallel")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="values above 1 need the multi-GPU slice (slice 7)")
+                   help="stage-1 mesh model axis")
     p.add_argument("--float32", action="store_true")
     p.add_argument("--force", action="store_true",
                    help="rerun every stage even when artifacts exist")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an error")
     args = p.parse_args(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        p.error("--data-parallel / --model-parallel > 1 come with the multi-GPU "
-                "slice of the port (ROADMAP slice 7)")
 
     setup_logging(log_file=None)
     from vimoclip_tpu_torch.pipeline import PipelineConfig, run_pipeline

@@ -8,6 +8,15 @@ It trains on the card (``--device``, default ``cuda``) and raises when there
 is none; ``training.device: cpu`` in the config is the only way onto the
 CPU. ``training.mode`` picks train, test or both; ``training.loss: ce`` /
 ``training.metric: accuracy`` give the MammalNet variant.
+
+On N cards, one process per card under ``torchrun``, with
+``training.data_parallel`` x ``model_parallel`` = N (``-1`` takes every
+rank left)::
+
+    torchrun --nproc-per-node N -m vimoclip_tpu_torch.cli.tfam_train_eval --config cfg.yaml
+
+A geometry that does not match the ranks is refused with the command to
+run.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import argparse
 import logging
 
 from vimoclip_tpu_torch.config import derive_run_dirs, load_experiment_config
+from vimoclip_tpu_torch.parallel.mesh import initialize_distributed
 from vimoclip_tpu_torch.prng import set_seed
 from vimoclip_tpu_torch.train.tfam_trainer import TFAMTester, TFAMTrainer
 from vimoclip_tpu_torch.utils.logging import setup_logging
@@ -45,7 +55,16 @@ def main(argv: list[str] | None = None) -> None:
         config.training.device = args.device
     set_seed(config.training.seed)
     setup_logging()
-    log_dir, ckpt_dir = derive_run_dirs(config, args.run_name)
+    run_name = args.run_name
+    if initialize_distributed(config.training.device) and run_name is None:
+        import torch.distributed as dist
+        from datetime import datetime
+
+        # one timestamp for every rank: rank 0's
+        names = [datetime.now().strftime("%Y%m%d-%H%M%S")]
+        dist.broadcast_object_list(names, src=0)
+        run_name = names[0]
+    log_dir, ckpt_dir = derive_run_dirs(config, run_name)
     logging.info("run dirs: logs=%s checkpoints=%s", log_dir, ckpt_dir)
 
     trainer = TFAMTrainer(config, log_dir=log_dir, checkpoint_dir=ckpt_dir)

@@ -11,6 +11,13 @@ is none; ``--device cpu`` runs on the CPU. ``best/best_model.pth`` under
 ``--checkpoint-dir`` is a reference-layout student state dict, which
 ``vimo-export-motion-torch --torch-checkpoint`` and
 ``vimo-predict-torch --student-torch-checkpoint`` read.
+
+On N cards, one process per card under ``torchrun``, with
+``--data-parallel`` x ``--model-parallel`` = N (``-1`` takes every rank
+left)::
+
+    torchrun --nproc-per-node N -m vimoclip_tpu_torch.cli.train_student ... \
+        --data-parallel N
 """
 
 from __future__ import annotations
@@ -60,15 +67,15 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an error")
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="values above 1 need the multi-GPU slice (slice 7)")
+                   help="mesh data axis over the torchrun ranks (-1 = all left)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="values above 1 need the multi-GPU slice (slice 7)")
+                   help="mesh model axis: tensor parallelism of the CLIP tower")
     args = p.parse_args(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        p.error("--data-parallel / --model-parallel > 1 come with the multi-GPU "
-                "slice of the port (ROADMAP slice 7)")
 
     setup_logging()
+    from vimoclip_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(args.device)
     from vimoclip_tpu_torch.data.segment_dataset import SegmentDataset
     from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
     from vimoclip_tpu_torch.train.student_trainer import StudentTrainer
@@ -100,6 +107,7 @@ def main(argv: list[str] | None = None) -> None:
         half_precision=not args.float32,
         checkpoint_every_steps=args.checkpoint_every_steps, resume=args.resume,
         grad_accum=args.grad_accum, device=args.device,
+        data_parallel=args.data_parallel, model_parallel=args.model_parallel,
     )
     best = trainer.train()
     logging.info("best val total loss: %.4f", best)

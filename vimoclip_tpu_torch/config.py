@@ -11,12 +11,13 @@ dropped:
   a JAX bit generator; the port's dropout draws from ``torch.Generator``
   streams (``prng.KeyChain``) and the kernels' Philox bits whatever it says.
 - ``training.parallelism`` / the flat ``*_parallel`` keys fill the same
-  fields. Anything beyond one device (seq/pipe/model > 1, data > 1) raises
-  and names the multi-GPU slice.
+  fields. ``data`` and ``model`` run over ``torch.distributed``
+  (``parallel/``, one process per GPU under ``torchrun``); seq/pipe > 1
+  raise and name slice 7b of the multi-GPU port.
 - ``data.length_bucket`` keeps its meaning: serving rounds sequence lengths
   up to it, so a handful of shapes cover every request.
-- ``model.attention_impl: ring | ring_inner`` raises and names the
-  multi-GPU slice.
+- ``model.attention_impl: ring | ring_inner`` raises and names slice 7b
+  of the multi-GPU port.
 
 Keys the schema does not know are logged and ignored (the reference's
 ``testing:`` block and similar), never dropped without a word.
@@ -158,27 +159,29 @@ _PARALLELISM_KEYS = {
 
 def check_training_config(t: TrainingConfig, path: str = "training") -> TrainingConfig:
     """Map ``tpu`` to ``cuda``; refuse devices and parallelism the port
-    does not run, naming their slice."""
+    does not run, naming their slice. Whether ``data_parallel`` x
+    ``model_parallel`` matches the ranks is the trainer's check
+    (``parallel/mesh.py::create_mesh``)."""
     device = str(t.device).lower()
     if device == "tpu":
         _log.info("%s: training.device 'tpu' maps to 'cuda' in the port", path)
         device = "cuda"
-    if device not in ("cuda", "cpu"):
+    if device not in ("cuda", "cpu") and not (device.startswith("cuda:")
+                                              and device[5:].isdigit()):
         raise ValueError(
-            f"{path}: training.device must be tpu, cuda or cpu; got {t.device!r}"
+            f"{path}: training.device must be tpu, cuda, cuda:N or cpu; got {t.device!r}"
         )
     t.device = device
-    for field in ("model_parallel", "seq_parallel", "pipeline_parallel"):
+    for field in ("seq_parallel", "pipeline_parallel"):
         if getattr(t, field) > 1:
             raise NotImplementedError(
-                f"{path}: training.{field}={getattr(t, field)} needs the "
-                "multi-GPU slice of the port (torch.distributed), not ported yet"
+                f"{path}: training.{field}={getattr(t, field)} needs slice 7b of "
+                "the multi-GPU port (parallel/sequence.py, parallel/pipelining.py), "
+                "not ported yet"
             )
-    if t.data_parallel > 1:
-        raise NotImplementedError(
-            f"{path}: training.data_parallel={t.data_parallel} needs the "
-            "multi-GPU slice of the port, not ported yet (-1 or 1 run on one card)"
-        )
+    if t.data_parallel == 0 or t.data_parallel < -1 or t.model_parallel < 1:
+        raise ValueError(f"{path}: training.data_parallel must be -1 or >= 1 and "
+                         f"model_parallel >= 1; got {t.data_parallel}, {t.model_parallel}")
     return t
 
 
@@ -187,7 +190,7 @@ def check_model_config(m: TFAMModelConfig, where: str = "model") -> TFAMModelCon
     if m.attention_impl in _RING_IMPLS:
         raise NotImplementedError(
             f"{where}: attention_impl={m.attention_impl!r} is sequence-parallel "
-            "ring attention, which comes with the multi-GPU slice of the port"
+            "ring attention, which comes with slice 7b of the multi-GPU port"
         )
     if m.attention_impl not in _ATTENTION_IMPLS:
         raise ValueError(

@@ -16,6 +16,12 @@ one algorithm and a frame's embedding does not depend on how full its batch
 is; the host scatters the rows back to their videos. One batch stays in
 flight: batch N's embeddings are waited for only once batch N+1 is enqueued.
 
+Data parallelism (JAX: the batch sharded over the mesh's ``data`` axis, one
+process for the whole mesh): ``devices`` holds one replica of the tower per
+device (``parallel/mesh.py::Replicas``, e.g. ``cuda:0 .. cuda:N-1``), and
+each batch splits into N contiguous row blocks, one per replica, uploaded
+straight to its card; the embeddings land in one host buffer in order.
+
 ``h5py``, ``cv2`` and ``pandas`` are imported where they are used, so the
 module imports without them.
 """
@@ -29,7 +35,7 @@ import os
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncod
 from vimoclip_tpu_torch.models.convert import to_tensors
 from vimoclip_tpu_torch.ops.batching import pad_to_batch, upload
 from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+from vimoclip_tpu_torch.parallel.mesh import Replicas
 from vimoclip_tpu_torch.utils.device import resolve_device
 
 
@@ -127,6 +134,10 @@ class ClipExtractor:
     (OpenCV), which the native decode pool replaces when the data plane is
     built and ``VIMO_NATIVE_DECODE=1``. Only tests and ``chip_smoke.py``
     pass another.
+
+    ``devices``: one replica of the tower per entry (``cuda:0``, ``cuda:1``,
+    or one card twice); ``batch_size`` must divide by their number. None
+    runs one tower on ``device``.
     """
 
     def __init__(
@@ -138,14 +149,11 @@ class ClipExtractor:
         decode_workers: int = 4,
         frame_queue_blocks: int = 32,
         dedup_threshold: float | None = None,
-        mesh=None,
+        devices: Sequence[str | torch.device] | None = None,
         device: str | torch.device = "cuda",
         decode_fn: Callable | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-GPU extraction (mesh) comes with the "
-                                      "multi-GPU slice of the port (ROADMAP slice 7)")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if devices is None else devices[0])
         self.config = config
         self.batch_size = batch_size
         self.decode_workers = decode_workers
@@ -155,33 +163,45 @@ class ClipExtractor:
         encoder = ClipVisionEncoder(config, dtype=self.dtype)
         encoder.load_state_dict(to_tensors(state), strict=True)
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
+        self.replicas = Replicas(self.encoder, devices or [self.device])
+        self.replicas.check_divides(batch_size, "batch_size")
         self._decode = decode_fn if decode_fn is not None else iter_video_chunks
 
     @torch.inference_mode()
-    def _embed(self, frames: torch.Tensor) -> torch.Tensor:
-        """(batch_size, H, W, 3) uint8 on the device -> (batch_size, P) float32."""
+    def _embed(self, frames: torch.Tensor, encoder: ClipVisionEncoder | None = None
+               ) -> torch.Tensor:
+        """(n, H, W, 3) uint8 on the device -> (n, P) float32, through
+        ``encoder`` (default: the first replica)."""
         pixels = clip_preprocess(frames, self.config.image_size, dtype=self.dtype)
-        return self.encoder(pixels).float()
+        return (encoder or self.encoder)(pixels).float()
 
     def _dispatch(self, stack: np.ndarray) -> tuple:
-        """Enqueue one fixed-shape batch: pinned upload, forward, and the
-        copy of its embeddings into pinned host memory, with an event after
-        it. Waits for nothing. The pinned source of the upload may be freed
+        """Enqueue one fixed-shape batch: each replica's rows uploaded
+        (pinned) to its device, the forward, and the copy of the embeddings
+        into one pinned host buffer, with an event after each replica's
+        copy. Waits for nothing. The pinned source of an upload may be freed
         at once: PyTorch's pinned pool reuses a block only after the copies
         from it are done."""
-        emb = self._embed(upload(stack, self.device))
+        parts = []
+        for encoder, device, rows in self.replicas.blocks(stack.shape[0]):
+            with self.replicas.on(device):
+                parts.append((self._embed(upload(stack[rows], device), encoder), rows))
         if self.device.type != "cuda":
-            return emb, None
-        host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
-        host.copy_(emb, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+            return torch.cat([emb for emb, _ in parts]), []
+        host = torch.empty((stack.shape[0], parts[0][0].shape[1]), dtype=parts[0][0].dtype,
+                           pin_memory=True)
+        events = []
+        for (emb, rows), device in zip(parts, self.replicas.devices):
+            with self.replicas.on(device):
+                host[rows].copy_(emb, non_blocking=True)
+                events.append(torch.cuda.Event())
+                events[-1].record()
+        return host, events
 
     @staticmethod
     def _fetch(dispatched: tuple) -> np.ndarray:
-        host, done = dispatched
-        if done is not None:
+        host, events = dispatched
+        for done in events:
             done.synchronize()
         return host.numpy().copy()  # the pinned buffer goes back to its pool
 
@@ -499,7 +519,7 @@ def create_hdf5_dataset(
     compression: str | None = "gzip",
     dedup_threshold: float | None = None,
     stream_rows: int = 2048,
-    mesh=None,
+    devices: Sequence[str | torch.device] | None = None,
     half_precision: bool = True,
     num_shards: int = 1,
     shard_index: int = 0,
@@ -511,7 +531,8 @@ def create_hdf5_dataset(
     ``num_shards``/``shard_index`` take a strided slice of the annotation
     list (one job per shard, each writing its own file; ``cli/h5_merge.py``
     joins them). A shard's ``video_ids`` lists its own annotated ids, so the
-    merged shards give the reference's whole index.
+    merged shards give the reference's whole index. ``devices``: one
+    replica of the tower each (``ClipExtractor``).
     """
     class_map = load_class_map(class_file)
     num_classes = len(class_map)
@@ -530,7 +551,7 @@ def create_hdf5_dataset(
 
     # the extractor first: a missing card raises before the file is opened
     extractor = ClipExtractor(state, config, batch_size=batch_size,
-                              dedup_threshold=dedup_threshold, mesh=mesh,
+                              dedup_threshold=dedup_threshold, devices=devices,
                               half_precision=half_precision, device=device)
 
     # Subsample before embedding where the container reports a frame count

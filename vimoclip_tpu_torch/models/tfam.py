@@ -27,6 +27,11 @@ dropout of both attention blocks, and five 8-bit-mask dropouts
 activation, after the second FFN linear and once more on the residual branch
 (the reference's doubled FFN dropout, QUIRKS #13); and a Bernoulli dropout
 (``mlp_dropout``) in the head.
+
+Under data parallelism (``parallel/partition.py::parallelize_``) the batch
+is this rank's rows of a global batch collated once: the pooling length of
+the reference's batch-max pooling is taken over every data rank, and each
+dropout draws the global mask and keeps its rows.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from vimoclip_tpu_torch.config import TFAMModelConfig, check_model_config
 from vimoclip_tpu_torch.models.clip_vit import layer_norm
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
 from vimoclip_tpu_torch.ops.dropout import Dropout, bernoulli_dropout
+from vimoclip_tpu_torch.parallel.mesh import Shard
 
 _LN_EPS = 1e-5
 
@@ -84,7 +90,7 @@ class AttentionLayer(nn.Module):
         self.norm_cross = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.ffn = nn.Sequential(
             nn.Linear(d_model, dim_feedforward), _activation(activation),
-            Dropout(dropout), nn.Linear(dim_feedforward, d_model),
+            Dropout(dropout, model_split=True), nn.Linear(dim_feedforward, d_model),
             Dropout(dropout),
         )
         self.norm_ffn = nn.LayerNorm(d_model, eps=_LN_EPS)
@@ -107,6 +113,8 @@ class AttentionLayer(nn.Module):
 
 class TFAM(nn.Module):
     """Fusion transformer over paired RGB / motion embedding sequences."""
+
+    shard: Shard | None = None  # set by parallel.partition.parallelize_
 
     def __init__(self, config: TFAMModelConfig, num_classes: int = 140,
                  dtype: torch.dtype = torch.float32):
@@ -155,7 +163,10 @@ class TFAM(nn.Module):
             # padding beyond it is left out (vimoclip_tpu/models/tfam.py:181)
             if mask is None:
                 return cap
-            return min(int(mask.sum(dim=1).max()), cap)
+            longest = mask.sum(dim=1).max()
+            if self.shard is not None:  # the global batch's
+                longest = self.shard.max_over_data(longest)
+            return min(int(longest), cap)
 
         pool_mask = None
         if cfg.use_only_rgb:
@@ -218,5 +229,5 @@ class TFAM(nn.Module):
         h = layer_norm(pooled, self.classifier[0])
         h = F.gelu(self.classifier[1](h), approximate="none")
         if self.training and cfg.mlp_dropout > 0.0:
-            h = bernoulli_dropout(h, cfg.mlp_dropout, g)
+            h = bernoulli_dropout(h, cfg.mlp_dropout, g, self.shard)
         return self.classifier[4](h)

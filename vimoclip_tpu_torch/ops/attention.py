@@ -12,6 +12,12 @@
   both paths drop the weights where the kernels' Philox bits for those seeds
   say so (``ops/kernels/flash_attention.py``), so the flash and eager paths
   agree to rounding with dropout on too.
+- under data and tensor parallelism (``shard``, ``parallel/partition.py``)
+  the packed projection holds this rank's heads of q, k and v, the input
+  enters through ``copy_to_model``, ``out_proj`` is row-parallel, and the
+  seeds are drawn for the global (batch row, head) grid and cut to this
+  rank's rows and heads, so a sharded step drops what the one-process step
+  drops.
 
 Linear layers run in the module's compute ``dtype`` (weights are cast at
 the call, kept float32), as the JAX modules do with ``nn.Dense(dtype=...)``.
@@ -34,6 +40,8 @@ from vimoclip_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
 )
 from vimoclip_tpu_torch.ops.quant import Int8Linear, int8_linear, make_dense
+from vimoclip_tpu_torch.parallel.mesh import Shard, draw
+from vimoclip_tpu_torch.parallel.partition import _ShardedLinear, copy_to_model
 
 # Additive mask value. Large-finite (not -inf) so a fully masked row comes
 # out uniform instead of NaN; the flash kernel uses the same constant.
@@ -45,10 +53,12 @@ IMPLEMENTATIONS = ("xla", "flash", "auto")
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` with input, weight and bias cast to ``dtype``; an
     ``Int8Linear`` quantises ``x`` as it comes and its float32 weight, and
-    returns ``dtype``."""
+    returns ``dtype``; a column- or row-parallel layer adds its collective."""
     if isinstance(layer, Int8Linear):
         return int8_linear(x, layer.weight, layer.bias, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    if isinstance(layer, _ShardedLinear):
+        return layer.product(x.to(dtype), layer.weight.to(dtype), bias)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
@@ -114,6 +124,8 @@ class MultiHeadAttention(nn.Module):
     # multiples of 128.
     _AUTO_FLASH_MIN_T_NODROP = 128
 
+    shard: Shard | None = None  # set by parallel.partition.parallelize_
+
     def __init__(
         self,
         embed_dim: int,
@@ -132,7 +144,7 @@ class MultiHeadAttention(nn.Module):
         if implementation in ("ring", "ring_inner"):
             raise NotImplementedError(
                 f"implementation={implementation!r} (sequence-parallel ring "
-                "attention) comes with the multi-GPU slice of the port"
+                "attention) comes with slice 7b of the multi-GPU port"
             )
         if implementation not in IMPLEMENTATIONS:
             raise ValueError(f"unknown attention implementation {implementation!r}")
@@ -149,9 +161,10 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
         b, s, _ = t.shape
-        return t.view(b, s, self.num_heads, -1).transpose(1, 2)
+        return t.view(b, s, heads, -1).transpose(1, 2)
 
     def forward(
         self,
@@ -165,7 +178,13 @@ class MultiHeadAttention(nn.Module):
         dropping = self.training and self.dropout > 0.0
         if dropping and generator is None:
             raise ValueError("attention dropout in train() mode needs a generator")
-        e, dt = self.embed_dim, self.dtype
+        dt, shard = self.dtype, self.shard
+        # this rank's width and heads: all of them unless tensor parallel
+        e = self.in_proj_weight.shape[0] // 3
+        heads = self.num_heads * e // self.embed_dim
+        if e != self.embed_dim:
+            x = copy_to_model(x, shard.model_group)
+            kv = None if kv is None else copy_to_model(kv, shard.model_group)
         if not self.quantized:
             w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
             proj = lambda t, w_, b_: F.linear(t.to(dt), w_, b_)
@@ -177,14 +196,14 @@ class MultiHeadAttention(nn.Module):
         else:
             q = proj(x, w[:e], bias[:e])
             k, v = proj(kv, w[e:], bias[e:]).split(e, dim=-1)
-        q, k, v = self._split_heads(q), self._split_heads(k), self._split_heads(v)
+        q, k, v = (self._split_heads(t, heads) for t in (q, k, v))
 
         rate, seed = 0.0, None
         if dropping:
             rate = self.dropout
-            seed = torch.randint(0, 2**31 - 1, (q.shape[0], self.num_heads),
-                                 generator=generator, device=generator.device,
-                                 dtype=torch.int32).to(q.device)
+            sample = lambda s: torch.randint(0, 2**31 - 1, s, generator=generator,
+                                             device=generator.device, dtype=torch.int32)
+            seed = draw(sample, (q.shape[0], heads), shard, split_last=True).to(q.device)
         impl = self.implementation
         if impl == "auto":
             long_keys = k.shape[2] >= self._AUTO_FLASH_MIN_T_NODROP

@@ -20,6 +20,14 @@ With ``cpu``, stages 0, 1 and 1b get ``--device cpu`` and the injected
 stage-2 YAML ``training.device: cpu``, the only way the stage-2 CLI takes
 the CPU.
 
+Data and tensor parallelism, as in JAX: ``data_parallel`` > 1 gives stage 0
+that many replicas of the tower; stage 1 trains on ``data_parallel`` x
+``model_parallel`` ranks (-1: every card, one rank on the CPU) and stage 2
+on its YAML's ``training.data_parallel`` x ``model_parallel``. A training
+stage with more than one rank runs as
+``torchrun --standalone --nproc-per-node N -m <its CLI>``, one process per
+rank; with one it runs in this process.
+
 A workdir of the port is not one of the JAX package: the stage-1
 checkpoints differ (``student_ckpt/best/best_model.pth`` here, Orbax
 directories there), so neither package resumes the other's run.
@@ -44,6 +52,10 @@ import dataclasses
 import glob
 import logging
 import os
+import subprocess
+import sys
+
+import torch
 
 from vimoclip_tpu_torch.utils.device import resolve_device
 
@@ -69,19 +81,46 @@ class PipelineConfig:
     sequence_length: int = 30
     num_workers: int = 4
     half_precision: bool = True
-    data_parallel: int = -1  # values above 1 need the multi-GPU slice
+    data_parallel: int = -1  # stage-1 data axis (-1: every card); stage-0 replicas
     model_parallel: int = 1
     force: bool = False  # rerun stages even when their markers exist
     device: str = "cuda"
 
 
+def world_size(data_parallel: int, model_parallel: int, device: torch.device) -> int:
+    """The ranks a training stage runs on: data x model, where data -1 takes
+    every card (one data rank on the CPU)."""
+    data = data_parallel
+    if data == -1:
+        data = torch.cuda.device_count() // model_parallel if device.type == "cuda" else 1
+    return max(1, data) * model_parallel
+
+
+def run_stage(main, module: str, argv: list[str], world: int, cwd: str | None = None):
+    """A CLI's ``main(argv)`` in this process for one rank; for more,
+    ``torchrun`` starts one process per rank (the package importable from
+    where it lies) and a failed rank fails the stage."""
+    if world <= 1:
+        if cwd is None:
+            return main(argv)
+        old = os.getcwd()
+        try:
+            os.chdir(cwd)
+            return main(argv)
+        finally:
+            os.chdir(old)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m", module, *argv]
+    logging.info("[pipeline] %s", " ".join(cmd))
+    subprocess.run(cmd, check=True, cwd=cwd, env=env)
+
+
 def run_pipeline(cfg: PipelineConfig) -> dict:
     """Run (or resume) the whole cascade; returns the artifact paths."""
     device = resolve_device(cfg.device)
-    if cfg.data_parallel > 1 or cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel / model_parallel > 1 come with the multi-GPU slice of "
-            "the port (ROADMAP slice 7)")
     # every path absolute: stage 2 runs chdir'd into its run dir, and a
     # relative workdir must survive that
     cfg = dataclasses.replace(
@@ -121,6 +160,8 @@ def run_pipeline(cfg: PipelineConfig) -> dict:
         "--clip-weights", cfg.clip_weights,
         "--batch-size", str(cfg.extract_batch),
     ] + float32 + on_device
+    if cfg.data_parallel > 1:
+        common += ["--data-parallel", str(cfg.data_parallel)]
     rgb_train = w("rgb_train.h5")
     if not is_done("extract_train"):
         extract_main(["--annotation-file", cfg.train_annotations,
@@ -179,7 +220,7 @@ def run_pipeline(cfg: PipelineConfig) -> dict:
 
     student_ckpt = w("student_ckpt")
     if not is_done("train_student"):
-        train_main([
+        run_stage(train_main, "vimoclip_tpu_torch.cli.train_student", [
             "--train-embeddings", rgb_train, "--val-embeddings", rgb_val,
             "--motion-videos-dir", stage1_motion_dir,
             "--checkpoint-dir", student_ckpt, "--log-dir", w("student_logs"),
@@ -192,7 +233,8 @@ def run_pipeline(cfg: PipelineConfig) -> dict:
             "--data-parallel", str(cfg.data_parallel),
             "--model-parallel", str(cfg.model_parallel),
             "--dataset", cfg.dataset,
-        ] + float32 + on_device)
+        ] + float32 + on_device,
+            world_size(cfg.data_parallel, cfg.model_parallel, device))
         mark_done("train_student")
 
     # stage 1b: motion-embedding export (the exporter resumes a partial
@@ -221,6 +263,7 @@ def run_pipeline(cfg: PipelineConfig) -> dict:
     import yaml
 
     from vimoclip_tpu_torch.cli.tfam_train_eval import main as tfam_main
+    from vimoclip_tpu_torch.config import load_experiment_config
 
     with open(cfg.tfam_config) as f:
         tfam_cfg = yaml.safe_load(f) or {}
@@ -248,12 +291,11 @@ def run_pipeline(cfg: PipelineConfig) -> dict:
     with open(injected, "w") as f:
         yaml.safe_dump(tfam_cfg, f)
     if not is_done("tfam"):
-        cwd = os.getcwd()
-        try:
-            os.chdir(rundir)  # results/ lands here
-            tfam_main(["--config", injected, "--run-name", "pipeline"] + tfam_args)
-        finally:
-            os.chdir(cwd)
+        tcfg = load_experiment_config(injected).training
+        run_stage(tfam_main, "vimoclip_tpu_torch.cli.tfam_train_eval",
+                  ["--config", injected, "--run-name", "pipeline"] + tfam_args,
+                  world_size(tcfg.data_parallel, tcfg.model_parallel, device),
+                  cwd=rundir)  # results/ lands here
         mark_done("tfam")
 
     return {

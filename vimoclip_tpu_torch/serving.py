@@ -10,14 +10,18 @@ copy of ``vimoclip_tpu/serving.py``).
   the device; precomputed motion videos can be passed instead;
 - TFAM runs the hand-written flash-attention kernel by default;
 - sequence lengths round up to ``length_bucket`` (capped at ``max_seq_len``)
-  so a request sees one of a handful of shapes.
+  so a request sees one of a handful of shapes;
+- data parallelism (``devices``, JAX: ``mesh``): one replica of each tower
+  per device, each fixed-shape frame window split into contiguous row
+  blocks, one per replica (``parallel/mesh.py::Replicas``); the fusion runs
+  once, on the first device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from vimoclip_tpu_torch.ops.batching import (
     upload,
 )
 from vimoclip_tpu_torch.ops.preprocess import clip_preprocess, frame_diff
+from vimoclip_tpu_torch.parallel.mesh import Replicas
 from vimoclip_tpu_torch.utils.device import resolve_device
 
 
@@ -52,6 +57,8 @@ class ViMoCLIPPredictor:
     student state with ``visual_encoder.*`` keys is accepted too), and
     ``tfam_state`` an AMO_CLIP state dict; values are tensors or numpy
     arrays. ``device`` is ``cuda`` unless the caller asks for the CPU.
+    ``devices``: one replica of each tower per entry (``frame_batch`` must
+    divide by their number); the first is where the fusion runs.
     """
 
     def __init__(
@@ -70,8 +77,9 @@ class ViMoCLIPPredictor:
         half_precision: bool = True,
         batch_invariant: bool = True,
         device: str | torch.device = "cuda",
+        devices: Sequence[str | torch.device] | None = None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if devices is None else devices[0])
         self.num_classes = num_classes
         self.embed_dim = teacher_config.projection_dim
         self.class_names = class_names or {}
@@ -97,16 +105,24 @@ class ViMoCLIPPredictor:
                                    student_tower_state(student_state))
         self.tfam = self._place(TFAM(tfam_config, num_classes, self.dtype),
                                 tfam_state)
-        self._teacher_embed = self._make_embed(self.teacher, teacher_config.image_size)
-        self._student_embed = self._make_embed(self.student, student_config.image_size)
+        devices = devices or [self.device]
+        self._teacher_embed = self._make_embed(Replicas(self.teacher, devices),
+                                               teacher_config.image_size)
+        self._student_embed = self._make_embed(Replicas(self.student, devices),
+                                               student_config.image_size)
 
     def _place(self, module: nn.Module, state: Mapping) -> nn.Module:
         module.load_state_dict(to_tensors(state), strict=True)
         return module.to(self.device).eval().requires_grad_(False)
 
-    def _make_embed(self, enc: ClipVisionEncoder, image_size: int):
-        def embed(frames: torch.Tensor) -> torch.Tensor:  # (N, H, W, 3) uint8
+    def _make_embed(self, replicas: Replicas, image_size: int):
+        replicas.check_divides(self.frame_batch, "frame_batch")
+
+        def run(enc: ClipVisionEncoder, frames: torch.Tensor) -> torch.Tensor:
             return enc(clip_preprocess(frames, image_size, dtype=self.dtype)).float()
+
+        def embed(frames: torch.Tensor) -> torch.Tensor:  # (N, H, W, 3) uint8
+            return replicas(run, frames)
         return embed
 
     # ------------------------------------------------------------------

@@ -16,6 +16,11 @@
   A checkpoint directory appears only when complete (written under a
   temporary name, then renamed). ``async_save`` snapshots the state to host
   memory and writes it on a background thread.
+
+Under data and tensor parallelism (``parallel/``) a checkpoint holds the
+full state in the reference layout, gathered over the ``model`` group
+(``TrainState.partition``) and written by rank 0 alone; a restore loads it
+on every rank and cuts it again. The clip norm is the global gradient's.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import shutil
 import threading
 
 import torch
+import torch.distributed as dist
 
 
 def make_adamw(params, lr: float, weight_decay: float = 0.1) -> torch.optim.AdamW:
@@ -38,16 +44,27 @@ def make_adamw(params, lr: float, weight_decay: float = 0.1) -> torch.optim.Adam
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, partition=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` on the ``.grad`` of ``params``, in
     place: where the global L2 norm n reaches ``max_norm`` every gradient
     becomes g / n * max_norm; below it they are left alone. (torch's
     ``clip_grad_norm_`` scales by max_norm / (n + 1e-6) instead, so a
-    clipped step would not match the JAX step.) Returns n; no host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
+    clipped step would not match the JAX step.) Returns n; no host sync.
+    With a ``parallel.Partition``, the squares of the split parameters are
+    summed over the ``model`` group and the replicated ones counted once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
     if not grads:
         return torch.zeros(())
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    square = lambda ps: sum(torch.sum(torch.square(p.grad.float())) for p in ps)
+    if partition is None or not partition.sharded_ids:
+        norm = torch.sqrt(square(params))
+    else:
+        split = [p for p in params if id(p) in partition.sharded_ids]
+        split_sq = square(split)
+        dist.all_reduce(split_sq, group=partition.shard.model_group)
+        norm = torch.sqrt(split_sq + square([p for p in params
+                                             if id(p) not in partition.sharded_ids]))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
@@ -61,11 +78,12 @@ class ClippedAdam(torch.optim.Adam):
     def __init__(self, params, lr: float, grad_clip: float | None = None):
         super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         self.grad_clip = grad_clip
+        self.partition = None  # a parallel.Partition under tensor parallelism
 
     def step(self, closure=None):
         if self.grad_clip is not None:
             clip_by_global_norm_([p for g in self.param_groups for p in g["params"]],
-                                 self.grad_clip)
+                                 self.grad_clip, self.partition)
         return super().step(closure)
 
 
@@ -100,22 +118,31 @@ def cosine_annealing_schedule(optimizer: torch.optim.Optimizer, base_lr: float,
 @dataclasses.dataclass
 class TrainState:
     """What a checkpoint holds: the model, its optimizer and schedule (None
-    for stage 1's constant rate), and the number of optimizer steps taken."""
+    for stage 1's constant rate), and the number of optimizer steps taken.
+    ``partition`` (a ``parallel.Partition``): the model is this rank's
+    slices, and the state dicts hold the full tensors."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
     step: int = 0
+    partition: object = None
 
     def state_dict(self) -> dict:
         out = {"model": self.model.state_dict(),
                "optimizer": self.optimizer.state_dict(),
                "step": self.step}
+        if self.partition is not None:
+            out["model"] = self.partition.full_state(out["model"])
+            out["optimizer"] = self.partition.full_optimizer(out["optimizer"])
         if self.scheduler is not None:
             out["scheduler"] = self.scheduler.state_dict()
         return out
 
     def load_state_dict(self, state: dict) -> None:
+        if self.partition is not None:
+            state = dict(state, model=self.partition.local_state(state["model"]),
+                         optimizer=self.partition.local_optimizer(state["optimizer"]))
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         if self.scheduler is not None:
@@ -161,6 +188,8 @@ class CheckpointManager:
             extra["best_metric"] = float(self.best_metric)
         payload = _to_cpu(state.state_dict())
         self.wait_until_finished()
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         if self.async_save:
             self._thread = threading.Thread(target=self._write_guarded,
                                             args=(payload, name, extra), daemon=True)
@@ -220,6 +249,8 @@ class CheckpointManager:
         """Load checkpoint ``name`` into ``state`` (in place); returns its
         extra dict."""
         self.wait_until_finished()
+        if dist.is_initialized():
+            dist.barrier()  # rank 0's write is on disk
         path = os.path.join(self.directory, name)
         device = next(state.model.parameters()).device
         state.load_state_dict(torch.load(os.path.join(path, "state.pt"),

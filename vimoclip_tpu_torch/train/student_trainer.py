@@ -18,6 +18,14 @@ resume that lands on the exact next batch of a mid-epoch checkpoint
 (batches from the epoch seed; the student has no dropout), preemption
 (SIGTERM/SIGINT cut a resume checkpoint) and asynchronous checkpoints.
 
+Data and tensor parallelism as in the stage-2 trainer
+(``train/tfam_trainer.py``): under ``torchrun`` the ranks form a
+``(data_parallel, model_parallel)`` mesh, the CLIP tower is cut by
+``STUDENT_PARTITION_RULES``, every rank keeps its rows of the global batch,
+gradients are averaged over ``data`` before the clip (which takes the global
+norm), losses come back global, and rank 0 alone logs and writes
+checkpoints.
+
 With ``half_precision`` the model computes in bfloat16 over float32
 parameters. Motion frames go to the card as uint8 and are normalised there:
 at the encoder's size by kernel K5 (``clip_preprocess``), once per train or
@@ -39,6 +47,14 @@ from vimoclip_tpu_torch.models import init_parameters_
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
 from vimoclip_tpu_torch.models.convert import to_tensors
 from vimoclip_tpu_torch.models.student import StudentModel
+from vimoclip_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    any_rank,
+    local_device,
+    shard_batch,
+    training_mesh,
+)
+from vimoclip_tpu_torch.parallel.partition import STUDENT_PARTITION_RULES, parallelize_
 from vimoclip_tpu_torch.prng import KeyChain
 from vimoclip_tpu_torch.train.state import CheckpointManager, TrainState, make_adam
 from vimoclip_tpu_torch.utils.device import resolve_device
@@ -81,14 +97,24 @@ class StudentTrainer:
         grad_accum: int = 1,
         async_checkpoint: bool = False,
         device: str | torch.device = "cuda",
+        data_parallel: int = -1,
+        model_parallel: int = 1,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(local_device(device))
+        self.mesh = training_mesh(MeshConfig(data_parallel, model_parallel), self.device,
+                                  "vimoclip_tpu_torch.cli.train_student")
+        n_data = 1 if self.mesh is None else self.mesh.size(0)
         self.grad_accum = max(1, int(grad_accum))
         if self.grad_accum > 1 and batch_size % self.grad_accum:
             raise ValueError(
                 f"grad_accum={self.grad_accum} must divide batch_size={batch_size} "
                 "(equal microbatches keep the accumulated gradient identical to "
                 "the full batch)")
+        if (batch_size // self.grad_accum) % n_data:
+            raise ValueError(
+                f"batch_size/grad_accum = {batch_size // self.grad_accum} microbatch "
+                f"rows must divide the mesh's data axis ({n_data}) — lower "
+                "grad_accum or raise batch_size")
         if len(val_dataset) < batch_size:
             # the drop_last val loader would give 0 batches, found only after
             # a whole training epoch; evaluate() keeps the check as a backstop
@@ -107,7 +133,8 @@ class StudentTrainer:
         self.batch_size = batch_size
         self.keys = KeyChain(seed)
         self.ckpt = CheckpointManager(checkpoint_dir, async_save=async_checkpoint)
-        self.writer = SummaryWriter(log_dir) if log_dir else None
+        self.is_main = self.mesh is None or self.mesh.get_rank() == 0
+        self.writer = SummaryWriter(log_dir) if log_dir and self.is_main else None
         self.val_ds = val_dataset
         self.train_loader = BatchLoader(train_dataset, batch_size, collate_segments,
                                         shuffle=True, drop_last=True, seed=seed,
@@ -116,7 +143,13 @@ class StudentTrainer:
                                       shuffle=False, drop_last=True,
                                       num_workers=num_workers)
         model = self._init_model(num_classes, alpha, pretrained_state).to(self.device)
-        self.state = TrainState(model, make_adam(model.parameters(), lr, grad_clip=grad_clip))
+        self.partition = self.shard = None
+        if self.mesh is not None:
+            self.partition = parallelize_(model, STUDENT_PARTITION_RULES, self.mesh)
+            self.shard = self.partition.shard
+        optimizer = make_adam(model.parameters(), lr, grad_clip=grad_clip)
+        optimizer.partition = self.partition
+        self.state = TrainState(model, optimizer, partition=self.partition)
         self._preempt = None  # the PreemptionGuard while train() runs
         self.preempted = False
 
@@ -150,11 +183,27 @@ class StudentTrainer:
                                                 self.class_pos_weight)
         return d_loss, c_loss, logits
 
+    def _local(self, batch: dict, microbatches: int = 1) -> dict:
+        """This rank's rows of a global batch (the batch itself on one card)."""
+        return shard_batch({k: batch[k] for k in _ARRAYS}, self.mesh, microbatches)
+
+    def _global(self, vals: torch.Tensor, logits: torch.Tensor | None = None):
+        """The global batch's losses (and logits) from this rank's."""
+        if self.shard is None:
+            return vals, logits
+        return (self.shard.mean_over_data(vals),
+                None if logits is None else self.shard.gather_rows(logits))
+
+    def _stop_requested(self) -> bool:
+        """A preemption signal, agreed by every rank under a mesh."""
+        requested = self._preempt is not None and self._preempt.requested
+        return requested if self.shard is None else any_rank(requested, self.device)
+
     def train_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """One Adam step on a collated batch (numpy or on the device).
-        Returns the detached (total, distill, class) losses as one (3,)
-        tensor on the device, and the logits."""
-        batch = to_device({k: batch[k] for k in _ARRAYS}, self.device)
+        """One Adam step on a collated global batch (numpy or on the
+        device). Returns the detached (total, distill, class) losses of the
+        global batch as one (3,) tensor on the device, and its logits."""
+        batch = to_device(self._local(batch, self.grad_accum), self.device)
         model, opt = self.model, self.state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
@@ -167,28 +216,34 @@ class StudentTrainer:
             d_loss, c_loss, logits = self._losses(mb)
             total = d_loss + c_loss
             total.backward()  # microbatch gradients add up in .grad
-            vals = torch.stack([total, d_loss, c_loss]).detach()
+            vals, logits = self._global(torch.stack([total, d_loss, c_loss]).detach(),
+                                        logits.detach())
             sums = vals if sums is None else sums + vals
-            parts.append(logits.detach())
+            parts.append(logits)
         if accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
             sums = sums / accum
+        if self.shard is not None:
+            self.shard.average_gradients_(model.parameters())
         opt.step()
         self.state.step += 1
         return sums, torch.cat(parts)
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:
-        """(total, distill, class) losses of a batch, as one (3,) tensor."""
-        batch = to_device({k: batch[k] for k in _ARRAYS}, self.device)
+        """(total, distill, class) losses of a global batch, as one (3,)
+        tensor."""
+        batch = to_device(self._local(batch), self.device)
         self.model.eval()
         d_loss, c_loss, _ = self._losses(batch)
-        return torch.stack([d_loss + c_loss, d_loss, c_loss])
+        return self._global(torch.stack([d_loss + c_loss, d_loss, c_loss]))[0]
 
     # ------------------------------------------------------------------
     def _device_batches(self, loader):
+        """Each global batch on the device (every rank keeps its rows in
+        ``train_step``/``eval_step``)."""
         for batch in prefetch_to_device(loader, self.device):
             yield {k: batch[k] for k in _ARRAYS}
 
@@ -208,7 +263,7 @@ class StudentTrainer:
             last = (logits, batch["labels"])
             timer.tick(batch["labels"].shape[0])
             done = skip_batches + n
-            if self._preempt is not None and self._preempt.requested:
+            if self._stop_requested():
                 # cut a resume checkpoint (at an epoch's end, an epoch-end one)
                 extra = {"epoch": epoch}
                 if done < len(self.train_loader):
@@ -280,7 +335,7 @@ class StudentTrainer:
         for epoch in range(start_epoch, self.epochs):
             tr = self.train_epoch(epoch, skip_batches=skip)
             skip = 0
-            if self._preempt is not None and self._preempt.requested:
+            if self._stop_requested():
                 self.ckpt.wait_until_finished()
                 logging.info("preempted during epoch %d: checkpoint saved; rerun with "
                              "resume=True to continue bit-identically", epoch)

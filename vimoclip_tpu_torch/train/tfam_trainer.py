@@ -21,6 +21,17 @@ step)``), and preemption (SIGTERM/SIGINT cut a resume checkpoint).
 Attention runs where ``model.attention_impl`` says: with ``flash`` (or
 ``auto`` past its crossover) a training step runs K1' forward and K2 or
 K3 + K4 backward per attention site, and ``validate`` runs K1.
+
+Data and tensor parallelism (JAX: the trainer's mesh): under ``torchrun``,
+or with a process group already up, the ranks form a ``(data, model)``
+mesh from ``training.data_parallel`` / ``model_parallel``
+(``parallel/mesh.py``) and the model is cut by ``TFAM_PARTITION_RULES``.
+Every rank loads and collates the same global batch and keeps its rows;
+gradients are averaged over ``data``; losses and logits come back global
+(logits gathered before mAP, which does not split by rank); rank 0 alone
+logs to TensorBoard, prints and writes checkpoints. The kernels run on each
+rank's (B/data, H/model) slice. A lone process with neither set above 1 is
+the one-card path, untouched.
 """
 
 from __future__ import annotations
@@ -43,6 +54,14 @@ from vimoclip_tpu_torch.metrics import (
     TopKAccuracy,
 )
 from vimoclip_tpu_torch.models.tfam import TFAM
+from vimoclip_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    any_rank,
+    local_device,
+    shard_batch,
+    training_mesh,
+)
+from vimoclip_tpu_torch.parallel.partition import TFAM_PARTITION_RULES, parallelize_
 from vimoclip_tpu_torch.prng import KeyChain
 from vimoclip_tpu_torch.train.state import (
     CheckpointManager,
@@ -82,12 +101,20 @@ class TFAMTrainer:
                  train_dataset=None, val_dataset=None):
         self.config = config
         tcfg = check_training_config(config.training)
-        self.device = resolve_device(tcfg.device)
+        self.device = resolve_device(local_device(tcfg.device))
+        self.mesh = training_mesh(MeshConfig(tcfg.data_parallel, tcfg.model_parallel),
+                                  self.device, "vimoclip_tpu_torch.cli.tfam_train_eval")
+        n_data = 1 if self.mesh is None else self.mesh.size(0)
         if tcfg.grad_accum > 1 and tcfg.batch_size % tcfg.grad_accum:
             raise ValueError(
                 f"training.grad_accum={tcfg.grad_accum} must divide "
                 f"batch_size={tcfg.batch_size} (equal microbatches keep the "
                 "accumulated gradient identical to the full batch)")
+        rows = tcfg.batch_size // max(tcfg.grad_accum, 1)
+        if rows % n_data:
+            raise ValueError(
+                f"batch_size/grad_accum = {rows} microbatch rows must divide the "
+                f"mesh's data axis ({n_data}) — lower grad_accum or raise batch_size")
         self.dtype = torch.bfloat16 if tcfg.half_precision else torch.float32
         self.keys = KeyChain(tcfg.seed)
         # torch's default initialisers (the reference's), from the
@@ -96,11 +123,16 @@ class TFAMTrainer:
             torch.manual_seed(self.keys.seed("init"))
             model = TFAM(config.model, num_classes=config.num_classes, dtype=self.dtype)
         model.to(self.device)
+        self.partition = self.shard = None
+        if self.mesh is not None:
+            self.partition = parallelize_(model, TFAM_PARTITION_RULES, self.mesh)
+            self.shard = self.partition.shard
+        self.is_main = self.shard is None or self.mesh.get_rank() == 0
         self.metric = _make_metric(config)
         self.metric_name = "accuracy" if tcfg.metric == "accuracy" else "mAP"
         self.loss_fn = (losses.cross_entropy_loss if tcfg.loss == "ce"
                         else losses.bce_with_logits)
-        self.writer = SummaryWriter(log_dir)
+        self.writer = SummaryWriter(log_dir if self.is_main else None)
         self.ckpt = CheckpointManager(checkpoint_dir, keep_steps=tcfg.keep_checkpoints,
                                       async_save=tcfg.async_checkpoint)
 
@@ -127,7 +159,7 @@ class TFAMTrainer:
         self.lr_at = cosine_annealing_lr(tcfg.lr, tcfg.epochs, steps_per_epoch, tcfg.eta_min)
         scheduler = cosine_annealing_schedule(optimizer, tcfg.lr, tcfg.epochs,
                                               steps_per_epoch, tcfg.eta_min)
-        self.state = TrainState(model, optimizer, scheduler)
+        self.state = TrainState(model, optimizer, scheduler, partition=self.partition)
         self._preempt = None  # the PreemptionGuard while train() runs
         self.preempted = False
         self.history: list[dict] = []
@@ -140,11 +172,23 @@ class TFAMTrainer:
     def _logits(self, batch: dict, generator=None) -> torch.Tensor:
         return self.model(*(batch[k] for k in _INPUTS), generator=generator)
 
+    def _global(self, loss: torch.Tensor, logits: torch.Tensor):
+        """The global batch's loss and logits from this rank's."""
+        if self.shard is None:
+            return loss, logits
+        return self.shard.mean_over_data(loss), self.shard.gather_rows(logits)
+
+    def _stop_requested(self) -> bool:
+        """A preemption signal, agreed by every rank under a mesh."""
+        requested = self._preempt is not None and self._preempt.requested
+        return requested if self.shard is None else any_rank(requested, self.device)
+
     def train_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """One optimizer step on a collated batch (numpy or on the device);
-        dropout draws from the step's own stream. Returns the detached loss
-        and logits."""
-        batch = to_device(batch, self.device)
+        """One optimizer step on a collated global batch (numpy or on the
+        device); dropout draws from the step's own stream. Returns the
+        detached loss and logits of the global batch."""
+        accum = self.config.training.grad_accum
+        batch = to_device(shard_batch(batch, self.mesh, accum), self.device)
         generator = self.keys("dropout", self.state.step, device=self.device)
         model, opt = self.model, self.state.optimizer
         model.train()
@@ -154,6 +198,7 @@ class TFAMTrainer:
             logits = self._logits(batch, generator)
             loss = self.loss_fn(logits, batch["labels"])
             loss.backward()
+            loss, logits = self._global(loss.detach(), logits.detach())
         else:
             rows = batch["labels"].shape[0] // accum
             loss_sum, parts = 0.0, []
@@ -162,12 +207,15 @@ class TFAMTrainer:
                 part = self._logits(mb, generator)
                 mb_loss = self.loss_fn(part, mb["labels"])
                 mb_loss.backward()  # gradients add up in .grad
-                loss_sum = loss_sum + mb_loss.detach()
-                parts.append(part.detach())
+                mb_loss, part = self._global(mb_loss.detach(), part.detach())
+                loss_sum = loss_sum + mb_loss
+                parts.append(part)
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
             loss, logits = loss_sum / accum, torch.cat(parts)
+        if self.shard is not None:
+            self.shard.average_gradients_(model.parameters())
         opt.step()
         self.state.scheduler.step()
         self.state.step += 1
@@ -175,10 +223,11 @@ class TFAMTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        batch = to_device(batch, self.device)
+        """Loss and logits of a collated global batch, dropout off."""
+        batch = to_device(shard_batch(batch, self.mesh), self.device)
         self.model.eval()
         logits = self._logits(batch)
-        return self.loss_fn(logits, batch["labels"]), logits
+        return self._global(self.loss_fn(logits, batch["labels"]), logits)
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int, skip_batches: int = 0) -> tuple[float, float]:
@@ -188,6 +237,7 @@ class TFAMTrainer:
         every = self.config.training.checkpoint_every_steps
         timer = StepTimer()
         last = None
+        # every rank uploads the global batch and keeps its rows on the card
         batches = prefetch_to_device(self.train_loader, self.device)
         for batch in progress(batches, desc=f"epoch {epoch + 1}",
                               total=len(self.train_loader) - skip_batches):
@@ -198,7 +248,7 @@ class TFAMTrainer:
             _metric_update(self.metric, logits, batch["labels"])
             timer.tick(batch["labels"].shape[0])
             done = skip_batches + n
-            if self._preempt is not None and self._preempt.requested:
+            if self._stop_requested():
                 extra = {"epoch": epoch}
                 if done < len(self.train_loader):
                     extra["batch_in_epoch"] = done
@@ -265,7 +315,7 @@ class TFAMTrainer:
         for epoch in range(start_epoch, tcfg.epochs):
             train_loss, train_metric = self.train_epoch(epoch, skip_batches=skip)
             skip = 0
-            if self._preempt is not None and self._preempt.requested:
+            if self._stop_requested():
                 self.ckpt.wait_until_finished()
                 self.writer.close()
                 logging.info("preempted during epoch %d: checkpoint saved; rerun with "
@@ -349,6 +399,8 @@ class TFAMTester:
                 })
         results["metrics"]["loss"] = total_loss / max(n, 1)
         results["metrics"][self.t.metric_name] = self.t.metric.compute()
+        if not self.t.is_main:
+            return results
         if save_predictions:
             os.makedirs(self.results_dir, exist_ok=True)
             out = os.path.join(self.results_dir,

@@ -5,18 +5,21 @@ timer."""
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import time
 
 
 def setup_logging(log_file: str | None = "training.log") -> None:
     """INFO-level logging to stderr and, when ``log_file`` is given, to that
-    file (reference parity: ``training.log`` + stdout)."""
+    file (reference parity: ``training.log`` + stdout). Under ``torchrun``
+    the ranks other than 0 log warnings and errors only, to stderr."""
+    main_rank = int(os.environ.get("RANK", 0)) == 0
     handlers: list[logging.Handler] = [logging.StreamHandler()]
-    if log_file:
+    if log_file and main_rank:
         handlers.append(logging.FileHandler(log_file))
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if main_rank else logging.WARNING,
         format="%(asctime)s - %(levelname)s - %(message)s",
         handlers=handlers,
         force=True,
@@ -25,10 +28,13 @@ def setup_logging(log_file: str | None = "training.log") -> None:
 
 class SummaryWriter:
     """TensorBoard writer over ``torch.utils.tensorboard``; when tensorboard
-    is not installed it logs one warning and writes nothing."""
+    is not installed it logs one warning and writes nothing, and with no
+    ``log_dir`` (a rank other than 0) it writes nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str | None):
         self._writer = None
+        if log_dir is None:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter as TBWriter
         except ImportError:
