@@ -126,7 +126,26 @@ NVIDIA card:
     ``cuda:0`` over gloo with CUDA tensors (spawned), one dropout-0.1 step
     of the AK recipe at data 2 held to (a)'s first step (loss 1e-4,
     gradients 5e-3 rel. L2), K1' and K2 8 times on each rank.
-15. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+15. Sequence and pipeline parallelism (``parallel/sequence.py``,
+    ``parallel/pipelining.py``) at the AK recipe's full width: (a) the ring
+    over 2 and 4 in-process shards (``LocalRing``) at (8, 8, 2048, 2048,
+    64) in bf16 with dropout 0.1 and padded keys (padding-only blocks)
+    against one K1' + K3/K4 call on the whole sequence with the same seeds:
+    output 1e-2, lse 1e-4, gradients 5e-3 rel. L2; each offset kernel's
+    keep bits (K1', K2 at 512-key blocks, K3 at 1024) equal to the cut of
+    the whole call's, bit for bit; K1' n times per shard, K3 + K4 (n = 2)
+    or K2 (n = 4) n times per shard in the backward; times against the one
+    call; (b) seq 2: two gloo ranks on ``cuda:0`` take one AK step with
+    dropout 0.1 at the 2048-frame bucket, held to the one-card step on the
+    same batch and seeds (loss 1e-4, gradients 5e-3 rel. L2), K1'/K3/K4 16
+    times on each rank, and a warm step's time; (c) pipe 2 with two
+    microbatches on the same two ranks: dropout 0 against one card (logits
+    and loss 1e-4, gradients 5e-3 rel. L2), and with dropout 0.1 two passes
+    over phase 6's six batches whose mean loss falls, K1'/K2 per rank; (d)
+    pipe 2 x seq 2 on four gloo ranks on ``cuda:0`` at the 512 bucket with
+    dropout 0 against one card. Gloo sends and receives through pinned
+    host memory; the kernels run on the card.
+16. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -297,6 +316,15 @@ PAR_LOSS_TOL = 1e-6
 # the 8 rows, where cuBLAS may pick other kernels than for 8 rows; held like
 # flash against eager (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
 PAR_GLOO_RANKS = 2
+# Phase 15 (sequence and pipeline parallelism). The ring against one call in
+# bf16: each ring block's K1' rounds its output to bf16 before the float32
+# merge, and the backward kernels round each block's dq, dk and dv to bf16
+# before the float32 sums; held like the kernels against their plain
+# versions (KERNEL_TOL, LSE_TOL) and the steps like flash against eager
+# (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL).
+SEQ_SHAPE = (8, 8, 2048, 2048, 64)
+SEQ_RINGS = (2, 4)
+SEQ_STEP_BUCKET = 2048
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2410,6 +2438,260 @@ def phase_parallel(torch, seed: int, smi: str, setup: dict, train: dict, student
     return out
 
 
+def _seq_ring(torch, seed: int, smi: str) -> dict:
+    """Phase 15(a): the ring over in-process shards against one call on the
+    whole sequence, with dropout and padding-only blocks."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.parallel.sequence import (
+        LocalRing,
+        ring_forward,
+        sequence_parallel_attention,
+    )
+
+    b, h, t, _, d = SEQ_SHAPE
+    rate = 0.1
+    g = torch.Generator(device="cuda").manual_seed(seed + 15)
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    lengths = torch.randint(300, t + 1, (b,), device="cuda", generator=g)
+    lengths[0] = 700  # row 0: key blocks past 1024 (n = 2) and 768 (n = 4) pad only
+    mask = torch.arange(t, device="cuda")[None, :] >= lengths[:, None]
+    seeds = torch.randint(-2**31, 2**31 - 1, (b, h), device="cuda", generator=g,
+                          dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    one = lambda: fa.flash_attention(*leaves, mask, rate, seeds)
+    want = one()
+    grad = torch.randn(want.shape, device="cuda", generator=g).to(torch.bfloat16)
+    want_grads = torch.autograd.grad(want, leaves, grad)
+    want_lse = fa.forward_lse(q, k, v, mask, seeds, rate)[1]
+    one_ms = cuda_ms(torch, lambda: torch.autograd.grad(one(), leaves, grad), iters=5,
+                     warmup=1)
+    whole_bits = fa.dropout_keep_mask(seeds, t, t, rate)
+    out = {"shape": list(SEQ_SHAPE), "one_call_fwd_bwd_ms": one_ms, "rings": {}}
+    launches = dict.fromkeys(fa.LAUNCH_KINDS, 0)
+    for n in SEQ_RINGS:
+        ring = LocalRing(n)
+        run = lambda: sequence_parallel_attention(*leaves, ring, mask, dropout_rate=rate,
+                                                  dropout_seed=seeds)
+        fa.reset_launch_counts()
+        got = run()
+        got_grads = torch.autograd.grad(got, leaves, grad)
+        torch.cuda.synchronize()
+        ran = dict(fa.flash_attention.launches)
+        blk = t // n
+        bwd = ["bwd_dqkv"] if blk <= 512 else ["bwd_dq", "bwd_dkv"]
+        expected = {kind: n * n if kind in ("fwd_lse", *bwd) else 0 for kind in fa.LAUNCH_KINDS}
+        check(ran == expected, f"ring n={n} launched {ran}, expected {expected}")
+        for kind in fa.LAUNCH_KINDS:
+            launches[kind] += ran[kind]
+        _, lses = ring_forward(ring, seeds, rate, list(q.chunk(n, 2)), list(k.chunk(n, 2)),
+                               list(v.chunk(n, 2)),
+                               [m.contiguous().view(torch.uint8) for m in mask.chunk(n, 1)])
+        out_err = (got.float() - want.float()).abs().max().item()
+        lse_err = _lse_err(torch.cat(lses, dim=2), want_lse)
+        grad_errs = [((a.float() - w.float()).norm() / w.float().norm()).item()
+                     for a, w in zip(got_grads, want_grads)]
+        check(bool(torch.isfinite(got).all()), f"ring n={n}: non-finite output")
+        check(out_err <= KERNEL_TOL["bfloat16"], f"ring n={n} output vs one call: {out_err}")
+        check(lse_err <= LSE_TOL, f"ring n={n} lse vs one call: {lse_err}")
+        check(max(grad_errs) <= TRAIN_GRAD_TOL,
+              f"ring n={n} dq/dk/dv vs one call: rel. L2 {grad_errs}")
+        bits = {}
+        for kind in ("fwd_lse", bwd[0]):
+            for qi, ki in ((0, 0), (n - 1, 1), (1, n - 1)):
+                probe = fa.kernel_keep_bits(kind, seeds, blk, blk, rate, qi * blk, ki * blk)
+                cut = whole_bits[..., qi * blk:(qi + 1) * blk, ki * blk:(ki + 1) * blk]
+                check(torch.equal(probe, cut),
+                      f"{kind} at block ({qi}, {ki}) of n={n}: keep bits differ from the "
+                      f"whole call's in {int((probe != cut).sum())} places")
+            bits[kind] = "equal"
+        ring_ms = cuda_ms(torch, lambda: torch.autograd.grad(run(), leaves, grad), iters=5,
+                          warmup=1)
+        out["rings"][n] = {"launches": ran, "out_max_abs": out_err, "lse_err": lse_err,
+                           "grad_rel_l2": grad_errs, "keep_bits": bits,
+                           "fwd_bwd_ms": ring_ms}
+    out["launches"] = launches
+    del whole_bits
+    return out
+
+
+def _seq_pipe_rank(rank: int, world: int, store: str, out: str, jobs: list) -> None:
+    """Phase 15(b)-(d): one of ``world`` gloo ranks on ``cuda:0``; every job
+    of this world in order. Each saves its losses, the full gradients of its
+    first step (gathered over the stages), that step's kernel launches on
+    every rank, and a warm step's time."""
+    import torch
+    import torch.distributed as dist
+
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        for name, cfg, batches, passes in jobs:
+            run = Path(out) / name / f"rank{rank}"
+            trainer = TFAMTrainer(cfg, log_dir=str(run / "logs"), checkpoint_dir=str(run / "ck"),
+                                  train_dataset=[], val_dataset=[])
+            fa.reset_launch_counts()
+            loss, logits = trainer.train_step(batches[0])
+            torch.cuda.synchronize()
+            launches = dict(fa.flash_attention.launches)
+            grads = {n: p.grad.float() for n, p in trainer.model.named_parameters()
+                     if p.grad is not None}
+            if trainer.partition is not None:
+                grads = trainer.partition.full_state(grads)
+            losses = [float(loss)]
+            for i in range(passes * len(batches)):
+                if i:
+                    losses.append(float(trainer.train_step(batches[i % len(batches)])[0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batches[0])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            torch.save({"launches": launches, "step_ms": step_ms},
+                       Path(out) / name / f"launches{rank}.pt")
+            if rank == 0:
+                torch.save({"losses": losses, "logits": logits.float().cpu(),
+                            "grads": {n: g.cpu() for n, g in grads.items()}},
+                           Path(out) / name / "rank0.pt")
+            del trainer
+    finally:
+        dist.destroy_process_group()
+
+
+def _one_card_step(torch, cfg, batch, where: Path) -> dict:
+    """The AK recipe's first step on one card without a process group."""
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    trainer = TFAMTrainer(cfg, log_dir=str(where / "logs"), checkpoint_dir=str(where / "ck"),
+                          train_dataset=[], val_dataset=[])
+    loss, logits = trainer.train_step(batch)
+    return {"loss": float(loss), "logits": logits.float().cpu(),
+            "grads": {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()
+                      if p.grad is not None}}
+
+
+def _held(name: str, got: dict, want: dict, logits: bool = True) -> dict:
+    """A sharded first step against the one-card step: loss, gradients
+    (relative L2 over every parameter, in the one-card order) and logits."""
+    import torch
+
+    check(list(got["grads"]) == list(want["grads"]),
+          f"{name}: the gathered gradients name other parameters than one card's")
+    flat = lambda gs: torch.cat([g.flatten() for g in gs.values()])
+    a, w = flat(got["grads"]), flat(want["grads"])
+    grad_rel = ((a - w).norm() / w.norm()).item()
+    loss_abs = abs(got["losses"][0] - want["loss"])
+    check(loss_abs <= TRAIN_LOSS_TOL, f"{name}: loss {got['losses'][0]} vs one card "
+                                      f"{want['loss']}")
+    check(grad_rel <= TRAIN_GRAD_TOL, f"{name}: gradients rel. L2 {grad_rel} > {TRAIN_GRAD_TOL}")
+    out = {"loss": got["losses"][0], "one_card_loss": want["loss"], "loss_abs": loss_abs,
+           "grad_rel_l2": grad_rel}
+    if logits:
+        rel = ((got["logits"] - want["logits"]).norm() / want["logits"].norm()).item()
+        check(rel <= TRAIN_GRAD_TOL, f"{name}: logits rel. L2 {rel} > {TRAIN_GRAD_TOL}")
+        out["logits_rel_l2"] = rel
+    return out
+
+
+def phase_seq_pipe(torch, seed: int, smi: str, setup: dict) -> dict:
+    """Sequence and pipeline parallelism at the AK recipe's full width:
+    (a) the ring on in-process shards; (b)-(d) gloo ranks on ``cuda:0``
+    (NCCL refuses two ranks on one card) taking trainer steps at seq 2,
+    pipe 2 and pipe 2 x seq 2, held to one card."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    out = {"ring": _seq_ring(torch, seed, smi)}
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    cfg, batches = setup["cfg"], setup["batches"]
+    rng = np.random.default_rng(seed + 15)
+    lengths = rng.integers(1200, SEQ_STEP_BUCKET - 127, 8)
+    lengths[2] = SEQ_STEP_BUCKET - 40  # pads to the 2048 bucket
+    from vimoclip_tpu_torch.data.embedding_dataset import collate_pad
+
+    long_batch = {k: v for k, v in collate_pad(
+        _clips(rng, lengths, 512, 140, "seq"), bucket=128, max_seq_len=2048).items()
+        if k != "video_id"}
+    check(long_batch["embeddings"].shape[1] == SEQ_STEP_BUCKET, "the seq batch is not 2048 long")
+    train = lambda **kw: dataclasses.replace(cfg.training, **kw)
+    model = lambda **kw: dataclasses.replace(cfg.model, **kw)
+    seq_cfg = dataclasses.replace(cfg, training=train(seq_parallel=2))
+    nodrop_cfg = dataclasses.replace(cfg, model=model(dropout=0.0, mlp_dropout=0.0))
+    pipe_cfg = dataclasses.replace(nodrop_cfg, training=train(pipeline_parallel=2,
+                                                              pipeline_microbatches=2))
+    pipe_drop_cfg = dataclasses.replace(pipe_cfg, model=cfg.model)
+    both_cfg = dataclasses.replace(pipe_cfg, training=train(
+        pipeline_parallel=2, pipeline_microbatches=2, seq_parallel=2))
+    check(batches[0]["embeddings"].shape[1] <= 512, "phase 6's first batch is past 512")
+    one_seq = _one_card_step(torch, cfg, long_batch, tmp / "one_seq")
+    one_pipe = _one_card_step(torch, nodrop_cfg, batches[0], tmp / "one_pipe")
+    torch.cuda.empty_cache()
+    worlds = {2: [("seq2", seq_cfg, [long_batch], 1), ("pipe2", pipe_cfg, batches[:1], 1),
+                  ("pipe2_drop", pipe_drop_cfg, batches, 2)],
+              4: [("pipe2seq2", both_cfg, batches[:1], 1)]}
+    spawn_s = {}
+    for world, jobs in worlds.items():
+        for name, *_ in jobs:
+            (tmp / name).mkdir()
+        t0 = time.perf_counter()
+        mp.spawn(_seq_pipe_rank, args=(world, str(tmp / f"store{world}"), str(tmp), jobs),
+                 nprocs=world, join=True)
+        spawn_s[world] = time.perf_counter() - t0
+    got = {name: torch.load(tmp / name / "rank0.pt", weights_only=True)
+           for jobs in worlds.values() for name, *_ in jobs}
+    ranks = {name: [torch.load(tmp / name / f"launches{r}.pt", weights_only=True)
+                    for r in range(world)]
+             for world, jobs in worlds.items() for name, *_ in jobs}
+    launches = dict(out["ring"]["launches"])
+    for per_rank in ranks.values():
+        for r in per_rank:
+            for kind, n in r["launches"].items():
+                launches[kind] += n
+    # per rank: (b) 8 ring calls of 2 blocks of 1024 keys; (c) the stage's 2
+    # layers x 2 sites x 2 microbatches: K1 in the forward, K1' and K2 when
+    # the backward recomputes it; (d) the same sites, each a ring of two
+    # 256-key blocks (K1' in both passes)
+    expect = {"seq2": {"fwd_lse": 16, "bwd_dq": 16, "bwd_dkv": 16},
+              "pipe2": {"fwd": 8, "fwd_lse": 8, "bwd_dqkv": 8},
+              "pipe2seq2": {"fwd_lse": 32, "bwd_dqkv": 16}}
+    for name, want in expect.items():
+        want = {k: want.get(k, 0) for k in fa.LAUNCH_KINDS}
+        for r, per in enumerate(ranks[name]):
+            check(per["launches"] == want, f"{name} rank {r} launched {per['launches']}, "
+                                           f"expected {want}")
+    out["seq2"] = dict(_held("seq 2", got["seq2"], one_seq),
+                       step_ms=[r["step_ms"] for r in ranks["seq2"]],
+                       launches_per_rank=ranks["seq2"][0]["launches"])
+    out["pipe2"] = dict(_held("pipe 2", got["pipe2"], one_pipe),
+                        launches_per_rank=[r["launches"] for r in ranks["pipe2"]],
+                        step_ms=[r["step_ms"] for r in ranks["pipe2"]])
+    drop = got["pipe2_drop"]["losses"]
+    n = len(batches)
+    check(all(np.isfinite(drop)), f"pipe 2 with dropout: losses {drop}")
+    check(np.mean(drop[n:]) < np.mean(drop[:n]),
+          f"pipe 2 with dropout: the second pass's mean loss {np.mean(drop[n:])} did not fall "
+          f"below the first's {np.mean(drop[:n])}")
+    out["pipe2_drop"] = {"losses": drop, "launches_per_rank": [
+        r["launches"] for r in ranks["pipe2_drop"]]}
+    out["pipe2seq2"] = dict(_held("pipe 2 x seq 2", got["pipe2seq2"], one_pipe),
+                            launches_per_rank=[r["launches"] for r in ranks["pipe2seq2"]],
+                            step_ms=[r["step_ms"] for r in ranks["pipe2seq2"]])
+    out["spawn_s"] = spawn_s
+    out["launches"] = launches
+    print("[seq-pipe] " + json.dumps(out) + f" [{smi}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2453,6 +2735,7 @@ def main() -> int:
     phase_benchmark(torch, args.seed, smi)
     accel = phase_accelerators(torch, args.seed, smi)
     par = phase_parallel(torch, args.seed, smi, setup, train, student, stats)
+    seq_pipe = phase_seq_pipe(torch, args.seed, smi, setup)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
@@ -2460,7 +2743,8 @@ def main() -> int:
         "name": "flash_attention_fwd", "route": "cuda", "source": fwd_src,
         "replaces": f"{tpu}:113",
         "launches": (stats["flash_launches"] + served["k1_launches"]
-                     + accel["cli_k1_launches"] + par["k1_launches"]),
+                     + accel["cli_k1_launches"] + par["k1_launches"]
+                     + seq_pipe["launches"]["fwd"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -2474,7 +2758,8 @@ def main() -> int:
         check(train["launches"][kind] > 0, f"{kind} never launched on the training path")
         kernels.append({
             "name": name_, "route": "cuda", "source": source, "replaces": f"{tpu}:{line}",
-            "launches": train["launches"][kind] + par["launches"][kind],
+            "launches": (train["launches"][kind] + par["launches"][kind]
+                         + seq_pipe["launches"][kind]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

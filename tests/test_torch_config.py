@@ -54,16 +54,32 @@ def test_tpu_fields_parsed_not_dropped(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("doc, exc, words", [
-    ({"model": {"attention_impl": "ring"}}, NotImplementedError, "multi-GPU"),
-    ({"model": {"attention_impl": "ring_inner"}}, NotImplementedError, "multi-GPU"),
+    ({"training": {"parallelism": {"seq": "two"}}}, ValueError, "must be an integer"),
+    ({"training": {"parallelism": [2, 2]}}, ValueError, "must be a mapping"),
     ({"model": {"attention_impl": "pallas"}}, ValueError, "attention_impl"),
-    ({"training": {"parallelism": {"seq": 2}}}, NotImplementedError, "multi-GPU"),
-    ({"training": {"pipeline_parallel": 2}}, NotImplementedError, "multi-GPU"),
+    ({"training": {"data_parallel": 0}}, ValueError, "data_parallel must be -1"),
+    ({"training": {"model_parallel": 0}}, ValueError, "model_parallel >= 1"),
     ({"training": {"device": "gpu0"}}, ValueError, "device"),
 ])
 def test_refusals_name_their_slice(tmp_path, doc, exc, words):
     with pytest.raises(exc, match=words):
         tcfg.load_experiment_config(_write(tmp_path, doc))
+
+
+@pytest.mark.parametrize("doc", [
+    {"model": {"attention_impl": "ring"}},
+    {"model": {"attention_impl": "ring_inner"}},
+    {"training": {"parallelism": {"seq": 2}}},
+    {"training": {"pipeline_parallel": 2, "parallelism": {"microbatches": 4}}},
+])
+def test_seq_and_pipe_parse_as_jax(tmp_path, doc):
+    """The settings slice 7b lifted load in both packages to equal fields;
+    whether the ranks match is the trainer's check."""
+    path = _write(tmp_path, doc)
+    ours, theirs = tcfg.load_experiment_config(path), jcfg.load_experiment_config(path)
+    assert _fields(ours.model) == _fields(theirs.model)
+    for field in ("seq_parallel", "pipeline_parallel", "pipeline_microbatches"):
+        assert getattr(ours.training, field) == getattr(theirs.training, field), field
 
 
 def test_data_parallel_parses_and_the_trainer_wants_its_ranks(tmp_path):

@@ -736,3 +736,109 @@ def test_world_one_nccl_step_equals_the_single_card_step(cuda, tmp_path):
     (l0, z0, g0), (l1, z1, g1) = out
     assert torch.equal(l0, l1) and torch.equal(z0, z1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# ---------------------------------------------------------------------------
+# global dropout offsets and the ring (sequence parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _philox_mask(seed, rows, cols, rate):
+    """The keep mask with counter (row, col // 4) computed here from
+    Philox4x32-10 itself: what the kernels drew before they took offsets."""
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import keep_threshold, philox4x32
+
+    r = torch.arange(rows, dtype=torch.int64).view(1, 1, rows, 1)
+    g = torch.arange(cols // 4, dtype=torch.int64).view(1, 1, 1, cols // 4)
+    key = (seed.cpu().to(torch.int64) & 0xFFFFFFFF)[:, :, None, None]
+    words = torch.stack(torch.broadcast_tensors(*philox4x32(r, g, 0, 0, key, 0)), -1)
+    return words.reshape(*words.shape[:3], cols) < keep_threshold(rate)
+
+
+def _seeds(device, b=2, h=3):
+    return expand_seed(torch.tensor([11, -5])[:b], b, h, device=device)
+
+
+@pytest.mark.parametrize("kind, t, n", [("fwd_lse", 1024, 4), ("bwd_dqkv", 1024, 2),
+                                        ("bwd_dq", 2048, 2)])
+def test_offset_kernels_draw_the_whole_calls_bits(cuda, kind, t, n):
+    """Each (query block, key block) of an n-way split, drawn by the kernel
+    with its global offsets, holds the cut of the whole sequence's bits,
+    bit for bit (K1' by its output, K2 by dv, K3 by the keep-bit buffer it
+    fills for K4)."""
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        dropout_keep_mask,
+        kernel_keep_bits,
+    )
+
+    seed = _seeds(cuda)
+    whole = dropout_keep_mask(seed.cpu(), t, t, 0.1)
+    blk = t // n
+    for qi, ki in ((0, 0), (n - 1, 0), (0, n - 1), (n - 1, n - 1)):
+        got = kernel_keep_bits(kind, seed, blk, blk, 0.1, row0=qi * blk, col0=ki * blk).cpu()
+        assert torch.equal(got, whole[..., qi * blk:(qi + 1) * blk, ki * blk:(ki + 1) * blk])
+
+
+@pytest.mark.parametrize("kind, rows, cols", [("fwd_lse", 192, 256), ("bwd_dqkv", 128, 384),
+                                              ("bwd_dq", 128, 640)])
+def test_zero_offsets_draw_the_unshifted_bits(cuda, kind, rows, cols):
+    """With both offsets 0 the kernels draw the bits they drew without them."""
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import kernel_keep_bits
+
+    seed = _seeds(cuda)
+    got = kernel_keep_bits(kind, seed, rows, cols, 0.1).cpu()
+    assert torch.equal(got, _philox_mask(seed, rows, cols, 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("tk", [256, 768], ids=["dqkv", "dq+dkv"])
+def test_offset_kernels_match_plain(cuda, dtype, tk):
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, mask = _inputs(2, 3, 192, tk, 64, dtype, cuda, seed=4)
+    seed = _seeds(cuda)
+    at = dict(row0=320, col0=tk * 3)
+    out, lse = fa.forward_lse(q, k, v, mask, seed, 0.1, **at)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, 0.1, seed=seed, return_lse=True,
+                                             **at)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    grad = torch.randn_like(out)
+    got = fa.backward(q, k, v, mask, seed, 0.1, out, lse, grad, **at)
+    want = flash_attention_backward_reference(q, k, v, mask, out, lse, grad, 0.1, seed=seed,
+                                              **at)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= GRAD_TOL[dtype]
+    base = fa.forward_lse(q, k, v, mask, seed, 0.1)[0]
+    assert not torch.equal(base, out)  # the offsets move the bits
+    assert torch.equal(base, fa.forward_lse(q, k, v, mask, seed, 0.1, 0, 0)[0])
+
+
+@pytest.mark.parametrize("n, t", [(2, 2048), (4, 1024)])
+def test_ring_matches_one_call_on_card(cuda, n, t):
+    """The in-process ring over n shards in bf16 with dropout 0.1 and padded
+    keys against one K1' + K3/K4 call on the whole sequence with the same
+    seeds: output 1e-2, gradients 5e-3 relative L2; K1' n times a shard
+    forward, the backward kernels n times a shard."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.parallel.sequence import LocalRing, sequence_parallel_attention
+
+    q, k, v, mask = _inputs(2, 4, t, t, 64, torch.bfloat16, cuda, seed=9, masked_rows=())
+    mask[:, t - t // n - 64:] = True  # the last block holds padding only
+    seed = _seeds(cuda, 2, 4)
+    qs = [x.clone().requires_grad_() for x in (q, k, v)]
+    one = flash_attention(*qs, mask, 0.1, seed)
+    g = torch.randn_like(one)
+    want = torch.autograd.grad(one, qs, g)
+    fa.reset_launch_counts()
+    ring = sequence_parallel_attention(*qs, LocalRing(n), mask, dropout_rate=0.1,
+                                       dropout_seed=seed)
+    got = torch.autograd.grad(ring, qs, g)
+    torch.cuda.synchronize()
+    launches = dict(flash_attention.launches)
+    assert launches["fwd_lse"] == n * n
+    kind = "bwd_dqkv" if t // n <= 512 else "bwd_dq"
+    assert launches[kind] == n * n
+    assert torch.isfinite(ring).all()
+    assert (ring.float() - one.float()).abs().max().item() <= 1e-2
+    for a, b in zip(got, want):
+        assert ((a.float() - b.float()).norm() / b.float().norm()).item() <= 5e-3

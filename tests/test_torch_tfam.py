@@ -110,8 +110,11 @@ def test_training_and_ring_refused():
     assert torch.equal(out, model(*args, generator=gen()))  # same stream, same masks
     with torch.no_grad():
         assert not torch.equal(out, model.eval()(*args))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TFAM(dataclasses.replace(cfg, attention_impl="ring"), num_classes=C)
+    # ring attention builds since slice 7b, and without a seq group (a mesh
+    # with a "seq" axis) it raises, as JAX's "needs seq_mesh"
+    ring = TFAM(dataclasses.replace(cfg, attention_impl="ring"), num_classes=C).eval()
+    with pytest.raises(ValueError, match="needs a seq group"):
+        ring(*args)
     # dropout 0 in train mode is the same function as eval: allowed
     quiet = TFAM(dataclasses.replace(cfg, dropout=0.0, mlp_dropout=0.0), num_classes=C)
     assert quiet(*(torch.from_numpy(a) for a in _inputs(0))).shape == (3, C)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Data and tensor parallelism of the PyTorch/CUDA port (``vimoclip_tpu_torch``)
-across the cards of one host, one process per card:
+"""Data, tensor, sequence and pipeline parallelism of the PyTorch/CUDA port
+(``vimoclip_tpu_torch``) across the cards of one host, one process per card:
 
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 tools/multi_gpu_check.py
 
@@ -16,8 +16,16 @@ across the cards of one host, one process per card:
    gradients 5e-3 rel. L2: bf16 products over other row counts and head
    splits) and reports the later losses, its kernel launches per step and
    the warm step time.
-3. The student at data 2 x model N/2 the same way, one step.
-4. After the group, rank 0 extracts 2,048 224x224 frames with ViT-B/16
+3. Sequence and pipeline parallelism at the 2048-frame bucket (eight clips,
+   the longest padded to 2048): every (data, seq, pipe) layout of the world
+   among seq N, data 2 x seq N/2, pipe N, data 2 x pipe N/2 and pipe 2 x
+   seq N/2 takes one TFAM step from the same weights, held to the one-card
+   step with the same limits: with dropout 0.1 under seq alone (its masks
+   are the one-card masks), without dropout where a pipe axis draws its
+   own. Rank 0 reports the warm step and every card's
+   ``max_memory_allocated`` beside the one-card step's.
+4. The student at data 2 x model N/2 the same way, one step.
+5. After the group, rank 0 extracts 2,048 224x224 frames with ViT-B/16
    (batch 256) on 1, 2 and N replicas (``cuda:0 .. cuda:N-1``): frames/s of
    a warm pass each, rel. L2 against one replica.
 
@@ -61,10 +69,10 @@ from vimoclip_tpu_torch.train.student_trainer import StudentTrainer  # noqa: E40
 from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer  # noqa: E402
 
 LOSS_TOL, GRAD_TOL = 1e-4, 5e-3
-FULL = dict(d=512, heads=8, layers=4, ff=2048, classes=140, lengths=(60, 501),
+FULL = dict(d=512, heads=8, layers=4, ff=2048, classes=140, lengths=(60, 501), long=(1200, 1921),
             vit=ClipVisionConfig.vit_b_32(), teacher=ClipVisionConfig.vit_b_16(), hw=224,
             seq=30, frames=2048, batch=256)
-TINY = dict(d=64, heads=8, layers=2, ff=128, classes=10, lengths=(5, 21),
+TINY = dict(d=64, heads=8, layers=4, ff=128, classes=10, lengths=(5, 21), long=(20, 100),
             vit=ClipVisionConfig(image_size=32, patch_size=16, hidden_size=64, num_layers=2,
                                  num_heads=4, intermediate_size=128, projection_dim=32),
             teacher=ClipVisionConfig(image_size=32, patch_size=16, hidden_size=32,
@@ -78,15 +86,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def tfam_config(geo: dict, device: torch.device, data: int = -1, model: int = 1):
+def tfam_config(geo: dict, device: torch.device, data: int = -1, model: int = 1,
+                seq: int = 1, pipe: int = 1, dropout: float = 0.1):
     return ExperimentConfig(
         training=TrainingConfig(seed=0, lr=1e-4, batch_size=8, num_workers=1,
                                 device=device.type, half_precision=device.type == "cuda",
-                                data_parallel=data, model_parallel=model),
-        logging=LoggingConfig(), data=DataConfig(num_classes=geo["classes"]),
+                                data_parallel=data, model_parallel=model, seq_parallel=seq,
+                                pipeline_parallel=pipe),
+        logging=LoggingConfig(),
+        data=DataConfig(num_classes=geo["classes"], length_bucket=128, max_seq_len=2048),
         model=TFAMModelConfig(d_model=geo["d"], nhead=geo["heads"], num_layers=geo["layers"],
-                              dim_feedforward=geo["ff"], dropout=0.1, mlp_dropout=0.1,
-                              attention_impl="flash"))
+                              dim_feedforward=geo["ff"], dropout=dropout,
+                              mlp_dropout=dropout, attention_impl="flash"))
 
 
 def tfam_data(geo: dict, seed: int):
@@ -104,6 +115,19 @@ def tfam_data(geo: dict, seed: int):
     return items, batches
 
 
+def long_batch(geo: dict, seed: int) -> dict:
+    """Eight clips at the 2048-frame bucket (one clip 2008 frames long)."""
+    rng = np.random.default_rng(seed + 2)
+    lengths = rng.integers(*geo["long"], 8)
+    lengths[3] = 2008 if geo is FULL else geo["long"][1]
+    items = [{"video_id": f"l{i}", "labels": (rng.random(geo["classes"]) < 0.02).astype(
+        np.float32), "embeddings": 0.05 * rng.standard_normal((t, geo["d"])).astype(np.float32),
+        "motion_embeddings": 0.05 * rng.standard_normal((t - 1, geo["d"])).astype(np.float32)}
+        for i, t in enumerate(lengths)]
+    return {k: v for k, v in collate_pad(items, bucket=128, max_seq_len=2048).items()
+            if k != "video_id"}
+
+
 def student_data(geo: dict, seed: int) -> list[dict]:
     rng = np.random.default_rng(seed + 1)
     return [{"video_id": f"s{i}",
@@ -115,14 +139,12 @@ def student_data(geo: dict, seed: int) -> list[dict]:
 
 
 def full_grads(model, partition) -> torch.Tensor:
-    """The gradient of every parameter, whole (gathered over ``model``),
-    flattened in ``named_parameters`` order."""
-    out = []
-    for name, p in model.named_parameters():
-        if p.grad is not None:
-            g = p.grad if partition is None else partition.full(name, p.grad)
-            out.append(g.float().flatten())
-    return torch.cat(out)
+    """The gradient of every parameter, whole (gathered over ``model`` and
+    every stage's layers over ``pipe``), flattened in the one-card order."""
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    if partition is not None:
+        grads = partition.full_state(grads)
+    return torch.cat([g.float().flatten() for g in grads.values()])
 
 
 def warm_ms(step, device, n: int = 10, warmup: int = 3) -> float:
@@ -137,10 +159,13 @@ def warm_ms(step, device, n: int = 10, warmup: int = 3) -> float:
     return float(np.mean(times)) * 1e3
 
 
-def tfam_run(geo, device, items, batches, where: Path, data=-1, model=1) -> dict:
-    trainer = TFAMTrainer(tfam_config(geo, device, data, model), log_dir=str(where / "logs"),
-                          checkpoint_dir=str(where / "ck"), train_dataset=items,
-                          val_dataset=items)
+def tfam_run(geo, device, items, batches, where: Path, data=-1, model=1, seq=1, pipe=1,
+             dropout=0.1) -> dict:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    trainer = TFAMTrainer(tfam_config(geo, device, data, model, seq, pipe, dropout),
+                          log_dir=str(where / "logs"), checkpoint_dir=str(where / "ck"),
+                          train_dataset=items, val_dataset=items)
     losses, launches = [], []
     for i, batch in enumerate(batches):
         fa.reset_launch_counts()
@@ -150,8 +175,11 @@ def tfam_run(geo, device, items, batches, where: Path, data=-1, model=1) -> dict
         if i == 0:
             grads = full_grads(trainer.model, trainer.partition).cpu()
     local = {k: torch.from_numpy(v).to(device) for k, v in batches[0].items()}
-    return {"losses": losses, "grads": grads, "launches": launches,
-            "warm_step_ms": warm_ms(lambda: trainer.train_step(local), device)}
+    out = {"losses": losses, "grads": grads, "launches": launches,
+           "warm_step_ms": warm_ms(lambda: trainer.train_step(local), device, n=5)}
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    return out
 
 
 def student_run(geo, device, items, where: Path, data=-1, model=1) -> dict:
@@ -216,6 +244,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tiny", action="store_true", help="small widths (a CPU rehearsal)")
+    ap.add_argument("--only-seq-pipe", action="store_true",
+                    help="part 3 alone (with its one-card steps)")
     args = ap.parse_args()
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local = int(os.environ["LOCAL_RANK"])
@@ -240,7 +270,9 @@ def main() -> int:
             print(json.dumps({"part": part, **payload}), flush=True)
 
     ref = {}
-    if rank == 0:  # the one-card steps, before any process group
+    long = [long_batch(geo, args.seed)]
+    every = not args.only_seq_pipe
+    if rank == 0 and every:  # the one-card steps, before any process group
         ref["tfam"] = tfam_run(geo, device, items, batches, work / "one" / "tfam")
         ref["student"] = student_run(geo, device, segments, work / "one" / "student")
         report("one_card", {"tfam_losses": ref["tfam"]["losses"],
@@ -248,12 +280,20 @@ def main() -> int:
                             "tfam_launches": ref["tfam"]["launches"],
                             "student_loss": ref["student"]["loss"],
                             "student_warm_step_ms": ref["student"]["warm_step_ms"]})
+    for drop in (0.1, 0.0) if rank == 0 else ():
+        ref[f"long{drop}"] = tfam_run(geo, device, items, long, work / "one" / f"l{drop}",
+                                      dropout=drop)
+        report("one_card_long", {"dropout": drop, "loss": ref[f"long{drop}"]["losses"][0],
+                                 "launches": ref[f"long{drop}"]["launches"],
+                                 "warm_step_ms": ref[f"long{drop}"]["warm_step_ms"],
+                                 "max_memory_allocated": ref[f"long{drop}"].get(
+                                     "max_memory_allocated")})
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             device_id=device if device.type == "cuda" else None)
     try:
         meshes = [(world, 1), (2, world // 2), (1, world)] if world >= 4 else [(world, 1),
                                                                             (1, world)]
-        for data, model in meshes:
+        for data, model in meshes if every else ():
             got = tfam_run(geo, device, items, batches, work / f"tfam_{data}x{model}",
                            data, model)
             if rank == 0:
@@ -262,9 +302,31 @@ def main() -> int:
                 report("tfam", {"data": data, "model": model, "losses": got["losses"],
                                 "launches_rank0": got["launches"],
                                 "warm_step_ms": got["warm_step_ms"], **verdict})
+        half = world // 2
+        layouts = [(-1, world, 1), (2, half, 1), (-1, 1, world), (2, 1, half), (-1, half, 2)]
+        for data, seq, pipe in layouts:
+            if pipe > 1 and geo["layers"] % pipe or (data == 2 and world < 4):
+                continue
+            drop = 0.1 if pipe == 1 else 0.0
+            got = tfam_run(geo, device, items, long, work / f"long_{data}x{seq}x{pipe}",
+                           data=data, seq=seq, pipe=pipe, dropout=drop)
+            mem = [None] * world
+            dist.all_gather_object(mem, got.get("max_memory_allocated"))
+            if rank == 0:
+                verdict = held(got, ref[f"long{drop}"])
+                failed += [] if verdict["ok"] else [f"tfam data {data} seq {seq} pipe {pipe}"]
+                report("tfam_seq_pipe", {
+                    "data": data, "seq": seq, "pipe": pipe, "dropout": drop,
+                    "loss": got["losses"][0], "launches_rank0": got["launches"],
+                    "warm_step_ms": got["warm_step_ms"],
+                    "one_card_warm_step_ms": ref[f"long{drop}"]["warm_step_ms"],
+                    "max_memory_allocated": mem,
+                    "one_card_max_memory_allocated": ref[f"long{drop}"].get(
+                        "max_memory_allocated"), **verdict})
         data, model = (2, world // 2) if world >= 4 else (world, 1)
-        got = student_run(geo, device, segments, work / f"student_{data}x{model}", data, model)
-        if rank == 0:
+        got = student_run(geo, device, segments, work / f"student_{data}x{model}", data,
+                          model) if every else None
+        if rank == 0 and every:
             verdict = held(got, ref["student"], "loss")
             failed += [] if verdict["ok"] else [f"student {data}x{model}"]
             report("student", {"data": data, "model": model, "loss": got["loss"],
@@ -274,7 +336,8 @@ def main() -> int:
         dist.destroy_process_group()
     if rank != 0:
         return 0
-    report("extract_replicas", extraction(geo, world, device, args.seed))
+    if every:
+        report("extract_replicas", extraction(geo, world, device, args.seed))
     smi = ""
     if device.type == "cuda":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,8 +10,8 @@ CPU. ``training.mode`` picks train, test or both; ``training.loss: ce`` /
 ``training.metric: accuracy`` give the MammalNet variant.
 
 On N cards, one process per card under ``torchrun``, with
-``training.data_parallel`` x ``model_parallel`` = N (``-1`` takes every
-rank left)::
+``training.data_parallel`` x ``model_parallel`` x ``parallelism.seq`` x
+``parallelism.pipe`` = N (``data_parallel: -1`` takes every rank left)::
 
     torchrun --nproc-per-node N -m vimoclip_tpu_torch.cli.tfam_train_eval --config cfg.yaml
 

@@ -11,13 +11,14 @@ dropped:
   a JAX bit generator; the port's dropout draws from ``torch.Generator``
   streams (``prng.KeyChain``) and the kernels' Philox bits whatever it says.
 - ``training.parallelism`` / the flat ``*_parallel`` keys fill the same
-  fields. ``data`` and ``model`` run over ``torch.distributed``
-  (``parallel/``, one process per GPU under ``torchrun``); seq/pipe > 1
-  raise and name slice 7b of the multi-GPU port.
+  fields. ``data``, ``model``, ``seq`` and ``pipe`` (with
+  ``microbatches``) run over ``torch.distributed`` (``parallel/``, one
+  process per GPU under ``torchrun``).
 - ``data.length_bucket`` keeps its meaning: serving rounds sequence lengths
   up to it, so a handful of shapes cover every request.
-- ``model.attention_impl: ring | ring_inner`` raises and names slice 7b
-  of the multi-GPU port.
+- ``model.attention_impl: ring | ring_inner`` is ring attention over the
+  trainer's ``seq`` group (``ops/attention.py``); the trainer sets it
+  itself under ``training.parallelism.seq``.
 
 Keys the schema does not know are logged and ignored (the reference's
 ``testing:`` block and similar), never dropped without a word.
@@ -124,8 +125,7 @@ class ExperimentConfig:
         return self.data.num_classes
 
 
-_ATTENTION_IMPLS = ("xla", "flash", "auto")
-_RING_IMPLS = ("ring", "ring_inner")
+_ATTENTION_IMPLS = ("xla", "flash", "auto", "ring", "ring_inner")
 
 
 def _build(cls, section: dict[str, Any] | None, where: str):
@@ -158,10 +158,9 @@ _PARALLELISM_KEYS = {
 
 
 def check_training_config(t: TrainingConfig, path: str = "training") -> TrainingConfig:
-    """Map ``tpu`` to ``cuda``; refuse devices and parallelism the port
-    does not run, naming their slice. Whether ``data_parallel`` x
-    ``model_parallel`` matches the ranks is the trainer's check
-    (``parallel/mesh.py::create_mesh``)."""
+    """Map ``tpu`` to ``cuda``; refuse devices the port does not run and
+    impossible axis sizes. Whether the axes' product matches the ranks is
+    the trainer's check (``parallel/mesh.py::create_mesh``)."""
     device = str(t.device).lower()
     if device == "tpu":
         _log.info("%s: training.device 'tpu' maps to 'cuda' in the port", path)
@@ -172,13 +171,6 @@ def check_training_config(t: TrainingConfig, path: str = "training") -> Training
             f"{path}: training.device must be tpu, cuda, cuda:N or cpu; got {t.device!r}"
         )
     t.device = device
-    for field in ("seq_parallel", "pipeline_parallel"):
-        if getattr(t, field) > 1:
-            raise NotImplementedError(
-                f"{path}: training.{field}={getattr(t, field)} needs slice 7b of "
-                "the multi-GPU port (parallel/sequence.py, parallel/pipelining.py), "
-                "not ported yet"
-            )
     if t.data_parallel == 0 or t.data_parallel < -1 or t.model_parallel < 1:
         raise ValueError(f"{path}: training.data_parallel must be -1 or >= 1 and "
                          f"model_parallel >= 1; got {t.data_parallel}, {t.model_parallel}")
@@ -186,12 +178,7 @@ def check_training_config(t: TrainingConfig, path: str = "training") -> Training
 
 
 def check_model_config(m: TFAMModelConfig, where: str = "model") -> TFAMModelConfig:
-    """Refuse settings the port does not run yet, naming their slice."""
-    if m.attention_impl in _RING_IMPLS:
-        raise NotImplementedError(
-            f"{where}: attention_impl={m.attention_impl!r} is sequence-parallel "
-            "ring attention, which comes with slice 7b of the multi-GPU port"
-        )
+    """Refuse settings the port does not know."""
     if m.attention_impl not in _ATTENTION_IMPLS:
         raise ValueError(
             f"{where}: attention_impl must be one of {_ATTENTION_IMPLS}; "

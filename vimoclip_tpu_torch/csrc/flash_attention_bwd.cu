@@ -16,7 +16,9 @@
 //                                              keys past Tk left out)
 //   P  = exp(s - lse)
 //   dP = keep ? (dO . v) / (1 - rate) : 0      (keep: the forward's Philox
-//                                              bits, flash_attention_common.cuh)
+//                                              bits, flash_attention_common.cuh,
+//                                              at the global coordinates
+//                                              (row0 + row, col0 + key))
 //   dS = P * (dP - delta)
 //   dQ = round_T(dS) . K * scale,  dK = round_T(dS)^T . Q * scale,
 //   dV = round_T(keep ? P / (1 - rate) : 0)^T . dO
@@ -142,6 +144,7 @@ struct BwdParams {
   uint32_t* keep_bits;  // (B, H, nk, tq_pad, 2) keep bits, bf16 K3 -> K4 with dropout
   int tq_pad;           // Tq rounded up to 64
   int B, H, Tq, Tk, D;
+  int row0, col0;       // global (query row, key) of element (0, 0): dropout bits
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
@@ -247,7 +250,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
     __syncthreads();  // the previous tile is consumed (and Qs/dOs written)
     stage_rows<T, DP>(Ks, k, p.k_st, k0, p.Tk, p.D, 1.f, false, tid);
     stage_rows<T, DP>(Vs, v, p.v_st, k0, p.Tk, p.D, 1.f, false, tid);
-    if constexpr (DROP) fill_keep_bits(bits, kB, q0, k0, seed, p.threshold, tid, kThreads);
+    if constexpr (DROP)
+      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
     __syncthreads();
 
     float s[kPer], dp[kPer];
@@ -349,7 +353,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const BwdParams p) {
       lse_s[r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();  // P = 0 past Tq
       delta_s[r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
     }
-    if constexpr (DROP) fill_keep_bits(bits, kB, q0, k0, seed, p.threshold, tid, kThreads);
+    if constexpr (DROP)
+      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
     __syncthreads();
 
     float s[kPer], dp[kPer];
@@ -582,7 +587,8 @@ __global__ void __launch_bounds__(kHopThreads, 2) dq_wgmma_kernel(
     // tile's 512 contiguous bytes.
     uint32_t* tb = bits + (t & 1) * 2 * kTile;
     if constexpr (DROP) {
-      fill_keep_bits(tb, kTile, q0, k0, seed, p.threshold, tid, kConsumers);
+      fill_keep_bits(tb, kTile, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid,
+                     kConsumers);
       p.keep_bits[((bh * n_tiles + t) * p.tq_pad + q0) * 2 + tid] = tb[tid];
       consumer_sync();
     }
@@ -913,7 +919,8 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kerne
   // the first tile's here
   uint32_t keep_word = 0u;
   if constexpr (DROP) {
-    fill_keep_bits<2>(bits, kTile, 0, k0, (uint32_t)p.seed[bh], p.threshold, tid, kConsumers);
+    fill_keep_bits<2>(bits, kTile, p.row0, p.col0 + k0, (uint32_t)p.seed[bh], p.threshold, tid,
+                      kConsumers);
     consumer_sync();
     keep_word = gather_keep(bits, kl_lo, t4);
   }
@@ -1006,8 +1013,8 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kerne
     uint32_t* next_bits = bits + ((t + 1) & 1) * 2 * kTile;
     if constexpr (DROP) {
       if (t + 1 < n_tiles)
-        fill_keep_bits<2>(next_bits, kTile, q0 + kTile, k0, (uint32_t)p.seed[bh], p.threshold,
-                          tid, kConsumers);
+        fill_keep_bits<2>(next_bits, kTile, p.row0 + q0 + kTile, p.col0 + k0,
+                          (uint32_t)p.seed[bh], p.threshold, tid, kConsumers);
     }
     fence_proxy_async();
     consumer_sync();  // every warp's dS^T (and the next tile's keep bits) is in place
@@ -1190,12 +1197,13 @@ int run_hopper(const BwdParams& p, int which, cudaStream_t s) {
 // Returns 0, a cudaError_t code, -1 for an unknown dtype, -2 for a head dim
 // above 128, -3 for an unknown `which`, -4 when the driver refuses a tensor
 // map, -5 for a bf16 operand TMA cannot address, -6 for dropout without
-// keep_bits, -7 for bf16 K2 without dq_part.
+// keep_bits, -7 for bf16 K2 without dq_part, -8 for a negative offset or a
+// col0 that is no multiple of 4.
 extern "C" int vimo_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* mask,
     const float* lse, const float* delta, const int* seed,
     void* dq, void* dk, void* dv, float* dq_part, unsigned int* keep_bits,
-    int which, int dtype, int B, int H, int Tq, int Tk, int D,
+    int which, int dtype, int B, int H, int Tq, int Tk, int D, int row0, int col0,
     long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
@@ -1211,6 +1219,8 @@ extern "C" int vimo_flash_attention_bwd(
   p.dq = dq; p.dk = dk; p.dv = dv; p.dq_part = dq_part;
   p.keep_bits = keep_bits; p.tq_pad = (Tq + 63) / 64 * 64;
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
+  if (row0 < 0 || col0 < 0 || col0 % 4 != 0) return -8;
+  p.row0 = row0; p.col0 = col0;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;

@@ -4,7 +4,12 @@
 // Dropout bits: Philox4x32-10 (Salmon et al., "Parallel random numbers: as
 // easy as 1, 2, 3", SC'11), keyed on GLOBAL coordinates, never on tiles:
 //   key     = (seed[b, h] as uint32, 0)
-//   counter = (query row, key column / 4, 0, 0)
+//   counter = (row0 + query row, (col0 + key column) / 4, 0, 0)
+// where (row0, col0), arguments of both entry points, are the global
+// coordinates of the call's element (0, 0): 0 for a whole sequence, the
+// block's first query row and key for one block of a longer sequence (the
+// ring of parallel/sequence.py), so that block draws the whole call's bits
+// there. col0 must be a multiple of 4 (a Philox call covers 4 keys).
 // One call gives the bits of 4 adjacent key columns (word j for column
 // 4 * (col / 4) + j), and a key is kept where bits < threshold, with
 // threshold = round((1 - p) * 2^32) as on the TPU. Every kernel, whatever its

@@ -31,11 +31,19 @@ activation, after the second FFN linear and once more on the residual branch
 Under data parallelism (``parallel/partition.py::parallelize_``) the batch
 is this rank's rows of a global batch collated once: the pooling length of
 the reference's batch-max pooling is taken over every data rank, and each
-dropout draws the global mask and keeps its rows.
+dropout draws the global mask and keeps its rows. Under a ``seq`` axis the
+inputs stay whole in time; after the fusion mode's prologue (PE on the
+global positions, the RGB[:-1] truncation, the concatenations) each rank
+keeps its block of the trunk's time, the layers run ring attention over the
+``seq`` group (``attention_impl: ring``), and the pooling sums the blocks
+over the group. Under a ``pipe`` axis the layers run as GPipe stages
+(``parallel/pipelining.py``), which reuses ``prologue``, ``cut_time``,
+``pool`` and ``head``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -47,6 +55,7 @@ from vimoclip_tpu_torch.models.clip_vit import layer_norm
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
 from vimoclip_tpu_torch.ops.dropout import Dropout, bernoulli_dropout
 from vimoclip_tpu_torch.parallel.mesh import Shard
+from vimoclip_tpu_torch.parallel.sequence import seq_sum
 
 _LN_EPS = 1e-5
 
@@ -90,11 +99,11 @@ class AttentionLayer(nn.Module):
         self.norm_cross = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.ffn = nn.Sequential(
             nn.Linear(d_model, dim_feedforward), _activation(activation),
-            Dropout(dropout, model_split=True), nn.Linear(dim_feedforward, d_model),
-            Dropout(dropout),
+            Dropout(dropout, model_split=True, time_split=True),
+            nn.Linear(dim_feedforward, d_model), Dropout(dropout, time_split=True),
         )
         self.norm_ffn = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.drop = Dropout(dropout)
+        self.drop = Dropout(dropout, time_split=True)
 
     def forward(self, x, cross_src=None, src_key_padding_mask=None,
                 cross_key_padding_mask=None, generator=None):
@@ -141,12 +150,31 @@ class TFAM(nn.Module):
         """rgb_emb (B, T1, d), motion_emb (B, T2, d); masks (B, T) bool,
         True = real frame. Returns (B, num_classes) float32 logits.
         ``generator``: the source of every dropout draw, required in
-        ``train()`` mode when a dropout rate is above 0."""
+        ``train()`` mode when a dropout rate is above 0. Under a ``seq``
+        axis the inputs are whole in time and each rank runs the layers on
+        its block of it (``cut_time``)."""
+        self.check_generator(generator)
+        if self.shard is not None and self.shard.pipe > 1:
+            raise ValueError("a TFAM cut into pipeline stages runs through "
+                             "parallel.pipelining.tfam_cross_pipeline_logits")
+        trunk = self.cut_time(self.prologue(rgb_emb, motion_emb, mask_rgb, mask_flow))
+        x = trunk.x
+        for layer in self.layers:
+            x = layer(x, cross_src=trunk.cross, src_key_padding_mask=trunk.attn,
+                      cross_key_padding_mask=trunk.cross_attn, generator=generator)
+        return self.head(self.pool(x, trunk), generator)
+
+    def check_generator(self, generator) -> None:
         cfg = self.config
         if (self.training and (cfg.dropout > 0.0 or cfg.mlp_dropout > 0.0)
                 and generator is None):
             raise ValueError("TFAM in train() mode with dropout > 0 needs a generator")
-        g = generator
+
+    def prologue(self, rgb_emb, motion_emb, mask_rgb=None, mask_flow=None) -> "Trunk":
+        """The fusion mode's input to the layers, whole in time: PE, the
+        key-padding masks (True = ignore), the concatenations and the
+        reference's RGB[:-1] truncation, and what the pooling needs."""
+        cfg = self.config
         attn_rgb = None if mask_rgb is None else ~mask_rgb
         attn_flow = None if mask_flow is None else ~mask_flow
 
@@ -168,66 +196,103 @@ class TFAM(nn.Module):
                 longest = self.shard.max_over_data(longest)
             return min(int(longest), cap)
 
-        pool_mask = None
         if cfg.use_only_rgb:
-            x, pool_mask = rgb_emb, mask_rgb
-            pool_limits = [(x.shape[1], batch_max(mask_rgb, x.shape[1]))]
-            for layer in self.layers:
-                x = layer(x, src_key_padding_mask=attn_rgb, generator=g)
-        elif cfg.use_only_flow:
-            x, pool_mask = motion_emb, mask_flow
-            pool_limits = [(x.shape[1], batch_max(mask_flow, x.shape[1]))]
-            for layer in self.layers:
-                x = layer(x, src_key_padding_mask=attn_flow, generator=g)
-        elif cfg.use_cross_attention:
-            x, pool_mask = rgb_emb, mask_rgb
-            pool_limits = [(x.shape[1], batch_max(mask_rgb, x.shape[1]))]
-            for layer in self.layers:
-                x = layer(x, cross_src=motion_emb, src_key_padding_mask=attn_rgb,
-                          cross_key_padding_mask=attn_flow, generator=g)
+            return Trunk(rgb_emb, attn_rgb, None, None,
+                         [(rgb_emb.shape[1], batch_max(mask_rgb, rgb_emb.shape[1]))], mask_rgb)
+        if cfg.use_only_flow:
+            return Trunk(motion_emb, attn_flow, None, None,
+                         [(motion_emb.shape[1], batch_max(mask_flow, motion_emb.shape[1]))],
+                         mask_flow)
+        if cfg.use_cross_attention:
+            return Trunk(rgb_emb, attn_rgb, motion_emb, attn_flow,
+                         [(rgb_emb.shape[1], batch_max(mask_rgb, rgb_emb.shape[1]))], mask_rgb)
+        # RGB drops its last frame to align with the T-1 motion frames;
+        # positions >= batchmax-1 leave the key set under bucket padding
+        s1_cap = rgb_emb.shape[1] - 1
+        rgb_emb = rgb_emb[:, :-1, :]
+        if attn_rgb is not None:
+            keep = torch.arange(s1_cap, device=rgb_emb.device) < (
+                batch_max(mask_rgb, s1_cap + 1) - 1)
+            attn_rgb = attn_rgb[:, :-1] | ~keep[None, :]
+        if cfg.concat_dim == 1:
+            s1, s2 = rgb_emb.shape[1], motion_emb.shape[1]
+            x = torch.cat([rgb_emb, motion_emb], dim=1)
+            attn_mask = (None if attn_rgb is None or attn_flow is None
+                         else torch.cat([attn_rgb, attn_flow], dim=1))
+            lim1 = s1 if mask_rgb is None else min(batch_max(mask_rgb, s1 + 1) - 1, s1)
+            pool_limits = [(s1, lim1), (s2, batch_max(mask_flow, s2))]
+        elif cfg.concat_dim == -1:
+            common = min(rgb_emb.shape[1], motion_emb.shape[1])
+            x = torch.cat([rgb_emb[:, :common], motion_emb[:, :common]], dim=-1)
+            x = self.projection_layer(x.float())
+            attn_mask = None if attn_flow is None else attn_flow[:, :common]
+            pool_limits = [(common, batch_max(mask_flow, common))]
         else:
-            # RGB drops its last frame to align with the T-1 motion frames;
-            # positions >= batchmax-1 leave the key set under bucket padding
-            s1_cap = rgb_emb.shape[1] - 1
-            rgb_emb = rgb_emb[:, :-1, :]
-            if attn_rgb is not None:
-                keep = torch.arange(s1_cap, device=rgb_emb.device) < (
-                    batch_max(mask_rgb, s1_cap + 1) - 1)
-                attn_rgb = attn_rgb[:, :-1] | ~keep[None, :]
-            if cfg.concat_dim == 1:
-                s1, s2 = rgb_emb.shape[1], motion_emb.shape[1]
-                x = torch.cat([rgb_emb, motion_emb], dim=1)
-                attn_mask = (None if attn_rgb is None or attn_flow is None
-                             else torch.cat([attn_rgb, attn_flow], dim=1))
-                lim1 = s1 if mask_rgb is None else min(
-                    batch_max(mask_rgb, s1 + 1) - 1, s1)
-                pool_limits = [(s1, lim1), (s2, batch_max(mask_flow, s2))]
-            elif cfg.concat_dim == -1:
-                common = min(rgb_emb.shape[1], motion_emb.shape[1])
-                x = torch.cat([rgb_emb[:, :common], motion_emb[:, :common]], dim=-1)
-                x = self.projection_layer(x.float())
-                attn_mask = None if attn_flow is None else attn_flow[:, :common]
-                pool_limits = [(common, batch_max(mask_flow, common))]
-            else:
-                raise ValueError(f"concat_dim must be 1 or -1, got {cfg.concat_dim}")
-            pool_mask = None if attn_mask is None else ~attn_mask
-            for layer in self.layers:
-                x = layer(x, src_key_padding_mask=attn_mask, generator=g)
+            raise ValueError(f"concat_dim must be 1 or -1, got {cfg.concat_dim}")
+        return Trunk(x, attn_mask, None, None, pool_limits,
+                     None if attn_mask is None else ~attn_mask)
 
-        if cfg.masked_pooling and pool_mask is not None:
-            m = pool_mask[..., None].to(x.dtype)
-            pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
-        else:
-            include = torch.cat([
-                torch.arange(cap, device=x.device) < limit
-                for cap, limit in pool_limits
-            ])
-            denom = max(sum(limit for _, limit in pool_limits), 1)
-            pooled = (x * include[None, :, None].to(x.dtype)).sum(dim=1) / denom
+    def cut_time(self, trunk: "Trunk") -> "Trunk":
+        """This rank's block of the trunk's time under a ``seq`` axis (the
+        queries' and the cross keys' alike); the trunk itself without
+        one."""
+        n = 1 if self.shard is None else self.shard.seq
+        if n == 1:
+            return trunk
+        if self.config.attention_impl not in ("ring", "ring_inner"):
+            raise ValueError(
+                f"under a seq axis of {n} the layers need attention_impl ring, not "
+                f"{self.config.attention_impl!r}")
+        tq = trunk.x.shape[1]
+        tk = tq if trunk.cross is None else trunk.cross.shape[1]
+        if tq % n or tk % n:
+            raise ValueError(
+                f"Tq={tq}, Tk={tk} must be divisible by the 'seq' axis size {n} — pad to a "
+                "bucket first (data.pipeline length buckets already produce such shapes)")
+        r = self.shard.seq_rank
+        cut = lambda t: None if t is None else t.narrow(1, r * (t.shape[1] // n),
+                                                         t.shape[1] // n)
+        return Trunk(cut(trunk.x), cut(trunk.attn), cut(trunk.cross), cut(trunk.cross_attn),
+                     trunk.pool_limits, trunk.pool_mask, local=cut)
 
-        # the head runs in float32 whatever the trunk's dtype
+    def pool(self, x: torch.Tensor, trunk: "Trunk") -> torch.Tensor:
+        """The reference's unmasked mean over the batch-max layout, or the
+        masked mean (``masked_pooling``); under a ``seq`` axis x is this
+        rank's time block, summed over the ``seq`` group."""
+        local = trunk.local or (lambda t: t)
+        seq_group = None if trunk.local is None else self.shard.seq_group
+        total = (lambda t: t) if seq_group is None else (lambda t: seq_sum(t, seq_group))
+        if self.config.masked_pooling and trunk.pool_mask is not None:
+            m = trunk.pool_mask[..., None].to(x.dtype)
+            return total((x * local(m)).sum(dim=1)) / m.sum(dim=1).clamp_min(1.0)
+        include = torch.cat([
+            torch.arange(cap, device=x.device) < limit for cap, limit in trunk.pool_limits
+        ])
+        denom = max(sum(limit for _, limit in trunk.pool_limits), 1)
+        include = local(include[None, :, None].to(x.dtype))
+        return total((x * include).sum(dim=1)) / denom
+
+    def head(self, pooled: torch.Tensor, generator=None) -> torch.Tensor:
+        """LN -> Linear -> exact GELU -> Dropout -> Linear, in float32
+        whatever the trunk's dtype."""
         h = layer_norm(pooled, self.classifier[0])
         h = F.gelu(self.classifier[1](h), approximate="none")
-        if self.training and cfg.mlp_dropout > 0.0:
-            h = bernoulli_dropout(h, cfg.mlp_dropout, g, self.shard)
+        if self.training and self.config.mlp_dropout > 0.0:
+            h = bernoulli_dropout(h, self.config.mlp_dropout, generator, self.shard)
         return self.classifier[4](h)
+
+
+@dataclasses.dataclass
+class Trunk:
+    """What the layers and the pooling take: x (B, L, d), its key-padding
+    mask, the cross-attention keys (cross mode) and their mask, the pooling
+    limits and mask (whole in time), and ``local``, the cut to this rank's
+    time block under a ``seq`` axis (None without one)."""
+
+    x: torch.Tensor
+    attn: torch.Tensor | None
+    cross: torch.Tensor | None
+    cross_attn: torch.Tensor | None
+    pool_limits: list
+    pool_mask: torch.Tensor | None
+    local: object = None

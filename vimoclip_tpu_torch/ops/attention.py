@@ -18,6 +18,13 @@
   seeds are drawn for the global (batch row, head) grid and cut to this
   rank's rows and heads, so a sharded step drops what the one-process step
   drops.
+- ``"ring"`` / ``"ring_inner"`` (sequence parallelism): x and the mask are
+  this rank's time shard and attention runs as ring attention over the
+  ``seq`` group of the module's ``shard`` (``parallel/sequence.py``), with
+  the kernels in every ring step on a card. JAX's ``ring_inner`` is the
+  body it calls inside a pipeline stage's ``shard_map``; the port has no
+  ``shard_map`` to nest, so both names run the same ring, and the pipeline
+  stages (``parallel/pipelining.py``) use ``ring_inner``.
 
 Linear layers run in the module's compute ``dtype`` (weights are cast at
 the call, kept float32), as the JAX modules do with ``nn.Dense(dtype=...)``.
@@ -42,12 +49,13 @@ from vimoclip_tpu_torch.ops.kernels.flash_attention import (
 from vimoclip_tpu_torch.ops.quant import Int8Linear, int8_linear, make_dense
 from vimoclip_tpu_torch.parallel.mesh import Shard, draw
 from vimoclip_tpu_torch.parallel.partition import _ShardedLinear, copy_to_model
+from vimoclip_tpu_torch.parallel.sequence import ring_attention
 
 # Additive mask value. Large-finite (not -inf) so a fully masked row comes
 # out uniform instead of NaN; the flash kernel uses the same constant.
 _MASK_VALUE = -1e9
 
-IMPLEMENTATIONS = ("xla", "flash", "auto")
+IMPLEMENTATIONS = ("xla", "flash", "auto", "ring", "ring_inner")
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -102,7 +110,9 @@ class MultiHeadAttention(nn.Module):
       the CPU (``ops/kernels/flash_attention.py``);
     - "auto": flash for CUDA tensors with attention dropout active, or
       once the key length reaches the no-dropout crossover; the eager path
-      otherwise.
+      otherwise;
+    - "ring" / "ring_inner": ring attention over the ``seq`` group of
+      ``shard`` (module docstring); without one it raises.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
     transposes in JAX; the math is one, and the port runs one layout.
     ``quant="int8"``: the projections in dynamic int8. The packed
@@ -140,11 +150,6 @@ class MultiHeadAttention(nn.Module):
         if embed_dim % num_heads:
             raise ValueError(
                 f"embed_dim {embed_dim} not divisible by heads {num_heads}"
-            )
-        if implementation in ("ring", "ring_inner"):
-            raise NotImplementedError(
-                f"implementation={implementation!r} (sequence-parallel ring "
-                "attention) comes with slice 7b of the multi-GPU port"
             )
         if implementation not in IMPLEMENTATIONS:
             raise ValueError(f"unknown attention implementation {implementation!r}")
@@ -208,7 +213,15 @@ class MultiHeadAttention(nn.Module):
         if impl == "auto":
             long_keys = k.shape[2] >= self._AUTO_FLASH_MIN_T_NODROP
             impl = "flash" if q.is_cuda and (dropping or long_keys) else "xla"
-        if impl == "flash":
+        if impl in ("ring", "ring_inner"):
+            ring = None if shard is None else shard.seq_ring
+            if ring is None:
+                raise ValueError(
+                    f'implementation="{impl}" needs a seq group (a mesh with a "seq" '
+                    "axis, parallel/mesh.py): it is a runtime object, given to the model "
+                    "by parallel.partition.parallelize_ under training.parallelism.seq")
+            out = ring_attention(q, k, v, key_padding_mask, ring, rate, seed)
+        elif impl == "flash":
             out = flash_attention(q, k, v, key_padding_mask=key_padding_mask,
                                   dropout_rate=rate, dropout_seed=seed)
         else:

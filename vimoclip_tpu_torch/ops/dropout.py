@@ -6,9 +6,9 @@ quantised to thr / 256 (at most 1/512 from 1 - p) and the kept values are
 divided by exactly that, so E[dropout(x)] == x. The bit stream differs from
 JAX's, as any two frameworks' do; the quantisation and rescale are the same.
 
-Under data or tensor parallelism (``shard``, ``parallel/mesh.py``) every
-draw is made at the global shape and cut to this rank's block, so the masks
-are the one-process run's.
+Under data, tensor or sequence parallelism (``shard``, ``parallel/mesh.py``)
+every draw is made at the global shape and cut to this rank's block, so the
+masks are the one-process run's.
 """
 
 from __future__ import annotations
@@ -20,11 +20,13 @@ from vimoclip_tpu_torch.parallel.mesh import Shard, draw
 
 
 def thin_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-                 shard: Shard | None = None, split_last: bool = False) -> torch.Tensor:
+                 shard: Shard | None = None, split_last: bool = False,
+                 split_time: bool = False) -> torch.Tensor:
     """Functional 8-bit-mask dropout; unbiased (exact quantised rescale).
     Rates below ~1/512 are no-ops, rates within 1/512 of 1 drop
     everything. ``x`` is this rank's block under ``shard``: rows over
-    ``data``, and with ``split_last`` its last dim over ``model``."""
+    ``data``, with ``split_time`` dim 1 over ``seq``, and with
+    ``split_last`` its last dim over ``model``."""
     if not 0.0 <= rate <= 1.0:
         raise ValueError(f"dropout rate must be in [0, 1]; got {rate}")
     if rate <= 0.0:
@@ -37,7 +39,7 @@ def thin_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
     keep_prob = thr / 256.0
     bits = draw(lambda s: torch.randint(0, 256, s, dtype=torch.uint8, generator=generator,
                                          device=generator.device),
-                 x.shape, shard, split_last).to(x.device)
+                 x.shape, shard, split_last, split_time).to(x.device)
     scaled = x / torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(bits < thr, scaled, torch.zeros_like(x))
 
@@ -62,14 +64,16 @@ class Dropout(nn.Module):
     """``thin_dropout`` as a module: active in ``train()`` mode at a rate
     above 0, where it needs the ``generator`` argument. ``model_split``:
     under tensor parallelism its input is a column-parallel layer's block
-    of features."""
+    of features; ``time_split``: its input is (B, T, ...), whose time a
+    ``seq`` axis cuts."""
 
     shard: Shard | None = None  # set by parallel.partition.parallelize_
 
-    def __init__(self, rate: float, model_split: bool = False):
+    def __init__(self, rate: float, model_split: bool = False, time_split: bool = False):
         super().__init__()
         self.rate = rate
         self.model_split = model_split
+        self.time_split = time_split
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -77,4 +81,5 @@ class Dropout(nn.Module):
             return x
         if generator is None:
             raise ValueError("dropout in train() mode needs a generator")
-        return thin_dropout(x, self.rate, generator, self.shard, self.model_split)
+        return thin_dropout(x, self.rate, generator, self.shard, self.model_split,
+                            self.time_split)

@@ -33,7 +33,11 @@ design does about it.
   fused dropout when the rate is above 0 (JAX's lse-free primal).
 - Dropout bits are Philox4x32-10 keyed on global (row, key / 4)
   coordinates and one seed per (batch row, head)
-  (``csrc/flash_attention_common.cuh``); ``philox4x32`` here is the same
+  (``csrc/flash_attention_common.cuh``). ``row0`` and ``col0`` (a multiple
+  of 4) say where the call's element (0, 0) sits in a longer sequence: a
+  call on one (query block, key block) of it, as each step of the ring
+  (``parallel/sequence.py``), draws the bits the whole call draws there;
+  both are 0 for a whole sequence. ``philox4x32`` here is the same
   generator in int64 arithmetic, so kernel and plain version drop the same
   elements. The bits cannot equal the TPU's. The plain versions also take
   an explicit ``keep`` mask (the tests pass all-True, which is what JAX's
@@ -127,15 +131,24 @@ def philox4x32(c0, c1, c2, c3, k0, k1) -> tuple[torch.Tensor, ...]:
     return tuple(c)
 
 
-def dropout_keep_mask(seed: torch.Tensor, tq: int, tk: int,
-                      dropout_rate: float) -> torch.Tensor:
+def check_offsets(row0: int, col0: int) -> None:
+    if row0 < 0 or col0 < 0 or col0 % 4:
+        raise ValueError(f"dropout offsets must be >= 0 with col0 a multiple of 4 "
+                         f"(one Philox call covers 4 keys); got row0={row0}, col0={col0}")
+
+
+def dropout_keep_mask(seed: torch.Tensor, tq: int, tk: int, dropout_rate: float,
+                      row0: int = 0, col0: int = 0) -> torch.Tensor:
     """The kernels' keep mask, (B, H, Tq, Tk) bool: for (b, h, row, col),
-    word col % 4 of Philox4x32-10 with counter (row, col // 4, 0, 0) and key
-    (seed[b, h] as uint32, 0), kept where it is below the threshold."""
+    word (col0 + col) % 4 of Philox4x32-10 with counter (row0 + row,
+    (col0 + col) // 4, 0, 0) and key (seed[b, h] as uint32, 0), kept where
+    it is below the threshold."""
+    check_offsets(row0, col0)
     groups = (tk + 3) // 4
     dev = seed.device
-    rows = torch.arange(tq, device=dev, dtype=torch.int64).view(1, 1, tq, 1)
-    cols = torch.arange(groups, device=dev, dtype=torch.int64).view(1, 1, 1, groups)
+    rows = torch.arange(row0, row0 + tq, device=dev, dtype=torch.int64).view(1, 1, tq, 1)
+    cols = torch.arange(col0 // 4, col0 // 4 + groups, device=dev,
+                        dtype=torch.int64).view(1, 1, 1, groups)
     key = (seed.to(torch.int64) & _MASK32)[:, :, None, None]
     words = philox4x32(rows, cols, 0, 0, key, 0)
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
@@ -143,14 +156,14 @@ def dropout_keep_mask(seed: torch.Tensor, tq: int, tk: int,
     return bits < keep_threshold(dropout_rate)
 
 
-def _keep_for(q, k, dropout_rate, seed, keep):
+def _keep_for(q, k, dropout_rate, seed, keep, row0=0, col0=0):
     if dropout_rate == 0.0:
         return None
     if keep is not None:
         return keep
     if seed is None:
         raise ValueError("dropout needs the (B, H) seeds or an explicit keep mask")
-    return dropout_keep_mask(seed, q.shape[2], k.shape[2], dropout_rate)
+    return dropout_keep_mask(seed, q.shape[2], k.shape[2], dropout_rate, row0, col0)
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +189,16 @@ def flash_attention_reference(
     seed: torch.Tensor | None = None,
     keep: torch.Tensor | None = None,
     return_lse: bool = False,
+    row0: int = 0,
+    col0: int = 0,
 ):
     """Plain PyTorch version of K1 / K1', one softmax over all keys.
 
     ``seed``: the (B, H) int32 seeds (``expand_seed``); ``keep``: an
-    explicit (B, H, Tq, Tk) keep mask in their place. Returns the output in
-    q's dtype, and with ``return_lse`` also lse (B, H, Tq) float32.
+    explicit (B, H, Tq, Tk) keep mask in their place; ``row0``/``col0``:
+    the global coordinates of element (0, 0) for the bits. Returns the
+    output in q's dtype, and with ``return_lse`` also lse (B, H, Tq)
+    float32.
 
     On a card, the float32 products run in full float32 only with
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default)."""
@@ -189,7 +206,7 @@ def flash_attention_reference(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    keep = _keep_for(q, k, dropout_rate, seed, keep)
+    keep = _keep_for(q, k, dropout_rate, seed, keep, row0, col0)
     if keep is not None:
         p = torch.where(keep, p, 0.0)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / (l * (1.0 - dropout_rate))
@@ -210,16 +227,22 @@ def flash_attention_backward_reference(
     dropout_rate: float = 0.0,
     seed: torch.Tensor | None = None,
     keep: torch.Tensor | None = None,
+    row0: int = 0,
+    col0: int = 0,
+    delta: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2 / K3 + K4: the TPU kernels' formulas
     (flash_attention.py:38-45) from the saved lse, with their rounding
     points (p and dS rounded to the input dtype at each product, float32
-    accumulation). Returns (dq, dk, dv) in the inputs' dtypes."""
+    accumulation). ``delta`` = rowsum(dO * O) float32, taken from ``out``
+    when not given (a ring block passes the whole row's, with ``out``
+    None). Returns (dq, dk, dv) in the inputs' dtypes."""
     scale = 1.0 / q.shape[-1] ** 0.5
-    delta = (grad_out.float() * out.float()).sum(dim=-1)
+    if delta is None:
+        delta = (grad_out.float() * out.float()).sum(dim=-1)
     p = torch.exp(_scores(q, k, key_padding_mask) - lse[..., None])
     dp = torch.matmul(grad_out.float(), v.float().transpose(-1, -2))
-    keep = _keep_for(q, k, dropout_rate, seed, keep)
+    keep = _keep_for(q, k, dropout_rate, seed, keep, row0, col0)
     pd = p
     if keep is not None:
         dp = torch.where(keep, dp, 0.0) / (1.0 - dropout_rate)
@@ -277,8 +300,8 @@ def _bind(name: str, entry: str, argtypes: list):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _U32 = ctypes.c_float, ctypes.c_uint32
-_FWD_ARGS = [_P] * 7 + [_I] * 6 + [_LL] * 13 + [_F, _U32, _F, _P]
-_BWD_ARGS = [_P] * 13 + [_I] * 7 + [_LL] * 22 + [_F, _U32, _F, _P]
+_FWD_ARGS = [_P] * 7 + [_I] * 8 + [_LL] * 13 + [_F, _U32, _F, _P]
+_BWD_ARGS = [_P] * 13 + [_I] * 9 + [_LL] * 22 + [_F, _U32, _F, _P]
 _TMA_ALIGN = 16  # bytes: TMA's start address and stride granule
 
 
@@ -322,10 +345,10 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} kernel launch failed: {reason}")
 
 
-def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse):
+def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse, row0=0, col0=0):
     """K1 (``with_lse`` False) or K1': the output, and lse (B, H, Tq)
-    float32 or None; dropout from the (B, H) ``seed`` when the rate is
-    above 0."""
+    float32 or None; dropout from the (B, H) ``seed`` at the global
+    coordinates from (``row0``, ``col0``) when the rate is above 0."""
     _check_kernel_inputs(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
@@ -345,7 +368,7 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
             None if lse is None else lse.data_ptr(), seed_ptr,
-            _DTYPE_CODES[q.dtype], b, h, tq, tk, d,
+            _DTYPE_CODES[q.dtype], b, h, tq, tk, d, row0, col0,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             m_sb, 1.0 / d ** 0.5, keep_threshold(dropout_rate), 1.0 - dropout_rate,
             stream,
@@ -379,7 +402,7 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
-                grad_out, dq, dk, dv, keep_bits=None):
+                grad_out, dq, dk, dv, keep_bits=None, row0=0, col0=0):
     b, h, tq, d = q.shape
     tk = k.shape[2]
     mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
@@ -403,7 +426,7 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
             None if dv is None else dv.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             None if keep_bits is None else keep_bits.data_ptr(),
-            _BWD_WHICH[kind], _DTYPE_CODES[q.dtype], b, h, tq, tk, d,
+            _BWD_WHICH[kind], _DTYPE_CODES[q.dtype], b, h, tq, tk, d, row0, col0,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
             *(null3 if dq is None else dq.stride()[:3]),
             *(null3 if dk is None else dk.stride()[:3]),
@@ -416,11 +439,13 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
 
 
 def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
-                     grad_out):
+                     grad_out, row0=0, col0=0, delta=None):
     """The backward kernels on CUDA tensors: K2 when the keys fit one
     512-key tile, else K3 + K4 (with dropout in bf16 through the keep-bit
     buffer K3 fills for K4); bf16 operands are first made readable by TMA.
-    ``seed``: the (B, H) int32 seeds. Returns (dq, dk, dv)."""
+    ``seed``: the (B, H) int32 seeds; ``row0``/``col0``: the global
+    coordinates of element (0, 0) for the bits; ``delta``: rowsum(dO * O)
+    in float32, from ``out`` when not given. Returns (dq, dk, dv)."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernels run on CUDA tensors, not {q.device}")
     _check_kernel_inputs(q, k, v)
@@ -428,7 +453,9 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
     tk = k.shape[2]
     q, k, v, grad_out = _rows(q), _rows(k), _rows(v), _rows(grad_out)
     # D = rowsum(dO * O), outside the kernels as on the TPU (:730)
-    delta = (grad_out.float() * out.float()).sum(dim=-1).contiguous()
+    if delta is None:
+        delta = (grad_out.float() * out.float()).sum(dim=-1)
+    delta = delta.contiguous()
     lse = lse.contiguous()
     dq = _heads_major(b, tq, h, d, q.dtype, q.device)
     dk = _heads_major(b, tk, h, d, k.dtype, q.device)
@@ -436,8 +463,9 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
     if q.dtype == torch.bfloat16:
         q, k, v, grad_out = (tma_operand(t) for t in (q, k, v, grad_out))
     args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
+    at = {"row0": row0, "col0": col0}
     if tk <= SINGLE_PASS_MAX_TK:
-        _launch_bwd("bwd_dqkv", *args, dq, dk, dv)
+        _launch_bwd("bwd_dqkv", *args, dq, dk, dv, **at)
         return dq, dk, dv
     keep_bits = None
     if q.dtype == torch.bfloat16 and dropout_rate > 0.0:
@@ -445,42 +473,53 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
         # copies with one bulk transfer
         keep_bits = torch.empty((b, h, -(-tk // 64), -(-tq // 64) * 64, 2),
                                 dtype=torch.int32, device=q.device)
-    _launch_bwd("bwd_dq", *args, dq, None, None, keep_bits)
-    _launch_bwd("bwd_dkv", *args, None, dk, dv, keep_bits)
+    _launch_bwd("bwd_dq", *args, dq, None, None, keep_bits, **at)
+    _launch_bwd("bwd_dkv", *args, None, dk, dv, keep_bits, **at)
     return dq, dk, dv
 
 
-def forward_lse(q, k, v, key_padding_mask, seed, dropout_rate):
+def forward_lse(q, k, v, key_padding_mask, seed, dropout_rate, row0=0, col0=0):
     """K1' (its plain version on the CPU): (out, lse) with dropout from the
-    (B, H) int32 ``seed`` when ``dropout_rate`` > 0."""
+    (B, H) int32 ``seed`` at the global coordinates from (``row0``,
+    ``col0``) when ``dropout_rate`` > 0."""
+    check_offsets(row0, col0)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate,
-                                         seed=seed, return_lse=True)
-    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=True)
+                                         seed=seed, return_lse=True, row0=row0, col0=col0)
+    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=True,
+                       row0=row0, col0=col0)
+
+
+def backward(q, k, v, key_padding_mask, seed, dropout_rate, out, lse, grad_out,
+             row0=0, col0=0, delta=None):
+    """K2 or K3 + K4 on CUDA tensors, their plain version on CPU tensors:
+    (dq, dk, dv) from the saved lse (and ``delta``, or ``out``)."""
+    check_offsets(row0, col0)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, key_padding_mask, out, lse, grad_out, dropout_rate, seed=seed,
+            row0=row0, col0=col0, delta=delta)
+    return backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
+                            grad_out, row0=row0, col0=col0, delta=delta)
 
 
 class _FlashAttention(torch.autograd.Function):
     """K1' forward, K2 / K3 + K4 backward (their plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, seed, dropout_rate):
-        out, lse = forward_lse(q, k, v, key_padding_mask, seed, dropout_rate)
+    def forward(ctx, q, k, v, key_padding_mask, seed, dropout_rate, row0, col0):
+        out, lse = forward_lse(q, k, v, key_padding_mask, seed, dropout_rate, row0, col0)
         ctx.save_for_backward(q, k, v, key_padding_mask, seed, out, lse)
-        ctx.dropout_rate = dropout_rate
+        ctx.dropout_rate, ctx.offsets = dropout_rate, (row0, col0)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         q, k, v, key_padding_mask, seed, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = flash_attention_backward_reference(
-                q, k, v, key_padding_mask, out, lse, grad_out, ctx.dropout_rate,
-                seed=seed)
-        else:
-            grads = backward_kernels(q, k, v, key_padding_mask, seed,
-                                     ctx.dropout_rate, out, lse, grad_out)
-        return (*grads, None, None, None)
+        grads = backward(q, k, v, key_padding_mask, seed, ctx.dropout_rate, out, lse,
+                         grad_out, *ctx.offsets)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(
@@ -490,6 +529,8 @@ def flash_attention(
     key_padding_mask: torch.Tensor | None = None,
     dropout_rate: float = 0.0,
     dropout_seed: torch.Tensor | int | None = None,
+    row0: int = 0,
+    col0: int = 0,
 ) -> torch.Tensor:
     """Masked attention with torch MHA numerics, differentiable.
 
@@ -502,10 +543,14 @@ def flash_attention(
         dropout_rate: attention-weight dropout probability in [0, 1).
         dropout_seed: required when dropout_rate > 0: a scalar, (B,) or
             (B, H) int seed, expanded as ``expand_seed`` does.
+        row0, col0: the global (query row, key) of element (0, 0) for the
+            dropout bits, when q and k are blocks of longer sequences;
+            ``col0`` a multiple of 4.
     Returns:
         (B, H, Tq, D) in q's dtype.
     """
     _check_args(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
+    check_offsets(row0, col0)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     b, h = q.shape[:2]
@@ -513,10 +558,13 @@ def flash_attention(
     if dropout_rate > 0.0:
         seed = expand_seed(dropout_seed, b, h, device=q.device)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, key_padding_mask, seed, float(dropout_rate))
+        return _FlashAttention.apply(q, k, v, key_padding_mask, seed, float(dropout_rate),
+                                     row0, col0)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate, seed=seed)
-    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=False)[0]
+        return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate, seed=seed,
+                                         row0=row0, col0=col0)
+    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=False,
+                       row0=row0, col0=col0)[0]
 
 
 flash_attention.launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -526,3 +574,51 @@ def reset_launch_counts() -> None:
     """Zero every kernel's launch count."""
     for kind in LAUNCH_KINDS:
         flash_attention.launches[kind] = 0
+
+
+def kernel_keep_bits(kind: str, seed: torch.Tensor, rows: int, cols: int, dropout_rate: float,
+                     row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """The keep bits a bf16 kernel draws for (``row0`` + r, ``col0`` + c),
+    r < ``rows``, c < ``cols``, read back from the card: (B, H, rows, cols)
+    bool, for holding the kernels' bits to ``dropout_keep_mask`` bit for
+    bit. ``seed``: (B, H) int32 on the card.
+
+    - ``fwd_lse`` (K1'): q = k = 0 and v = I over 64-key windows, so
+      o[r, c] = keep[r, c] / (64 (1 - p)); ``cols`` a multiple of 64;
+    - ``bwd_dqkv`` (K2, ``cols`` <= 512): q = k = v = 0, lse = delta = 0 and
+      dO = I over 64-row windows, so dv[c, r] = keep[r, c] / (1 - p);
+      ``rows`` a multiple of 64;
+    - ``bwd_dq`` (K3, ``cols`` > 512): the keep-bit buffer it fills for K4.
+    Each launch counts as any other."""
+    b, h = seed.shape
+    dev, bf = seed.device, torch.bfloat16
+    eye = torch.eye(64, dtype=bf, device=dev).expand(b, h, 64, 64).contiguous()
+    if kind == "fwd_lse":
+        q, k = (torch.zeros(b, h, n, 64, dtype=bf, device=dev) for n in (rows, 64))
+        outs = [forward_lse(q, k, eye, None, seed, dropout_rate, row0, col0 + c)[0]
+                for c in range(0, cols, 64)]
+        return torch.cat(outs, dim=-1) != 0
+    if kind == "bwd_dqkv":
+        q = torch.zeros(b, h, 64, 64, dtype=bf, device=dev)
+        k = torch.zeros(b, h, cols, 64, dtype=bf, device=dev)
+        zero = torch.zeros(b, h, 64, dtype=torch.float32, device=dev)
+        outs = [backward_kernels(q, k, k, None, seed, dropout_rate, None, zero, eye,
+                                 row0 + r, col0, delta=zero)[2].transpose(-1, -2)
+                for r in range(0, rows, 64)]
+        return torch.cat(outs, dim=-2) != 0
+    if kind != "bwd_dq":
+        raise ValueError(f"no keep-bit probe for {kind!r}")
+    q = torch.zeros(b, h, rows, 64, dtype=bf, device=dev)
+    k = torch.zeros(b, h, cols, 64, dtype=bf, device=dev)
+    zero = torch.zeros(b, h, rows, dtype=torch.float32, device=dev)
+    nk, tq_pad = -(-cols // 64), -(-rows // 64) * 64
+    bits = torch.zeros(b, h, nk, tq_pad, 2, dtype=torch.int32, device=dev)
+    dq = _heads_major(b, rows, h, 64, bf, dev)
+    _launch_bwd("bwd_dq", q, k, k, None, seed, dropout_rate, zero, zero, q, dq, None, None,
+                bits, row0=row0, col0=col0)
+    shifts = torch.arange(32, device=dev, dtype=torch.int64)
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    kept = (words[..., None] >> shifts) & 1  # (B, H, nk, tq_pad, 2, 32)
+    kept = kept.reshape(b, h, nk, tq_pad, 64).permute(0, 1, 3, 2, 4).reshape(b, h, tq_pad,
+                                                                           nk * 64)
+    return kept[:, :, :rows, :cols].bool()

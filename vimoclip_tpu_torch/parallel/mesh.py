@@ -1,5 +1,6 @@
-"""Process groups for data and tensor parallelism, and inference replicas
-(the port's counterpart of ``vimoclip_tpu/parallel/mesh.py``).
+"""Process groups for data, tensor, sequence and pipeline parallelism, and
+inference replicas (the port's counterpart of
+``vimoclip_tpu/parallel/mesh.py``).
 
 The JAX package drives every chip of a slice from one process through a
 ``jax.sharding.Mesh``. The port trains with one process per GPU, launched
@@ -8,23 +9,28 @@ by ``torchrun``::
     torchrun --nproc-per-node N -m vimoclip_tpu_torch.cli.tfam_train_eval --config cfg.yaml
 
 over ``torch.distributed``: NCCL between cards, gloo on the CPU (the tests).
-The ranks form a ``DeviceMesh`` with two named dims, rank r at
-(r // model, r % model):
+The ranks form a ``DeviceMesh`` with JAX's named dims in JAX's order,
+``("data"[, "pipe"], "model"[, "seq"])``, the last varying fastest
+(``pipe`` and ``seq`` only when above 1):
 
 - ``data``: each rank takes a contiguous block of rows of the global batch
   (``shard_batch``); gradients are averaged over this dim;
-- ``model``: Megatron tensor parallelism (``parallel/partition.py``).
+- ``pipe``: GPipe stages, each rank a contiguous block of TFAM's layers
+  (``parallel/pipelining.py``);
+- ``model``: Megatron tensor parallelism (``parallel/partition.py``);
+- ``seq``: TFAM's time axis, cut after each fusion mode's prologue, with
+  ring attention over the ``seq`` group (``parallel/sequence.py``);
+  gradients are summed over this dim.
 
 A ``Shard`` is what the modules see of it: this rank's coordinates and the
-two groups. Random draws (dropout) happen at the global shape on every rank
-and each rank keeps its block (``draw``), so a sharded step draws the masks
-of the one-process step.
+groups. Random draws (dropout) happen at the global shape on every rank and
+each rank keeps its block (``draw``: rows over ``data``, time over ``seq``,
+heads or features over ``model``), so a sharded step draws the masks of the
+one-process step.
 
 Extraction and serving stay one process, as in JAX: ``Replicas`` holds one
 copy of a tower per device and splits each fixed-shape batch into
 contiguous row blocks, one per copy.
-
-The ``seq`` and ``pipe`` axes (ring attention, GPipe) are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,32 +112,35 @@ def local_device(device: str | torch.device) -> torch.device:
 
 def create_mesh(config: MeshConfig | None = None, device_type: str = "cuda",
                 entry: str = "<module>"):
-    """A ``DeviceMesh`` with dims ``("data", "model")`` over every rank of
-    the process group. Unlike JAX, which may leave devices idle, the mesh
-    must use every rank: ``entry`` names the module in the ``torchrun``
-    command the error suggests."""
+    """A ``DeviceMesh`` with dims ``("data"[, "pipe"], "model"[, "seq"])``
+    over every rank of the process group (JAX's ``create_mesh``: ``pipe``
+    and ``seq`` only when above 1, ``seq`` innermost, so its ring's
+    neighbours are adjacent ranks). Unlike JAX, which may leave devices
+    idle, the mesh must use every rank: ``entry`` names the module in the
+    ``torchrun`` command the error suggests."""
     from torch.distributed.device_mesh import init_device_mesh
 
     config = config or MeshConfig()
-    if config.seq_parallel > 1 or config.pipeline_parallel > 1:
-        raise NotImplementedError(
-            "seq/pipe parallelism comes with slice 7b of the multi-GPU port "
-            "(parallel/sequence.py, parallel/pipelining.py)")
+    sp, pp = max(1, config.seq_parallel), max(1, config.pipeline_parallel)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    want = (config.data_parallel * max(1, config.model_parallel)
-            if config.data_parallel != -1 else max(1, config.model_parallel))
+    want = ((config.data_parallel if config.data_parallel != -1 else 1)
+            * max(1, config.model_parallel) * sp * pp)
     if not dist.is_initialized() or want > world:
         raise ValueError(
-            f"data_parallel x model_parallel asks for {want} ranks, but the "
-            f"process group has {world}: launch one process per rank, e.g. "
+            f"data_parallel x model_parallel x seq x pipe asks for {want} ranks, but "
+            f"the process group has {world}: launch one process per rank, e.g. "
             f"torchrun --nproc-per-node {want} -m {entry} ...")
     dp, mp = config.resolve(world)
-    if dp * mp != world:
+    if dp * mp * sp * pp != world:
         raise ValueError(
-            f"mesh data={dp} x model={mp} uses {dp * mp} of the {world} ranks: "
-            f"launch torchrun --nproc-per-node {dp * mp} -m {entry} ..., or set "
+            f"mesh data={dp} x pipe={pp} x model={mp} x seq={sp} uses "
+            f"{dp * mp * sp * pp} of the {world} ranks: launch torchrun "
+            f"--nproc-per-node {dp * mp * sp * pp} -m {entry} ..., or set "
             "data_parallel to -1")
-    return init_device_mesh(device_type, (dp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    axes = [(DATA_AXIS, dp)] + [(PIPE_AXIS, pp)] * (pp > 1) + [(MODEL_AXIS, mp)]
+    axes += [(SEQ_AXIS, sp)] * (sp > 1)
+    return init_device_mesh(device_type, tuple(n for _, n in axes),
+                            mesh_dim_names=tuple(name for name, _ in axes))
 
 
 def training_mesh(config: MeshConfig, device: torch.device, entry: str):
@@ -138,14 +149,25 @@ def training_mesh(config: MeshConfig, device: torch.device, entry: str):
     group otherwise. A lone process asking for more ranks is an error that
     names the ``torchrun`` command."""
     if (not dist.is_initialized() and config.data_parallel in (-1, 1)
-            and config.model_parallel <= 1):
+            and config.model_parallel <= 1 and config.seq_parallel <= 1
+            and config.pipeline_parallel <= 1):
         return None
     return create_mesh(config, device.type, entry)
 
 
+def _dim(mesh, name: str) -> tuple:
+    """(size, this rank's coordinate, group) of a mesh dim; (1, 0, None)
+    for a dim the mesh leaves out."""
+    if name not in mesh.mesh_dim_names:
+        return 1, 0, None
+    return (mesh.size(mesh.mesh_dim_names.index(name)), mesh.get_local_rank(name),
+            mesh.get_group(name))
+
+
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """This rank's place in a (data, model) mesh, as the modules see it."""
+    """This rank's place in a (data[, pipe], model[, seq]) mesh, as the
+    modules see it."""
 
     data: int = 1
     data_rank: int = 0
@@ -153,12 +175,25 @@ class Shard:
     model_rank: int = 0
     data_group: object = None
     model_group: object = None
+    seq: int = 1
+    seq_rank: int = 0
+    seq_group: object = None
+    pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: object = None
 
     @staticmethod
     def of(mesh) -> "Shard":
-        return Shard(mesh.size(0), mesh.get_local_rank(DATA_AXIS),
-                     mesh.size(1), mesh.get_local_rank(MODEL_AXIS),
-                     mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS))
+        (d, dr, dg), (m, mr, mg) = _dim(mesh, DATA_AXIS), _dim(mesh, MODEL_AXIS)
+        return Shard(d, dr, m, mr, dg, mg, *_dim(mesh, SEQ_AXIS), *_dim(mesh, PIPE_AXIS))
+
+    @property
+    def seq_ring(self):
+        """The ring over the ``seq`` group (``parallel/sequence.py``), or
+        None without one."""
+        from vimoclip_tpu_torch.parallel.sequence import P2PRing
+
+        return P2PRing(self.seq_group) if self.seq > 1 else None
 
     def max_over_data(self, t: torch.Tensor) -> torch.Tensor:
         t = t.clone()
@@ -177,17 +212,48 @@ class Shard:
         return torch.cat(parts)
 
     def average_gradients_(self, params) -> None:
-        """Gradients averaged over ``data`` in place, one collective."""
+        """Gradients averaged over ``data`` in place, one collective; under
+        ``seq`` also summed over it (each seq rank's backward holds its time
+        shard's part of every gradient, the head's included: the trainer
+        divides each rank's loss by ``seq`` for the backward)."""
         grads = [p.grad for p in params if p.grad is not None]
         if not grads:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=self.data_group)
+        if self.seq > 1:
+            dist.all_reduce(flat, group=self.seq_group)
         flat /= self.data
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
+
+
+def wire(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as a point-to-point op or broadcast of ``group`` takes it: bool
+    as uint8, and under gloo a CUDA tensor copied to pinned host memory
+    (gloo sends and receives CPU tensors only; on the H100 machine a CUDA
+    send fails with "writev ... Bad address"). NCCL takes ``t`` itself."""
+    t = t.contiguous()
+    t = t.view(torch.uint8) if t.dtype == torch.bool else t
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        return host
+    return t
+
+
+def wire_buffer(like: torch.Tensor, group) -> torch.Tensor:
+    """An empty receive buffer for a tensor shaped and typed as ``like``."""
+    return wire(torch.empty(like.shape, dtype=like.dtype, device=like.device), group)
+
+
+def unwire(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """What ``buf`` (from ``wire``/``wire_buffer``) holds, on ``like``'s
+    device and in its dtype."""
+    buf = buf.to(like.device, non_blocking=True)
+    return buf.view(torch.bool) if like.dtype == torch.bool else buf
 
 
 def any_rank(flag: bool, device: torch.device) -> bool:
@@ -201,11 +267,13 @@ def any_rank(flag: bool, device: torch.device) -> bool:
 
 
 def draw(sample: Callable[[tuple], torch.Tensor], shape: Sequence[int],
-         shard: Shard | None = None, split_last: bool = False) -> torch.Tensor:
+         shard: Shard | None = None, split_last: bool = False,
+         split_time: bool = False) -> torch.Tensor:
     """``sample(shape)``, a random draw for a block of ``shape``. Under a
     ``shard`` the block is this rank's part of a global tensor (rows over
-    ``data``; with ``split_last`` its last dim over ``model``: heads, or a
-    column-parallel layer's features): the global draw is made, from a
+    ``data``; with ``split_time`` dim 1 over ``seq``: a time-sharded
+    activation; with ``split_last`` its last dim over ``model``: heads, or
+    a column-parallel layer's features): the global draw is made, from a
     generator every rank holds in the same state, and the block cut out of
     it, so the ranks draw what the one-process run draws."""
     if shard is None:
@@ -213,6 +281,10 @@ def draw(sample: Callable[[tuple], torch.Tensor], shape: Sequence[int],
     rows = shape[0]
     full = [rows * shard.data, *shape[1:]]
     index: list = [slice(shard.data_rank * rows, (shard.data_rank + 1) * rows)]
+    if split_time and shard.seq > 1:
+        t = shape[1]
+        full[1] = t * shard.seq
+        index.append(slice(shard.seq_rank * t, (shard.seq_rank + 1) * t))
     if split_last:
         n = shape[-1]
         full[-1] = n * shard.model

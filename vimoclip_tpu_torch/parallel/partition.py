@@ -21,9 +21,12 @@ is ``("model", None)`` here and its row-parallel ``P("model", None)`` is
 ``parallelize_`` cuts a model built whole on every rank (same seed, same
 weights) down to this rank's slices, swaps the split Linears for the two
 wrappers and hands the ``Shard`` to every module that draws dropout or
-pools over the batch. ``Partition`` turns local slices back into full
-tensors (checkpoints in the reference layout) and full tensors into local
-slices (resume).
+pools over the batch. Under a ``pipe`` axis it first keeps only this
+rank's stage of ``model.layers`` (``parallel/pipelining.py``), under their
+one-process ``layers.N`` names. ``Partition`` turns local slices back into
+full tensors (checkpoints in the reference layout: gathered over ``model``,
+and every stage's layers with their Adam moments gathered over ``pipe``,
+in the one-process order) and full tensors into local slices (resume).
 """
 
 from __future__ import annotations
@@ -164,14 +167,20 @@ def _parts(name: str) -> int:
     return 3 if ".in_proj_" in name else 1  # packed q/k/v
 
 
+_LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
+
+
 class Partition:
     """How ``rules`` split ``model``'s parameters over ``shard``'s model
     group: this rank's slice of a full tensor, and the full tensor of the
-    slices (all ranks of the group take part)."""
+    slices (all ranks of the group take part); under ``pipe``, which of
+    the one-process model's layers this rank holds."""
 
     def __init__(self, model: nn.Module, rules: PartitionRules, shard: Shard):
         self.rules, self.shard = rules, shard
         self.names = [n for n, _ in model.named_parameters()]
+        self.state_keys = list(model.state_dict().keys())
+        self.full_names = self._one_process_order(self.names)
         self.dims: dict[str, int] = {}
         if shard.model > 1:
             for name, p in model.named_parameters():
@@ -203,11 +212,47 @@ class Partition:
             out.append(torch.cat(bufs, dim))
         return torch.cat(out, dim)
 
+    # --- pipe: the stages' layers -------------------------------------------
+
+    def _stage_names(self, name: str) -> list[str]:
+        """``name`` and its counterparts on every stage, by stage, when it
+        is a layer's key under ``pipe``; else ``[name]``."""
+        m = _LAYER.match(name)
+        if self.shard.pipe == 1 or m is None:
+            return [name]
+        per = len({_LAYER.match(n).group(1) for n in self.names if _LAYER.match(n)})
+        i = int(m.group(1)) - self.shard.pipe_rank * per
+        return [f"layers.{s * per + i}.{m.group(2)}" for s in range(self.shard.pipe)]
+
+    def _one_process_order(self, keys: list[str]) -> list[str]:
+        """The one-process model's order of ``keys`` with every stage's
+        layers: the layers first, by index (TFAM registers them before its
+        other modules)."""
+        if self.shard.pipe == 1:
+            return list(keys)
+        layers = sorted((n for k in keys for n in self._stage_names(k) if _LAYER.match(n)),
+                        key=lambda n: int(_LAYER.match(n).group(1)))
+        return layers + [k for k in keys if not _LAYER.match(k)]
+
+    def _over_stages(self, name: str, value) -> list:
+        """``value`` of every stage's counterpart of ``name``, by stage."""
+        if (self.shard.pipe == 1 or not _LAYER.match(name) or not torch.is_tensor(value)
+                or not value.ndim):  # Adam's step count: one for every stage
+            return [value] * len(self._stage_names(name))
+        bufs = [torch.empty_like(value) for _ in range(self.shard.pipe)]
+        dist.all_gather(bufs, value.contiguous(), group=self.shard.pipe_group)
+        return bufs
+
     def full_state(self, state: Mapping) -> dict:
-        return {k: self.full(k, v) for k, v in state.items()}
+        out = {}
+        for k, v in state.items():
+            for name, part in zip(self._stage_names(k), self._over_stages(k, self.full(k, v))):
+                out[name] = part
+        return {k: out[k] for k in self._one_process_order(list(state))}
 
     def local_state(self, state: Mapping) -> dict:
-        return {k: self.local(k, v) for k, v in state.items()}
+        keys = self.state_keys if self.shard.pipe > 1 else state.keys()
+        return {k: self.local(k, state[k]) for k in keys}
 
     def _map_optimizer(self, state: dict, fn) -> dict:
         """``fn(name, tensor)`` over every parameter-shaped optimizer moment;
@@ -220,9 +265,30 @@ class Partition:
         return out
 
     def full_optimizer(self, state: dict) -> dict:
-        return self._map_optimizer(state, self.full)
+        out = self._map_optimizer(state, self.full)
+        if self.shard.pipe == 1:
+            return out
+        index = {n: i for i, n in enumerate(self.full_names)}
+        moments = {}
+        for idx, mom in out["state"].items():
+            name = self.names[idx]
+            per_stage = {k: self._over_stages(name, v) for k, v in mom.items()}
+            for s, full_name in enumerate(self._stage_names(name)):
+                moments[index[full_name]] = {k: v[s] for k, v in per_stage.items()}
+        groups = [dict(g, params=sorted(index[n] for i in g["params"]
+                                        for n in self._stage_names(self.names[i])))
+                  for g in out["param_groups"]]
+        return dict(out, state=dict(sorted(moments.items())), param_groups=groups)
 
     def local_optimizer(self, state: dict) -> dict:
+        if self.shard.pipe > 1:
+            index = {n: i for i, n in enumerate(self.full_names)}
+            local = {index[n]: i for i, n in enumerate(self.names)}
+            state = dict(state, state={local[g]: m for g, m in state["state"].items()
+                                       if g in local},
+                         param_groups=[dict(g, params=[local[i] for i in g["params"]
+                                                       if i in local])
+                                       for g in state["param_groups"]])
         return self._map_optimizer(state, self.local)
 
 
@@ -231,6 +297,10 @@ def parallelize_(model: nn.Module, rules: PartitionRules, mesh) -> Partition:
     docstring); build the optimizer afterwards or before, the parameters
     stay the same objects."""
     shard = Shard.of(mesh)
+    if shard.pipe > 1:
+        from vimoclip_tpu_torch.parallel.pipelining import keep_stage_layers_
+
+        keep_stage_layers_(model, shard.pipe_rank, shard.pipe)
     part = Partition(model, rules, shard)
     for m in model.modules():
         if hasattr(m, "shard"):

@@ -23,7 +23,8 @@ the CPU.
 Data and tensor parallelism, as in JAX: ``data_parallel`` > 1 gives stage 0
 that many replicas of the tower; stage 1 trains on ``data_parallel`` x
 ``model_parallel`` ranks (-1: every card, one rank on the CPU) and stage 2
-on its YAML's ``training.data_parallel`` x ``model_parallel``. A training
+on its YAML's ``training.data_parallel`` x ``model_parallel`` x
+``parallelism.seq`` x ``parallelism.pipe``. A training
 stage with more than one rank runs as
 ``torchrun --standalone --nproc-per-node N -m <its CLI>``, one process per
 rank; with one it runs in this process.
@@ -87,13 +88,15 @@ class PipelineConfig:
     device: str = "cuda"
 
 
-def world_size(data_parallel: int, model_parallel: int, device: torch.device) -> int:
-    """The ranks a training stage runs on: data x model, where data -1 takes
-    every card (one data rank on the CPU)."""
+def world_size(data_parallel: int, model_parallel: int, device: torch.device,
+               seq: int = 1, pipe: int = 1) -> int:
+    """The ranks a training stage runs on: data x model x seq x pipe, where
+    data -1 takes every card left (one data rank on the CPU)."""
+    rest = model_parallel * max(1, seq) * max(1, pipe)
     data = data_parallel
     if data == -1:
-        data = torch.cuda.device_count() // model_parallel if device.type == "cuda" else 1
-    return max(1, data) * model_parallel
+        data = torch.cuda.device_count() // rest if device.type == "cuda" else 1
+    return max(1, data) * rest
 
 
 def run_stage(main, module: str, argv: list[str], world: int, cwd: str | None = None):
@@ -294,7 +297,8 @@ def run_pipeline(cfg: PipelineConfig) -> dict:
         tcfg = load_experiment_config(injected).training
         run_stage(tfam_main, "vimoclip_tpu_torch.cli.tfam_train_eval",
                   ["--config", injected, "--run-name", "pipeline"] + tfam_args,
-                  world_size(tcfg.data_parallel, tcfg.model_parallel, device),
+                  world_size(tcfg.data_parallel, tcfg.model_parallel, device,
+                             tcfg.seq_parallel, tcfg.pipeline_parallel),
                   cwd=rundir)  # results/ lands here
         mark_done("tfam")
 

@@ -32,10 +32,25 @@ gradients are averaged over ``data``; losses and logits come back global
 logs to TensorBoard, prints and writes checkpoints. The kernels run on each
 rank's (B/data, H/model) slice. A lone process with neither set above 1 is
 the one-card path, untouched.
+
+Sequence and pipeline parallelism (``training.parallelism: {seq, pipe,
+microbatches}``, JAX's ``train/tfam_trainer.py``), with the same checks and
+messages: ``seq`` > 1 alone runs the model on ``attention_impl: ring``
+(each rank a block of the trunk's time, ``models/tfam.py``); ``pipe`` > 1
+(cross-attention mode only) runs ``parallel.pipelining.
+tfam_cross_pipeline_logits`` over ``microbatches`` GPipe microbatches
+(default: the number of stages), its stages on ``ring_inner`` when ``seq``
+is above 1 too. Each rank keeps its block of every GPipe microbatch of the
+global batch (``shard_batch``). Every seq rank runs the head on the same
+pooled features: its loss is divided by ``seq`` for the backward and the
+gradients are summed over ``seq`` (and averaged over ``data``), which gives
+the one-process gradient of every parameter; the reported loss is not
+divided. The kernels run in every ring step and pipeline stage.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -55,6 +70,8 @@ from vimoclip_tpu_torch.metrics import (
 )
 from vimoclip_tpu_torch.models.tfam import TFAM
 from vimoclip_tpu_torch.parallel.mesh import (
+    PIPE_AXIS,
+    SEQ_AXIS,
     MeshConfig,
     any_rank,
     local_device,
@@ -62,6 +79,7 @@ from vimoclip_tpu_torch.parallel.mesh import (
     training_mesh,
 )
 from vimoclip_tpu_torch.parallel.partition import TFAM_PARTITION_RULES, parallelize_
+from vimoclip_tpu_torch.parallel.pipelining import tfam_cross_pipeline_logits
 from vimoclip_tpu_torch.prng import KeyChain
 from vimoclip_tpu_torch.train.state import (
     CheckpointManager,
@@ -95,15 +113,35 @@ def _metric_update(metric, logits: torch.Tensor, labels: torch.Tensor) -> None:
 class TFAMTrainer:
     """``train_dataset`` / ``val_dataset``: map-style datasets of
     ``PairedEmbeddingDataset`` items; by default they are read from the
-    config's HDF5 paths."""
+    config's HDF5 paths. ``mesh``: a ``DeviceMesh`` to train on instead of
+    the one built from the config (it must carry the axes asked for)."""
 
     def __init__(self, config: ExperimentConfig, log_dir: str, checkpoint_dir: str,
-                 train_dataset=None, val_dataset=None):
+                 train_dataset=None, val_dataset=None, mesh=None):
         self.config = config
         tcfg = check_training_config(config.training)
+        mcfg = config.model
+        if tcfg.pipeline_parallel > 1 and not (
+                mcfg.use_cross_attention and not mcfg.use_only_rgb and not mcfg.use_only_flow):
+            raise ValueError(
+                "training.parallelism: pipe requires the cross-attention fusion mode "
+                "(parallel.tfam_cross_pipeline_logits pipelines that path; other modes "
+                "fit one card)")
         self.device = resolve_device(local_device(tcfg.device))
-        self.mesh = training_mesh(MeshConfig(tcfg.data_parallel, tcfg.model_parallel),
-                                  self.device, "vimoclip_tpu_torch.cli.tfam_train_eval")
+        self.mesh = mesh if mesh is not None else training_mesh(
+            MeshConfig(tcfg.data_parallel, tcfg.model_parallel, tcfg.seq_parallel,
+                       tcfg.pipeline_parallel),
+            self.device, "vimoclip_tpu_torch.cli.tfam_train_eval")
+        for flag, field, value, axis in (("seq", "seq_parallel", tcfg.seq_parallel, SEQ_AXIS),
+                                         ("pipe", "pipeline_parallel",
+                                          tcfg.pipeline_parallel, PIPE_AXIS)):
+            if value > 1 and (self.mesh is None or axis not in self.mesh.mesh_dim_names):
+                shape = None if self.mesh is None else dict(
+                    zip(self.mesh.mesh_dim_names, self.mesh.shape))
+                raise ValueError(
+                    f"training.parallelism: {flag}={value} but the provided mesh {shape} "
+                    f"has no {axis!r} axis — build it with create_mesh(MeshConfig("
+                    f"{field}={value})) or drop the parallelism setting")
         n_data = 1 if self.mesh is None else self.mesh.size(0)
         if tcfg.grad_accum > 1 and tcfg.batch_size % tcfg.grad_accum:
             raise ValueError(
@@ -115,13 +153,40 @@ class TFAMTrainer:
             raise ValueError(
                 f"batch_size/grad_accum = {rows} microbatch rows must divide the "
                 f"mesh's data axis ({n_data}) — lower grad_accum or raise batch_size")
+        # GPipe microbatches per step (or per accumulation microbatch)
+        self.n_micro = 1
+        if tcfg.pipeline_parallel > 1:
+            self.n_micro = tcfg.pipeline_microbatches or tcfg.pipeline_parallel
+            if rows % self.n_micro or (rows // self.n_micro) % n_data:
+                raise ValueError(
+                    f"batch_size/grad_accum = {rows} rows must split into {self.n_micro} "
+                    f"GPipe microbatches that each divide the data axis ({n_data}) — raise "
+                    "batch_size or lower grad_accum/microbatches")
+        if tcfg.seq_parallel > 1:
+            # every collated batch pads T up to a length_bucket multiple (capped
+            # at max_seq_len), and the ring cuts T over the seq axis
+            n_seq, bucket = tcfg.seq_parallel, config.data.length_bucket
+            if not bucket or bucket % n_seq:
+                raise ValueError(
+                    f"training.parallelism: seq={n_seq} needs data.length_bucket to be a "
+                    f"multiple of it (got {bucket!r}) — padded sequence lengths must shard "
+                    "evenly over the seq axis")
+            cap = config.data.max_seq_len
+            if cap is not None and cap % n_seq:
+                raise ValueError(
+                    f"training.parallelism: seq={n_seq} needs data.max_seq_len ({cap}) "
+                    "divisible by it — capped batches pad to exactly max_seq_len")
+            # the ring over the trainer's seq group; inside pipeline stages its
+            # ring_inner name
+            mcfg = dataclasses.replace(mcfg, attention_impl=(
+                "ring" if tcfg.pipeline_parallel == 1 else "ring_inner"))
         self.dtype = torch.bfloat16 if tcfg.half_precision else torch.float32
         self.keys = KeyChain(tcfg.seed)
         # torch's default initialisers (the reference's), from the
         # experiment seed and nothing else
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.keys.seed("init"))
-            model = TFAM(config.model, num_classes=config.num_classes, dtype=self.dtype)
+            model = TFAM(mcfg, num_classes=config.num_classes, dtype=self.dtype)
         model.to(self.device)
         self.partition = self.shard = None
         if self.mesh is not None:
@@ -170,13 +235,25 @@ class TFAMTrainer:
 
     # ------------------------------------------------------------------
     def _logits(self, batch: dict, generator=None) -> torch.Tensor:
-        return self.model(*(batch[k] for k in _INPUTS), generator=generator)
+        inputs = [batch[k] for k in _INPUTS]
+        if self.shard is not None and self.shard.pipe > 1:
+            return tfam_cross_pipeline_logits(self.model, *inputs, n_micro=self.n_micro,
+                                              generator=generator)
+        return self.model(*inputs, generator=generator)
+
+    def _backward(self, loss: torch.Tensor) -> None:
+        # every seq rank runs the head on the same features: 1/seq of the
+        # loss each, summed over seq by average_gradients_
+        seq = 1 if self.shard is None else self.shard.seq
+        (loss / seq if seq > 1 else loss).backward()
 
     def _global(self, loss: torch.Tensor, logits: torch.Tensor):
-        """The global batch's loss and logits from this rank's."""
+        """The global batch's loss and logits from this rank's (whose rows
+        are its block of each GPipe microbatch, gathered per microbatch)."""
         if self.shard is None:
             return loss, logits
-        return self.shard.mean_over_data(loss), self.shard.gather_rows(logits)
+        return self.shard.mean_over_data(loss), torch.cat(
+            [self.shard.gather_rows(part) for part in logits.chunk(self.n_micro)])
 
     def _stop_requested(self) -> bool:
         """A preemption signal, agreed by every rank under a mesh."""
@@ -188,7 +265,8 @@ class TFAMTrainer:
         device); dropout draws from the step's own stream. Returns the
         detached loss and logits of the global batch."""
         accum = self.config.training.grad_accum
-        batch = to_device(shard_batch(batch, self.mesh, accum), self.device)
+        batch = to_device(shard_batch(batch, self.mesh, max(accum, 1) * self.n_micro),
+                          self.device)
         generator = self.keys("dropout", self.state.step, device=self.device)
         model, opt = self.model, self.state.optimizer
         model.train()
@@ -197,7 +275,7 @@ class TFAMTrainer:
         if accum <= 1:
             logits = self._logits(batch, generator)
             loss = self.loss_fn(logits, batch["labels"])
-            loss.backward()
+            self._backward(loss)
             loss, logits = self._global(loss.detach(), logits.detach())
         else:
             rows = batch["labels"].shape[0] // accum
@@ -206,7 +284,7 @@ class TFAMTrainer:
                 mb = {k: batch[k][i * rows:(i + 1) * rows] for k in (*_INPUTS, "labels")}
                 part = self._logits(mb, generator)
                 mb_loss = self.loss_fn(part, mb["labels"])
-                mb_loss.backward()  # gradients add up in .grad
+                self._backward(mb_loss)  # gradients add up in .grad
                 mb_loss, part = self._global(mb_loss.detach(), part.detach())
                 loss_sum = loss_sum + mb_loss
                 parts.append(part)
@@ -224,7 +302,7 @@ class TFAMTrainer:
     @torch.no_grad()
     def eval_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Loss and logits of a collated global batch, dropout off."""
-        batch = to_device(shard_batch(batch, self.mesh), self.device)
+        batch = to_device(shard_batch(batch, self.mesh, self.n_micro), self.device)
         self.model.eval()
         logits = self._logits(batch)
         return self._global(self.loss_fn(logits, batch["labels"]), logits)
@@ -365,8 +443,10 @@ class TFAMTester:
         """Evaluate a reference-format ``best_model.pth`` (loaded strictly)."""
         from vimoclip_tpu_torch.models.convert import tfam_state_from_checkpoint, to_tensors
 
-        self.t.model.load_state_dict(to_tensors(tfam_state_from_checkpoint(path)),
-                                     strict=True)
+        state = to_tensors(tfam_state_from_checkpoint(path))
+        if self.t.partition is not None:  # this rank's slices and stage
+            state = self.t.partition.local_state(state)
+        self.t.model.load_state_dict(state, strict=True)
         logging.info("reference torch checkpoint loaded from %s", path)
 
     def _name(self, c) -> str:
