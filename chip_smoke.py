@@ -145,7 +145,26 @@ NVIDIA card:
     pipe 2 x seq 2 on four gloo ranks on ``cuda:0`` at the 512 bucket with
     dropout 0 against one card. Gloo sends and receives through pinned
     host memory; the kernels run on the card.
-16. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+16. The Table-2 and memory tools (``tools/run_table2_sweep_torch.py``,
+    ``tools/run_table2_fullgeom_torch.py``, ``tools/bench_memory_torch.py``):
+    (a) phase 6's recipe at 2 heads (head dim 256, past the kernels' 128)
+    takes one train step with dropout under ``attention_impl: auto`` on
+    eager attention, no kernel launched, its loss within 1e-6 of the
+    ``xla`` step from the same state and generator, while ``flash`` refuses
+    the head dim naming ``auto``; (b) the order-only corpus (384 videos) by
+    the memory route on the card, the tiny teacher in float32, four videos
+    held to the same route on the CPU (rel. L2 1e-4), frames/s; (c) the
+    float32 K1' and K2 at (8, 8, 16, 16, 64), the shape of every train step
+    of the full-width contrast, against their plain versions under one
+    Philox keep mask, with and without dropout, timed beside them and
+    SDPA; (d) the four fusion modes through ``run_mode`` at full width (d512,
+    8 heads, 4 layers, ff 2048, float32) for 3 epochs: steps, best val mAP,
+    K1' and K2 launches held to the attention sites (8 + 8 a step in
+    cross mode), a warm step's ms and clips/s and one profiled step's idle
+    share on a fresh trainer; cross's epoch-3 mean train loss below epoch
+    1's; then the memory tool's 32:1 and 32:4 arms (subprocesses), the
+    accumulated peak below the dense one.
+17. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -325,6 +344,21 @@ PAR_GLOO_RANKS = 2
 SEQ_SHAPE = (8, 8, 2048, 2048, 64)
 SEQ_RINGS = (2, 4)
 SEQ_STEP_BUCKET = 2048
+# Phase 16 (the Table-2 tools). (a) A TFAM of 2 heads at d 512 (head dim 256,
+# past the kernels' 128) trains on eager attention under ``auto``: the same
+# code as ``xla``, so the same loss is expected bit for bit; the limit is 1e-6.
+HEAD_DIM_HEADS = 2
+AUTO_LOSS_TOL = 1e-6
+# (b) The memory-route corpus on the card against the CPU, four videos, the
+# tiny teacher in float32 on both: float32 sums in other orders; rel. L2 1e-4.
+CORPUS_CHECK_VIDEOS = 4
+CORPUS_TOL = 1e-4
+# (c) The float32 K1' and K2 at the shape every train step of the full-width
+# contrast gives them: batch 8, 8 heads, the 16-frame bucket, head dim 64.
+FULLGEOM_KERNEL_SHAPE = (8, 8, 16, 16, 64)
+# (d) Each fusion mode for three epochs; attention sites per layer
+FULLGEOM_EPOCHS = 3
+FULLGEOM_SITES = {"cross": 2, "concat_t": 1, "rgb": 1, "flow": 1}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -432,11 +466,10 @@ def profile_request(torch, run, smi: str, label: str = "profile") -> dict:
 
 
 def phase_device(torch) -> tuple[str, int, str]:
+    from vimoclip_tpu_torch.utils.device import describe_card
+
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = describe_card("cuda:0")
     print(f"[device] {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
     return name, count, smi
@@ -582,20 +615,22 @@ def _bound(kind: str, dtype_name: str, shape, item: int, rate: float) -> tuple[f
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dict:
+def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
+                           shapes=TRAIN_SHAPES, dtypes=("float32", "bfloat16")) -> dict:
     """K1' and K2 / K3 + K4 against their plain versions, timed, at
-    ``TRAIN_SHAPES`` and the main path's shapes; returns the bf16 p = 0.1
-    rows at ``main_shapes[kind]``, each kernel's most launched shape."""
+    ``shapes`` and the main path's shapes in each of ``dtypes``; returns the
+    p = 0.1 rows of the last dtype at ``main_shapes[kind]``, each kernel's
+    most launched shape."""
     import torch.nn.functional as F
 
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
 
-    shapes = list(dict.fromkeys([*TRAIN_SHAPES, *main_shapes.values()]))
+    shapes = list(dict.fromkeys([*shapes, *main_shapes.values()]))
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     # every kernel is also timed with the 50 MB L2 flushed before each call
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     main = {}
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name in dtypes:
         dtype = getattr(torch, dtype_name)
         for shape in shapes:
             b, h, tq, tk, d = shape
@@ -711,7 +746,7 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict) -> dic
                     if kind == "bwd_dqkv" and pair is not None:
                         row["k3k4_pair"] = pair
                     print("[train-kernel] " + json.dumps(row) + f" [{smi}]")
-                    if dtype_name == "bfloat16" and rate and shape == main_shapes.get(kind):
+                    if dtype_name == dtypes[-1] and rate and shape == main_shapes.get(kind):
                         main[kind] = row
     check(set(main) == set(main_shapes), f"main-shape rows missing: {sorted(main)}")
     return main
@@ -2692,6 +2727,197 @@ def phase_seq_pipe(torch, seed: int, smi: str, setup: dict) -> dict:
     return out
 
 
+def _tools():
+    """The Table-2 and memory tools (``tools/``) as modules."""
+    sys.path.insert(0, str(HERE / "tools"))
+    import bench_memory_torch
+    import run_table2_fullgeom_torch
+    import run_table2_sweep_torch
+
+    return run_table2_sweep_torch, run_table2_fullgeom_torch, bench_memory_torch
+
+
+def _head_dim_route(torch, setup: dict) -> dict:
+    """Phase 16(a): the AK recipe of phase 6 at 2 heads (head dim 256) takes
+    one train step with dropout under ``auto`` on eager attention, no kernel
+    launched, equal to the ``xla`` step from the same state and generator;
+    ``flash`` refuses the head dim with a message that names ``auto``."""
+    import tempfile
+
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    cfg, batch = setup["cfg"], setup["batches"][0]
+    run = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    out = {"heads": HEAD_DIM_HEADS, "head_dim": cfg.model.d_model // HEAD_DIM_HEADS}
+    for impl in ("auto", "xla", "flash"):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, nhead=HEAD_DIM_HEADS, attention_impl=impl))
+        trainer = TFAMTrainer(c, log_dir=str(run / impl / "logs"),
+                              checkpoint_dir=str(run / impl / "ckpt"),
+                              train_dataset=setup["train_items"],
+                              val_dataset=setup["val_items"])
+        fa.reset_launch_counts()
+        if impl == "flash":
+            msg = ""
+            try:
+                trainer.train_step(batch)
+            except ValueError as e:  # the refusal this check expects
+                msg = str(e)
+            check(f"head dim {out['head_dim']} > 128" in msg and "attention_impl: auto" in msg,
+                  f"flash at head dim {out['head_dim']} did not refuse as expected: {msg!r}")
+            out["flash_refusal"] = msg
+            continue
+        loss, _ = trainer.train_step(batch)
+        out[f"{impl}_loss"] = float(loss)
+        out[f"{impl}_launches"] = sum(fa.flash_attention.launches.values())
+        check(out[f"{impl}_launches"] == 0,
+              f"{impl} at head dim {out['head_dim']} launched {fa.flash_attention.launches}")
+    diff = abs(out["auto_loss"] - out["xla_loss"])
+    check(diff <= AUTO_LOSS_TOL, f"auto vs xla loss at head dim 256: {diff} > {AUTO_LOSS_TOL}")
+    out["loss_abs_diff"] = diff
+    return out
+
+
+def _memory_corpus(torch, seed: int, sweep, fg) -> tuple[tuple, dict]:
+    """Phase 16(b): the order-only corpus (48 + 16 videos per class) by the
+    memory route on the card, four videos held to the same route on the
+    CPU."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    items = sweep.corpus_items(seed, device="cuda", rgb_half_precision=False, **fg.CORPUS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    per_class = fg.CORPUS["videos_per_class"], fg.CORPUS["val_videos_per_class"]
+    check((len(items[0]), len(items[1])) == tuple(6 * n for n in per_class),
+          f"corpus of {len(items[0])} train, {len(items[1])} val clips")
+    frames_done = sum(len(it["embeddings"]) + len(it["motion_embeddings"])
+                      for it in items[0] + items[1])
+    frames, names, _ = sweep.corpus_frames(
+        seed, *per_class, order_only=fg.CORPUS["order_only"])
+    n = len(frames)
+    pick = [0, 1, n - 2, n - 1][:CORPUS_CHECK_VIDEOS]
+    vcfg, state = sweep.tiny_teacher(fg.CORPUS["projection_dim"], seed)
+    clips = [frames[i] for i in pick]
+    rgb, motion = sweep.embed_clips(clips, sweep.motion_frames_of(clips, "cpu"), vcfg,
+                                    state, "cpu", rgb_half_precision=False)
+    by_id = {it["video_id"]: it for it in items[0] + items[1]}
+    errs = []
+    for i, r, m in zip(pick, rgb, motion):
+        got = by_id[names[i]]
+        check(got["embeddings"].shape == r.shape and got["motion_embeddings"].shape == m.shape,
+              f"{names[i]}: shapes {got['embeddings'].shape}, {got['motion_embeddings'].shape}")
+        for a, b in ((got["embeddings"], r), (got["motion_embeddings"], m)):
+            check(bool(np.isfinite(a).all()), f"{names[i]}: non-finite embeddings")
+            errs.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    check(max(errs) <= CORPUS_TOL, f"corpus on the card vs the CPU: rel. L2 {errs}")
+    return items, {"clips": [len(items[0]), len(items[1])], "seconds": secs,
+                   "frames": frames_done, "frames_per_s": frames_done / secs,
+                   "cpu_rel_l2": errs}
+
+
+def _fullgeom_modes(torch, items: tuple, smi: str, fg) -> dict:
+    """Phase 16(d): every fusion mode through ``run_mode`` at full width for
+    ``FULLGEOM_EPOCHS`` epochs, its launches held to its attention sites;
+    then a warm step and a profiled one on a fresh trainer."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    # a fresh run dir (run_mode resumes from one), removed at the end: the
+    # checkpoints take about 0.4 GB a mode
+    run_dir = tempfile.mkdtemp(dir=HERE / "build")
+    batch_size = fg.RECIPE["batch_size"]
+    out, launches = {}, dict.fromkeys(fa.LAUNCH_KINDS, 0)
+    for mode, sites in FULLGEOM_SITES.items():
+        fa.reset_launch_counts()
+        res = fg.run_mode(mode, items, run_dir, "cuda", epochs=FULLGEOM_EPOCHS)
+        torch.cuda.synchronize()
+        ran = dict(fa.flash_attention.launches)
+        steps = res["train_steps"]
+        per_step = sites * fg.GEOMETRY["num_layers"]
+        check(steps == FULLGEOM_EPOCHS * (len(items[0]) // batch_size),
+              f"{mode}: {steps} train steps")
+        want = {k: steps * per_step if k in ("fwd_lse", "bwd_dqkv") else 0
+                for k in fa.LAUNCH_KINDS}
+        check(ran == want, f"{mode}: launched {ran} over {steps} steps, expected {want}")
+        best = res["best_val_mAP"]
+        check(best is not None and 0.0 <= best <= 1.0, f"{mode}: best val mAP {best}")
+        for kind in fa.LAUNCH_KINDS:
+            launches[kind] += ran[kind]
+
+        trainer = fg.make_trainer(mode, items, tempfile.mkdtemp(dir=run_dir), "cuda",
+                                  epochs=FULLGEOM_EPOCHS)
+        batch = to_device(trainer.collate(items[0][:batch_size]), trainer.device)
+        check(batch["embeddings"].shape[1] == fg.LENGTH_BUCKET,
+              f"{mode}: bucket {batch['embeddings'].shape[1]}")
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        before, times = dict(fa.flash_attention.launches), []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            loss, _ = trainer.train_step(batch)
+            check(np.isfinite(float(loss)), f"{mode}: non-finite loss")
+            times.append(time.perf_counter() - t0)
+        step = {k: (fa.flash_attention.launches[k] - before[k]) / 10 for k in fa.LAUNCH_KINDS}
+        check(step["fwd_lse"] == step["bwd_dqkv"] == per_step,
+              f"{mode}: launches per step {step}, expected {per_step} K1' and K2")
+        step_ms = float(np.mean(times)) * 1e3
+        prof = profile_request(torch, lambda: trainer.train_step(batch), smi,
+                               label=f"fullgeom-{mode}-profile")
+        hist = res["history"]
+        out[mode] = {"train_steps": steps, "best_val_mAP": best, "wall_s": res["wall_s"],
+                     "warm_step_ms": step_ms, "clips_per_s": batch_size / (step_ms / 1e3),
+                     "launches_per_step": {"fwd_lse": per_step, "bwd_dqkv": per_step},
+                     "device_idle_share": prof["device_idle_share"],
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "train_loss": [h["train_loss"] for h in hist],
+                     "val_map": [h["val_map"] for h in hist]}
+        del trainer
+    shutil.rmtree(run_dir)
+    loss = out["cross"]["train_loss"]
+    check(loss[-1] < loss[0], f"cross: epoch {FULLGEOM_EPOCHS} mean train loss {loss[-1]} not "
+                              f"below epoch 1's {loss[0]}")
+    out["launches"] = launches
+    return out
+
+
+def phase_table2(torch, seed: int, smi: str, setup: dict) -> dict:
+    """Phase 16: the head-dim route, the memory-route corpus, the float32
+    K1' and K2 at the contrast's shape, the four fusion modes at full width,
+    and the 32:1 and 32:4 memory arms."""
+    sweep, fg, membench = _tools()
+    out = {"head_dim": _head_dim_route(torch, setup)}
+    print("[table2-head-dim] " + json.dumps(out["head_dim"]) + f" [{smi}]")
+    items, out["corpus"] = _memory_corpus(torch, seed, sweep, fg)
+    print("[table2-corpus] " + json.dumps(out["corpus"]) + f" [{smi}]")
+    shape = FULLGEOM_KERNEL_SHAPE
+    rows = phase_training_kernels(torch, seed, smi, {"fwd_lse": shape, "bwd_dqkv": shape},
+                                  shapes=[shape], dtypes=("float32",))
+    out["kernels"] = {kind: {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err")}
+                      for kind, row in rows.items()}
+    out["modes"] = _fullgeom_modes(torch, items, smi, fg)
+    del items
+    torch.cuda.empty_cache()
+    arms = [membench.run_arm(32, n, "cuda") for n in (1, 4)]
+    for a in arms:
+        check(a["status"] == "ok", f"memory arm 32:{a['grad_accum']}: {a}")
+    dense, accum = (a["peak_allocated_bytes"] for a in arms)
+    check(accum < dense, f"grad_accum 4 peak {accum} not below the dense peak {dense}")
+    out["memory"] = {f"32:{a['grad_accum']}": a["peak_allocated_gib"] for a in arms}
+    out["launches"] = out["modes"].pop("launches")
+    print("[table2] " + json.dumps(out) + f" [{smi}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2736,6 +2962,7 @@ def main() -> int:
     accel = phase_accelerators(torch, args.seed, smi)
     par = phase_parallel(torch, args.seed, smi, setup, train, student, stats)
     seq_pipe = phase_seq_pipe(torch, args.seed, smi, setup)
+    table2 = phase_table2(torch, args.seed, smi, setup)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
@@ -2759,7 +2986,7 @@ def main() -> int:
         kernels.append({
             "name": name_, "route": "cuda", "source": source, "replaces": f"{tpu}:{line}",
             "launches": (train["launches"][kind] + par["launches"][kind]
-                         + seq_pipe["launches"][kind]),
+                         + seq_pipe["launches"][kind] + table2["launches"][kind]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

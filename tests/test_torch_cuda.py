@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from vimoclip_tpu_torch.ops.attention import MultiHeadAttention
+from vimoclip_tpu_torch.ops.attention import AUTO_FLASH_MIN_T_NODROP, MultiHeadAttention
 from vimoclip_tpu_torch.ops.kernels.flash_attention import (
     expand_seed,
     flash_attention,
@@ -336,14 +336,14 @@ def test_auto_sends_dropout_to_the_kernels(cuda, t):
     assert flash_attention.launches["fwd_lse"] == before["fwd_lse"] + 1
     with torch.no_grad():
         mha.eval()(x)
-    eager = t < MultiHeadAttention._AUTO_FLASH_MIN_T_NODROP
+    eager = t < AUTO_FLASH_MIN_T_NODROP
     assert flash_attention.launches["fwd"] == before["fwd"] + (0 if eager else 1)
 
 
 def test_auto_without_dropout_follows_the_measured_crossover(cuda):
     """``auto`` in eval mode takes K1 from the no-dropout crossover on and the
     eager path below it."""
-    n = MultiHeadAttention._AUTO_FLASH_MIN_T_NODROP
+    n = AUTO_FLASH_MIN_T_NODROP
     mha = MultiHeadAttention(64, 4, dropout=0.1, implementation="auto").to(cuda).eval()
     for t in sorted({max(1, n - 1), n, 2 * n}):
         before = flash_attention.launches["fwd"]
@@ -351,6 +351,49 @@ def test_auto_without_dropout_follows_the_measured_crossover(cuda):
             out = mha(torch.randn(2, t, 64, device=cuda))
         assert torch.isfinite(out).all()
         assert flash_attention.launches["fwd"] == before + (1 if t >= n else 0), t
+
+
+def test_head_dims_past_the_kernels_take_the_eager_route_under_auto(cuda):
+    """A 2-head d512 TFAM (head dim 256) takes a train step with dropout
+    under ``auto`` on eager attention, launching no kernel, with the loss of
+    the ``xla`` step from the same state and generator; ``flash`` and the
+    ring refuse the head dim with a message that names ``auto``."""
+    import dataclasses
+
+    from vimoclip_tpu_torch import losses
+    from vimoclip_tpu_torch.config import TFAMModelConfig
+    from vimoclip_tpu_torch.models.tfam import TFAM
+    from vimoclip_tpu_torch.parallel.sequence import LocalRing, ring_attention
+
+    cfg = TFAMModelConfig(d_model=512, nhead=2, num_layers=2, dim_feedforward=1024,
+                          use_cross_attention=True, dropout=0.1, mlp_dropout=0.1,
+                          attention_impl="auto")
+    g = torch.Generator().manual_seed(0)
+    x, m = torch.randn(2, 16, 512, generator=g), torch.randn(2, 15, 512, generator=g)
+    labels = (torch.rand(2, 6, generator=g) < 0.3).float()
+    x, m, labels = x.to(cuda), m.to(cuda), labels.to(cuda)
+    state = None
+    loss = {}
+    for impl in ("auto", "xla"):
+        torch.manual_seed(0)
+        model = TFAM(dataclasses.replace(cfg, attention_impl=impl), num_classes=6).to(cuda)
+        if state is None:
+            state = model.state_dict()
+        model.load_state_dict(state)
+        before = dict(flash_attention.launches)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        out = losses.bce_with_logits(model.train()(x, m, generator=gen), labels)
+        out.backward()
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before, impl
+        loss[impl] = out.item()
+    assert abs(loss["auto"] - loss["xla"]) <= 1e-6, loss
+    flash = TFAM(dataclasses.replace(cfg, attention_impl="flash"), num_classes=6).to(cuda)
+    with pytest.raises(ValueError, match=r"head dim 256 > 128.*attention_impl: auto"):
+        flash.train()(x, m, generator=torch.Generator(device=cuda).manual_seed(1))
+    q = torch.randn(2, 2, 8, 256, device=cuda)
+    with pytest.raises(ValueError, match=r"head dim 256 > 128.*attention_impl: auto"):
+        ring_attention([q, q], [q, q], [q, q], None, LocalRing(2))
 
 
 # ---------------------------------------------------------------------------

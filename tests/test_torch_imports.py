@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``vimoclip_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package; entry points refuse a
-missing card instead of falling back; CPU calls launch no kernel."""
+"""The port stands alone: no module of ``vimoclip_tpu_torch``, no
+``tools/*_torch.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package; entry points refuse a missing card instead of falling back; CPU
+calls launch no kernel."""
 
 import ast
 import subprocess
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "vimoclip_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TOOLS = sorted((ROOT / "tools").glob("*_torch.py"))
+FILES = sorted(PORT.rglob("*.py")) + TOOLS + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -43,6 +45,10 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        f"for p in {[str(t) for t in TOOLS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('tool', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vimoclip_tpu'))\n"
         "print('BAD', bad)\n"
@@ -69,6 +75,30 @@ def test_cuda_request_without_card_raises():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
+
+
+@pytest.mark.parametrize("device, index", [("cuda:2", "2"), ("cuda", "0")])
+def test_describe_card_queries_the_named_card(device, index, monkeypatch):
+    """``describe_card`` asks ``nvidia-smi`` for the card ``device`` names
+    (the current card when it names none) and returns its one line; the
+    CPU needs no query."""
+    import subprocess
+
+    from vimoclip_tpu_torch.utils import device as dev_mod
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n")
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert dev_mod.describe_card("cpu") == "cpu" and not calls
+    assert dev_mod.describe_card(device) == "NVIDIA H100 80GB HBM3, 700.00 W"
+    (cmd,) = calls
+    assert cmd[0] == "nvidia-smi" and f"--id={index}" in cmd
+    assert "--query-gpu=name,power.limit" in cmd and "--format=csv,noheader" in cmd
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -106,15 +136,20 @@ NEW_MODULES = ["vimoclip_tpu_torch.extraction", "vimoclip_tpu_torch.motion",
                "vimoclip_tpu_torch.fidelity"]
 
 
-@pytest.mark.parametrize("module", NEW_MODULES)
+@pytest.mark.parametrize("module", NEW_MODULES + [str(t.relative_to(ROOT)) for t in TOOLS])
 def test_module_imports_without_host_libraries(module):
     """The card's machine has no cv2, h5py, pandas or PyYAML: the modules
-    import them only where they are used."""
+    and the port's tools import them only where they are used."""
+    if module.endswith(".py"):
+        load = ("import importlib.util\n"
+                f"spec = importlib.util.spec_from_file_location('tool', {module!r})\n"
+                "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n")
+    else:
+        load = f"import importlib; importlib.import_module({module!r})\n"
     code = (
         "import sys\n"
         "for name in ('cv2', 'h5py', 'pandas', 'yaml'): sys.modules[name] = None\n"
-        f"import importlib; importlib.import_module({module!r})\n"
-        "print('OK')\n"
+        + load + "print('OK')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)

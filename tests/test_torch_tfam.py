@@ -118,3 +118,41 @@ def test_training_and_ring_refused():
     # dropout 0 in train mode is the same function as eval: allowed
     quiet = TFAM(dataclasses.replace(cfg, dropout=0.0, mlp_dropout=0.0), num_classes=C)
     assert quiet(*(torch.from_numpy(a) for a in _inputs(0))).shape == (3, C)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 129, 256])
+@pytest.mark.parametrize("is_cuda", [False, True], ids=["cpu", "cuda"])
+@pytest.mark.parametrize("dropping", [False, True], ids=["nodrop", "drop"])
+def test_auto_routes_head_dims_past_the_kernels_to_eager(head_dim, is_cuda, dropping):
+    """``auto`` sends a CUDA attention to the kernels only at head dims they
+    take; above ``MAX_HEAD_DIM`` (and on the CPU) it runs eager attention,
+    whatever the key length and dropout."""
+    from vimoclip_tpu_torch.ops.attention import AUTO_FLASH_MIN_T_NODROP, _auto_impl
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import MAX_HEAD_DIM
+
+    for tk in (16, AUTO_FLASH_MIN_T_NODROP, 4096):
+        kernels = is_cuda and head_dim <= MAX_HEAD_DIM and (
+            dropping or tk >= AUTO_FLASH_MIN_T_NODROP)
+        want = "flash" if kernels else "xla"
+        assert _auto_impl(is_cuda, dropping, tk, head_dim) == want, tk
+
+
+def test_head_dim_256_under_auto_matches_jax():
+    """A 2-head d512 TFAM (head dim 256, past the kernels' 128) under
+    ``auto`` equals JAX's TFAM in eval mode; the kernels' wrappers refuse
+    that head dim only for CUDA tensors, so the plain versions run here."""
+    base = dict(d_model=512, nhead=2, num_layers=2, dim_feedforward=1024, dropout=0.1,
+                mlp_dropout=0.1, use_cross_attention=True, attention_impl="auto")
+    rng = np.random.default_rng(11)
+    args = (rng.standard_normal((2, 10, 512)).astype(np.float32),
+            rng.standard_normal((2, 9, 512)).astype(np.float32),
+            np.arange(10)[None] < np.array([10, 6])[:, None],
+            np.arange(9)[None] < np.array([9, 5])[:, None])
+    jt = JTFAM(config=JConfig(**base), num_classes=C)
+    params = jt.init(jax.random.key(4), *args)["params"]
+    ref = np.asarray(jt.apply({"params": params}, *args))
+    model = TFAM(TFAMModelConfig(**base), num_classes=C)
+    model.load_state_dict(to_tensors(tfam_state_from_jax(params, 2)), strict=True)
+    with torch.no_grad():
+        got = model.eval()(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)

@@ -40,7 +40,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -67,6 +66,7 @@ from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncod
 from vimoclip_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from vimoclip_tpu_torch.train.student_trainer import StudentTrainer  # noqa: E402
 from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer  # noqa: E402
+from vimoclip_tpu_torch.utils.device import describe_card  # noqa: E402
 
 LOSS_TOL, GRAD_TOL = 1e-4, 5e-3
 FULL = dict(d=512, heads=8, layers=4, ff=2048, classes=140, lengths=(60, 501), long=(1200, 1921),
@@ -338,12 +338,9 @@ def main() -> int:
         return 0
     if every:
         report("extract_replicas", extraction(geo, world, device, args.seed))
-    smi = ""
-    if device.type == "cuda":
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True).stdout.strip()
-    report("device", {"cards": smi.splitlines(), "world": world})
+    cards = ([describe_card(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+             if device.type == "cuda" else [])
+    report("device", {"cards": cards, "world": world})
     print(json.dumps({"ok": not failed, "failed": failed}))
     return 1 if failed else 0
 

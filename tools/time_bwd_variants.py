@@ -135,9 +135,9 @@ def main() -> int:
 
     from vimoclip_tpu_torch.ops.kernels import _build
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.utils.device import describe_card
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = describe_card("cuda")
     print(smi)
     kernels, default_shape = KINDS[args.kernels]
     names = args.names.split(",")

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+    MAX_HEAD_DIM,
     dropout_keep_mask,
     expand_seed,
     flash_attention,
@@ -56,6 +57,29 @@ from vimoclip_tpu_torch.parallel.sequence import ring_attention
 _MASK_VALUE = -1e9
 
 IMPLEMENTATIONS = ("xla", "flash", "auto", "ring", "ring_inner")
+
+
+# With dropout the kernels win at every length: the eager path builds its
+# Philox mask from int64 elementwise ops. chip_smoke.py phase 6 on an
+# NVIDIA H100 80GB HBM3 (700 W) timed a full-width train step at the
+# 128-frame bucket at 66.6 ms eager against 32.9 ms on the kernels.
+# Without dropout they win from the shortest bucket measured on: the same
+# phase timed TFAM's eval step (d512, 8 heads, 4 layers, batch 8) at
+# 8.94 ms eager against 6.79 ms on the kernels at 128 frames, and
+# 18.62 against 5.18 ms at 2048 (same card and limit; the run PERF.md
+# quotes). Shorter keys were not measured; the TFAM pipelines pad to
+# multiples of 128.
+AUTO_FLASH_MIN_T_NODROP = 128
+
+
+def _auto_impl(is_cuda: bool, dropping: bool, tk: int, head_dim: int) -> str:
+    """``auto``'s route: the kernels ("flash") for CUDA tensors whose head
+    dim they take (up to ``MAX_HEAD_DIM``) when dropout is active or the
+    keys reach ``AUTO_FLASH_MIN_T_NODROP``; eager attention ("xla")
+    otherwise, which takes any head dim on any device."""
+    if not is_cuda or head_dim > MAX_HEAD_DIM:
+        return "xla"
+    return "flash" if dropping or tk >= AUTO_FLASH_MIN_T_NODROP else "xla"
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -109,8 +133,8 @@ class MultiHeadAttention(nn.Module):
     - "flash": the hand-written CUDA kernel on a card, its plain version on
       the CPU (``ops/kernels/flash_attention.py``);
     - "auto": flash for CUDA tensors with attention dropout active, or
-      once the key length reaches the no-dropout crossover; the eager path
-      otherwise;
+      once the key length reaches the no-dropout crossover, when the head
+      dim is one the kernels take; the eager path otherwise (``_auto_impl``);
     - "ring" / "ring_inner": ring attention over the ``seq`` group of
       ``shard`` (module docstring); without one it raises.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
@@ -121,18 +145,6 @@ class MultiHeadAttention(nn.Module):
     scale, so the result equals JAX's for every ``head_proj`` (its fused
     int8 paths are bit-identical to Int8Dense-then-split).
     """
-
-    # With dropout the kernels win at every length: the eager path builds its
-    # Philox mask from int64 elementwise ops. chip_smoke.py phase 6 on an
-    # NVIDIA H100 80GB HBM3 (700 W) timed a full-width train step at the
-    # 128-frame bucket at 66.6 ms eager against 32.9 ms on the kernels.
-    # Without dropout they win from the shortest bucket measured on: the same
-    # phase timed TFAM's eval step (d512, 8 heads, 4 layers, batch 8) at
-    # 8.94 ms eager against 6.79 ms on the kernels at 128 frames, and
-    # 18.62 against 5.18 ms at 2048 (same card and limit; the run PERF.md
-    # quotes). Shorter keys were not measured; the TFAM pipelines pad to
-    # multiples of 128.
-    _AUTO_FLASH_MIN_T_NODROP = 128
 
     shard: Shard | None = None  # set by parallel.partition.parallelize_
 
@@ -211,8 +223,7 @@ class MultiHeadAttention(nn.Module):
             seed = draw(sample, (q.shape[0], heads), shard, split_last=True).to(q.device)
         impl = self.implementation
         if impl == "auto":
-            long_keys = k.shape[2] >= self._AUTO_FLASH_MIN_T_NODROP
-            impl = "flash" if q.is_cuda and (dropping or long_keys) else "xla"
+            impl = _auto_impl(q.is_cuda, dropping, k.shape[2], q.shape[-1])
         if impl in ("ring", "ring_inner"):
             ring = None if shard is None else shard.seq_ring
             if ring is None:

@@ -305,6 +305,19 @@ _BWD_ARGS = [_P] * 13 + [_I] * 9 + [_LL] * 22 + [_F, _U32, _F, _P]
 _TMA_ALIGN = 16  # bytes: TMA's start address and stride granule
 
 
+def check_head_dim(q: torch.Tensor) -> None:
+    """Refuse a CUDA tensor whose head dim the kernels do not take (above
+    ``MAX_HEAD_DIM``). JAX's kernels set no such limit; on the card the
+    port's eager attention takes any head dim, and ``auto`` picks it there.
+    CPU tensors pass: the plain versions take any head dim."""
+    d = q.shape[-1]
+    if q.device.type == "cuda" and d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} > {MAX_HEAD_DIM}: the attention kernels take head dims up to "
+            f"{MAX_HEAD_DIM}; use attention_impl: auto (eager attention above "
+            f"{MAX_HEAD_DIM}) or xla")
+
+
 def _check_kernel_inputs(q, k, v):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -313,8 +326,7 @@ def _check_kernel_inputs(q, k, v):
         )
     if not (k.device == q.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]} > {MAX_HEAD_DIM} is not supported")
+    check_head_dim(q)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
