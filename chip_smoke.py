@@ -7,8 +7,9 @@ NVIDIA card:
 1. Device: the card's name and count, and nvidia-smi's name and power limit.
 2. Build: every CUDA kernel from ``vimoclip_tpu_torch/csrc`` with nvcc for
    sm_90a (seconds and the ``-Xptxas -v`` report); the SASS of every bf16
-   attention kernel (K1/K1', K2, K3, K4) must hold wgmma products (HGMMA)
-   and TMA loads (UTMALDG); the bf16 K1 and K2 CTAs that fit one SM.
+   attention kernel (K1/K1', K2, K3, K4, and their wide kernels above head
+   dim 128) must hold wgmma products (HGMMA) and TMA loads (UTMALDG); the
+   bf16 K1 and K2 CTAs that fit one SM at head dims 64, 128, 256 and 512.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the bound.
@@ -147,11 +148,11 @@ NVIDIA card:
     host memory; the kernels run on the card.
 16. The Table-2 and memory tools (``tools/run_table2_sweep_torch.py``,
     ``tools/run_table2_fullgeom_torch.py``, ``tools/bench_memory_torch.py``):
-    (a) phase 6's recipe at 2 heads (head dim 256, past the kernels' 128)
-    takes one train step with dropout under ``attention_impl: auto`` on
-    eager attention, no kernel launched, its loss within 1e-6 of the
-    ``xla`` step from the same state and generator, while ``flash`` refuses
-    the head dim naming ``auto``; (b) the order-only corpus (384 videos) by
+    (a) phase 6's recipe at 2 heads (head dim 256) takes one train step
+    with dropout on ``flash`` (the wide K1' and K2 8 times each, the loss
+    within 1e-4 of the ``xla`` step from the same state and generator) and
+    under ``attention_impl: auto``, which runs the route phase 17 measured
+    and equals that route's step within 1e-6; (b) the order-only corpus (384 videos) by
     the memory route on the card, the tiny teacher in float32, four videos
     held to the same route on the CPU (rel. L2 1e-4), frames/s; (c) the
     float32 K1' and K2 at (8, 8, 16, 16, 64), the shape of every train step
@@ -164,7 +165,24 @@ NVIDIA card:
     share on a fresh trainer; cross's epoch-3 mean train loss below epoch
     1's; then the memory tool's 32:1 and 32:4 arms (subprocesses), the
     accumulated peak below the dense one.
-17. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+17. Head dims above 128 (TFAM d 512 at 2 and 1 heads): (a) K1 at (3, 2,
+    384, 384, 256), K1' and K2 at (8, 2, 512, 512, 256) and (8, 1, 512,
+    512, 512), K3 and K4 at (8, 2, 768, 768, 256) on the wide kernels
+    against their plain versions, float32 and bf16, dropout 0.1 and 0, timed
+    as in phase 5 beside SDPA and the backend it ran; their keep bits at
+    head dims 256 and 512 equal to the plain mask; (b) ``TFAMTrainer`` on
+    phase 6's recipe in float32 (the trainer's default) at 2 and 1 heads on
+    ``flash``: one epoch of phase 6's batches with the long one (K3 + K4),
+    the wide launches of every step, ``validate`` (K1), 15 steps on one
+    batch that lower the loss, a dropout-0 step against ``xla`` (loss 1e-4,
+    gradients 5e-3 rel. L2), warm step time and idle share beside eager
+    attention's and phase 6's 8-head step; then ``auto``'s measurement:
+    train steps with dropout 0.1 and eval steps without, eager against the
+    kernels, at the 128- to 2048-frame buckets, 2 and 1 heads, float32 and
+    bf16; (c) the ring on 2 in-process shards at (8, 2, 2048, 2048, 256)
+    against one call as phase 15(a) holds it, and a seq-2 step at 2 heads
+    as two gloo ranks on ``cuda:0`` held to the one-card step.
+18. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -221,20 +239,28 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the device-side kernels of each wrapper by dtype (profiler entry names),
 # and how many of them one call launches
 _FWD_NAMES = {"float32": ("fma_kernel",), "bfloat16": ("fwd_wgmma_kernel",)}
+_FWD_WIDE_NAMES = {"float32": ("fma_wide_kernel",), "bfloat16": ("fwd_wide_wgmma_kernel",)}
 KERNEL_NAMES = {
     "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
     "bwd_dqkv": {"float32": ("dkv_kernel<float", "dq_reduce_kernel<float"),
                  "bfloat16": ("dqkv_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
     "bwd_dq": {"float32": ("dq_kernel<float",), "bfloat16": ("dq_wgmma_kernel",)},
     "bwd_dkv": {"float32": ("dkv_kernel<float",), "bfloat16": ("dkv_wgmma_kernel",)},
+    # above head dim 128 (one template serves wide K2 and K4)
+    "fwd_wide": _FWD_WIDE_NAMES, "fwd_lse_wide": _FWD_WIDE_NAMES,
+    "bwd_dqkv_wide": {"float32": ("dkv_wide_kernel<", "dq_reduce_kernel<float"),
+                      "bfloat16": ("dkv_wide_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
+    "bwd_dq_wide": {"float32": ("dq_wide_kernel<",), "bfloat16": ("dq_wide_wgmma_kernel",)},
+    "bwd_dkv_wide": {"float32": ("dkv_wide_kernel<",), "bfloat16": ("dkv_wide_wgmma_kernel",)},
 }
 # each named kernel launches once per call
 KERNEL_PER_CALL = {kind: {dt: len(names) for dt, names in by_dtype.items()}
                    for kind, by_dtype in KERNEL_NAMES.items()}
 # the bf16 kernels whose SASS must hold HGMMA and UTMALDG, by library
-WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel",),
+WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_wide_wgmma_kernel"),
                  "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
-                                         "dkv_wgmma_kernel")}
+                                         "dkv_wgmma_kernel", "dq_wide_wgmma_kernel",
+                                         "dkv_wide_wgmma_kernel")}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -344,11 +370,22 @@ PAR_GLOO_RANKS = 2
 SEQ_SHAPE = (8, 8, 2048, 2048, 64)
 SEQ_RINGS = (2, 4)
 SEQ_STEP_BUCKET = 2048
-# Phase 16 (the Table-2 tools). (a) A TFAM of 2 heads at d 512 (head dim 256,
-# past the kernels' 128) trains on eager attention under ``auto``: the same
-# code as ``xla``, so the same loss is expected bit for bit; the limit is 1e-6.
+# Phase 16 (the Table-2 tools). (a) A TFAM of 2 heads at d 512 (head dim 256)
+# takes one step on each route: ``auto`` runs the same code as the route it
+# picks, so the same loss is expected bit for bit; the limit is 1e-6.
 HEAD_DIM_HEADS = 2
 AUTO_LOSS_TOL = 1e-6
+# Phase 17 (head dims above 128): TFAM d 512 at 2 and 1 heads (head dims 256
+# and 512). Kernel vs plain at the shapes phase 6's recipe gives the wide
+# kernels: K1' and K2 at the 512 bucket, K3 and K4 at 768 keys, K1 at
+# serving's (3, 384) batch; the ring at seq 2 over 2048 frames.
+WIDE_HEADS = (2, 1)
+WIDE_K1_SHAPE = (3, 2, 384, 384, 256)
+WIDE_TRAIN_SHAPES = [(8, 2, 512, 512, 256), (8, 1, 512, 512, 512), (8, 2, 768, 768, 256)]
+WIDE_MAIN_SHAPES = {"fwd_lse": (8, 2, 512, 512, 256), "bwd_dqkv": (8, 2, 512, 512, 256),
+                    "bwd_dq": (8, 2, 768, 768, 256), "bwd_dkv": (8, 2, 768, 768, 256)}
+WIDE_SEQ_SHAPE = (8, 2, 2048, 2048, 256)
+WIDE_CROSSOVER_BUCKETS = (128, 256, 512, 1024, 2048)
 # (b) The memory-route corpus on the card against the CPU, four videos, the
 # tiny teacher in float32 on both: float32 sums in other orders; rel. L2 1e-4.
 CORPUS_CHECK_VIDEOS = 4
@@ -488,14 +525,15 @@ def phase_build() -> None:
         print(b.log.strip())
     for lib, kernels in WGMMA_KERNELS.items():
         sass_check(built[lib].path, kernels)
-    # CTAs per SM of the bf16 K1/K1' and K2 at D = 64 and 128
+    # CTAs per SM of the bf16 K1/K1' and K2 at D = 64 and 128, and of their
+    # wide kernels at 256 and 512
     occupancy = {}
     for lib, entry, kind in (("flash_attention_fwd", "vimo_flash_attention_fwd_occupancy", "fwd"),
                              ("flash_attention_bwd", "vimo_flash_attention_bwd_dqkv_occupancy",
                               "bwd_dqkv")):
         fn = getattr(ctypes.CDLL(str(built[lib].path)), entry)
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        for d in (64, 128):
+        for d in (64, 128, 256, 512):
             for drop in (0, 1):
                 n = fn(d, drop)
                 check(n > 0, f"{entry}({d}, {drop}) = {n}")
@@ -533,19 +571,44 @@ def sass_check(lib: Path, kernels: tuple[str, ...]) -> dict:
     return counts
 
 
-def phase_kernels(torch, seed: int, smi: str) -> dict:
+def sdpa_backend(torch, fn) -> str:
+    """The backend SDPA ran in ``fn``, from the kernel names of one traced
+    call: flash, efficient (CUTLASS memory-efficient), cudnn, or math (its
+    separate softmax kernel). A long run's trace now and then holds no or
+    too few device events (``device_ms``), so a trace that shows neither a
+    fused kernel nor the softmax is taken again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        keys = " ".join(e.key for e in prof.key_averages() if _device_us(e) > 0).lower()
+        for backend, marks in (("flash", ("flash_fwd", "flash_bwd", "pytorch_flash")),
+                               ("efficient", ("fmha", "efficient_attention", "cutlassf")),
+                               ("cudnn", ("cudnn",)), ("math", ("softmax",))):
+            if any(m in keys for m in marks):
+                return backend
+    return "unknown"
+
+
+def phase_kernels(torch, seed: int, smi: str, shapes=KERNEL_SHAPES,
+                  main_shape=MAIN_SHAPE) -> dict:
     import torch.nn.functional as F
 
     from vimoclip_tpu_torch.ops.kernels.flash_attention import (
         flash_attention,
         flash_attention_reference,
+        launch_kind,
     )
 
     main = None
     g = torch.Generator(device="cuda").manual_seed(seed)
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for shape in KERNEL_SHAPES:
+        for shape in shapes:
             b, h, tq, tk, d = shape
             q = torch.randn(b, h, tq, d, device="cuda", generator=g).to(dtype)
             k = torch.randn(b, h, tk, d, device="cuda", generator=g).to(dtype)
@@ -563,8 +626,9 @@ def phase_kernels(torch, seed: int, smi: str) -> dict:
             kernel = lambda: flash_attention(q, k, v, key_padding_mask=mask)
             plain = lambda: flash_attention_reference(q, k, v, mask)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-            ms = device_ms(torch, kernel, names=KERNEL_NAMES["fwd"][dtype_name],
-                           per_call=KERNEL_PER_CALL["fwd"][dtype_name])
+            kind = launch_kind("fwd", d)
+            ms = device_ms(torch, kernel, names=KERNEL_NAMES[kind][dtype_name],
+                           per_call=KERNEL_PER_CALL[kind][dtype_name])
             plain_ms, library_ms = (device_ms(torch, f) for f in (plain, library))
             item = dtype.itemsize
             moved = (2 * b * h * tq * d + 2 * b * h * tk * d) * item + b * tk
@@ -574,12 +638,13 @@ def phase_kernels(torch, seed: int, smi: str) -> dict:
             row = {
                 "dtype": dtype_name, "shape": list(shape), "max_abs_err": err,
                 "tol": KERNEL_TOL[dtype_name], "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+                "library_ms": library_ms, "library_backend": sdpa_backend(torch, library),
+                "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "call_ms": cuda_ms(torch, kernel),  # host launch time included
             }
-            print("[kernel] flash_attention_fwd " + json.dumps(row) + f" [{smi}]")
-            if dtype_name == "bfloat16" and shape == MAIN_SHAPE:
+            print(f"[kernel] flash_attention_{kind} " + json.dumps(row) + f" [{smi}]")
+            if dtype_name == "bfloat16" and shape == main_shape:
                 main = row
     check(main is not None, "no measurement at the main path's shape")
     return main
@@ -699,17 +764,18 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                 # device event). K3 and K4 run in one backward; the
                 # profiler's kernel names split their times.
                 calls = [("fwd_lse", fwd)] + [(kind, bwd) for kind in kinds]
-                kernel_ms = {kind: device_ms(torch, call, iters=10,
-                                             names=KERNEL_NAMES[kind][dtype_name],
-                                             per_call=KERNEL_PER_CALL[kind][dtype_name])
+                names = {kind: KERNEL_NAMES[fa.launch_kind(kind, d)][dtype_name]
+                         for kind, _ in calls}
+                kernel_ms = {kind: device_ms(torch, call, iters=10, names=names[kind],
+                                             per_call=len(names[kind]))
                              for kind, call in calls}
                 # a call of several kernels (K2: its pass and the dq sum), each apart
                 parts_ms = {kind: {n: device_ms(torch, call, iters=10, names=(n,), per_call=1)
-                                   for n in KERNEL_NAMES[kind][dtype_name]}
-                            for kind, call in calls if KERNEL_PER_CALL[kind][dtype_name] > 1}
+                                   for n in names[kind]}
+                            for kind, call in calls if len(names[kind]) > 1}
                 flushed_ms = {kind: device_ms(torch, lambda call=call: (flush.zero_(), call()),
-                                              iters=10, names=KERNEL_NAMES[kind][dtype_name],
-                                              per_call=KERNEL_PER_CALL[kind][dtype_name])
+                                              iters=10, names=names[kind],
+                                              per_call=len(names[kind]))
                               for kind, call in calls}
                 pair = None
                 if dtype_name == "bfloat16" and shape == main_shapes.get("bwd_dqkv"):
@@ -723,6 +789,8 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                                "bwd": device_ms(torch, sdpa_train, iters=10, required=False)}
                 sdpa_ms = {k: sdpa_call_ms[k] if sdpa_dev_ms[k] is None else sdpa_dev_ms[k]
                            for k in sdpa_call_ms}
+                sdpa_backends = {"fwd": sdpa_backend(torch, sdpa_fwd),
+                                 "bwd": sdpa_backend(torch, sdpa_train)}
                 for kind, _ in calls:
                     bound_ms, bound_by = _bound(kind, dtype_name, shape, item, rate)
                     stage = "fwd" if kind == "fwd_lse" else "bwd"
@@ -732,6 +800,7 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                         "flushed_ms": flushed_ms.get(kind), "parts_ms": parts_ms.get(kind),
                         "plain_ms": plain_ms[stage], "library_ms": sdpa_ms[stage],
                         "library_timing": "events" if sdpa_dev_ms[stage] is None else "device",
+                        "library_backend": sdpa_backends[stage],
                         "library_call_ms": sdpa_call_ms[stage],
                         "achieved_TF_per_s": OPS_PER_ELEMENT[kind] * b * h * tq * tk * d
                         / (kernel_ms[kind] * 1e-3) / 1e12,
@@ -775,7 +844,8 @@ def _k3k4_pair(torch, fa, args, ref_grads) -> dict:
     torch.cuda.synchronize()
     err = {n: _rel(a, r) for n, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads)}
     check(max(err.values()) <= GRAD_TOL["bfloat16"], f"K3 + K4 at K2's shape: {err}")
-    names = KERNEL_NAMES["bwd_dq"]["bfloat16"] + KERNEL_NAMES["bwd_dkv"]["bfloat16"]
+    names = (KERNEL_NAMES[fa.launch_kind("bwd_dq", d)]["bfloat16"]
+             + KERNEL_NAMES[fa.launch_kind("bwd_dkv", d)]["bfloat16"])
     return {"ms": device_ms(torch, pair, iters=10, names=names, per_call=len(names)),
             "grad_rel_err": err}
 
@@ -2473,9 +2543,10 @@ def phase_parallel(torch, seed: int, smi: str, setup: dict, train: dict, student
     return out
 
 
-def _seq_ring(torch, seed: int, smi: str) -> dict:
-    """Phase 15(a): the ring over in-process shards against one call on the
-    whole sequence, with dropout and padding-only blocks."""
+def _seq_ring(torch, seed: int, smi: str, shape=SEQ_SHAPE, rings=SEQ_RINGS) -> dict:
+    """Phase 15(a) (and 17(c) at head dim 256): the ring over in-process
+    shards against one call on the whole sequence, with dropout and
+    padding-only blocks."""
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
     from vimoclip_tpu_torch.parallel.sequence import (
         LocalRing,
@@ -2483,7 +2554,7 @@ def _seq_ring(torch, seed: int, smi: str) -> dict:
         sequence_parallel_attention,
     )
 
-    b, h, t, _, d = SEQ_SHAPE
+    b, h, t, _, d = shape
     rate = 0.1
     g = torch.Generator(device="cuda").manual_seed(seed + 15)
     q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=g).to(torch.bfloat16)
@@ -2502,9 +2573,9 @@ def _seq_ring(torch, seed: int, smi: str) -> dict:
     one_ms = cuda_ms(torch, lambda: torch.autograd.grad(one(), leaves, grad), iters=5,
                      warmup=1)
     whole_bits = fa.dropout_keep_mask(seeds, t, t, rate)
-    out = {"shape": list(SEQ_SHAPE), "one_call_fwd_bwd_ms": one_ms, "rings": {}}
+    out = {"shape": list(shape), "one_call_fwd_bwd_ms": one_ms, "rings": {}}
     launches = dict.fromkeys(fa.LAUNCH_KINDS, 0)
-    for n in SEQ_RINGS:
+    for n in rings:
         ring = LocalRing(n)
         run = lambda: sequence_parallel_attention(*leaves, ring, mask, dropout_rate=rate,
                                                   dropout_seed=seeds)
@@ -2515,7 +2586,8 @@ def _seq_ring(torch, seed: int, smi: str) -> dict:
         ran = dict(fa.flash_attention.launches)
         blk = t // n
         bwd = ["bwd_dqkv"] if blk <= 512 else ["bwd_dq", "bwd_dkv"]
-        expected = {kind: n * n if kind in ("fwd_lse", *bwd) else 0 for kind in fa.LAUNCH_KINDS}
+        ran_kinds = [fa.launch_kind(kind, d) for kind in ("fwd_lse", *bwd)]
+        expected = {kind: n * n if kind in ran_kinds else 0 for kind in fa.LAUNCH_KINDS}
         check(ran == expected, f"ring n={n} launched {ran}, expected {expected}")
         for kind in fa.LAUNCH_KINDS:
             launches[kind] += ran[kind]
@@ -2534,7 +2606,8 @@ def _seq_ring(torch, seed: int, smi: str) -> dict:
         bits = {}
         for kind in ("fwd_lse", bwd[0]):
             for qi, ki in ((0, 0), (n - 1, 1), (1, n - 1)):
-                probe = fa.kernel_keep_bits(kind, seeds, blk, blk, rate, qi * blk, ki * blk)
+                probe = fa.kernel_keep_bits(kind, seeds, blk, blk, rate, qi * blk, ki * blk,
+                                            head_dim=d)
                 cut = whole_bits[..., qi * blk:(qi + 1) * blk, ki * blk:(ki + 1) * blk]
                 check(torch.equal(probe, cut),
                       f"{kind} at block ({qi}, {ki}) of n={n}: keep bits differ from the "
@@ -2739,18 +2812,22 @@ def _tools():
 
 def _head_dim_route(torch, setup: dict) -> dict:
     """Phase 16(a): the AK recipe of phase 6 at 2 heads (head dim 256) takes
-    one train step with dropout under ``auto`` on eager attention, no kernel
-    launched, equal to the ``xla`` step from the same state and generator;
-    ``flash`` refuses the head dim with a message that names ``auto``."""
+    one train step with dropout on each route from the same state and
+    generator: ``flash`` on the wide kernels, equal to the ``xla`` step
+    within ``TRAIN_LOSS_TOL``; ``auto`` where ``_auto_impl`` sends it (the
+    kernels: the ``flash`` step; eager attention: the ``xla`` step; the
+    same code, so within ``AUTO_LOSS_TOL``)."""
     import tempfile
 
+    from vimoclip_tpu_torch.ops.attention import _auto_impl
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
     from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
 
     cfg, batch = setup["cfg"], setup["batches"][0]
     run = Path(tempfile.mkdtemp(dir=HERE / "build"))
-    out = {"heads": HEAD_DIM_HEADS, "head_dim": cfg.model.d_model // HEAD_DIM_HEADS}
-    for impl in ("auto", "xla", "flash"):
+    d = cfg.model.d_model // HEAD_DIM_HEADS
+    out = {"heads": HEAD_DIM_HEADS, "head_dim": d}
+    for impl in ("xla", "flash", "auto"):
         c = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, nhead=HEAD_DIM_HEADS, attention_impl=impl))
         trainer = TFAMTrainer(c, log_dir=str(run / impl / "logs"),
@@ -2758,24 +2835,303 @@ def _head_dim_route(torch, setup: dict) -> dict:
                               train_dataset=setup["train_items"],
                               val_dataset=setup["val_items"])
         fa.reset_launch_counts()
-        if impl == "flash":
-            msg = ""
-            try:
-                trainer.train_step(batch)
-            except ValueError as e:  # the refusal this check expects
-                msg = str(e)
-            check(f"head dim {out['head_dim']} > 128" in msg and "attention_impl: auto" in msg,
-                  f"flash at head dim {out['head_dim']} did not refuse as expected: {msg!r}")
-            out["flash_refusal"] = msg
-            continue
         loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
         out[f"{impl}_loss"] = float(loss)
-        out[f"{impl}_launches"] = sum(fa.flash_attention.launches.values())
-        check(out[f"{impl}_launches"] == 0,
-              f"{impl} at head dim {out['head_dim']} launched {fa.flash_attention.launches}")
-    diff = abs(out["auto_loss"] - out["xla_loss"])
-    check(diff <= AUTO_LOSS_TOL, f"auto vs xla loss at head dim 256: {diff} > {AUTO_LOSS_TOL}")
-    out["loss_abs_diff"] = diff
+        out[f"{impl}_launches"] = dict(fa.flash_attention.launches)
+    sites = {(batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])}
+    routes = {_auto_impl(True, True, tk, d) for tk in next(iter(sites))}
+    out["auto_routes"] = sorted(routes)
+    layers = cfg.model.num_layers
+    want_flash = {k: 0 for k in fa.LAUNCH_KINDS}
+    for kind in ("fwd_lse", "bwd_dqkv"):  # both sites' keys fit one 512-key tile
+        want_flash[fa.launch_kind(kind, d)] = 2 * layers
+    check(max(next(iter(sites))) <= fa.SINGLE_PASS_MAX_TK, f"phase 6's first batch is past 512")
+    check(out["flash_launches"] == want_flash,
+          f"flash at head dim {d} launched {out['flash_launches']}, expected {want_flash}")
+    check(sum(out["xla_launches"].values()) == 0, f"xla launched {out['xla_launches']}")
+    diff = abs(out["flash_loss"] - out["xla_loss"])
+    check(diff <= TRAIN_LOSS_TOL, f"flash vs xla loss at head dim {d}: {diff} > {TRAIN_LOSS_TOL}")
+    out["flash_xla_loss_abs_diff"] = diff
+    if len(routes) == 1:
+        twin = routes.pop()
+        diff = abs(out["auto_loss"] - out[f"{twin}_loss"])
+        check(diff <= AUTO_LOSS_TOL, f"auto ({twin}) vs {twin} loss at head dim {d}: {diff} > "
+                                     f"{AUTO_LOSS_TOL}")
+        check(out["auto_launches"] == out[f"{twin}_launches"],
+              f"auto launched {out['auto_launches']}, {twin} {out[f'{twin}_launches']}")
+        out["auto_twin_loss_abs_diff"] = diff
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: head dims above 128 on the kernels
+# ---------------------------------------------------------------------------
+
+
+def _wide_trainer(torch, setup: dict, heads: int, where: Path, impl: str = "flash",
+                  half: bool = False):
+    """Phase 6's AK recipe at ``heads`` heads, float32 unless ``half``, on
+    ``impl``."""
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    cfg = setup["cfg"]
+    model = dataclasses.replace(cfg.model, nhead=heads, attention_impl=impl)
+    c = dataclasses.replace(cfg, model=model,
+                            training=dataclasses.replace(cfg.training, half_precision=half))
+    return TFAMTrainer(c, log_dir=str(where / "logs"), checkpoint_dir=str(where / "ckpt"),
+                       train_dataset=setup["train_items"], val_dataset=setup["val_items"])
+
+
+def _wide_training(torch, setup: dict, heads: int, smi: str, base_step_ms: float) -> dict:
+    """Phase 17(b) at ``heads`` heads: one epoch of phase 6's batches (the
+    long batch too) through ``TFAMTrainer.train_step`` on the wide kernels,
+    launches per step; 15 steps on one batch; a dropout-0 step against
+    ``xla``; warm step time and idle share against eager attention."""
+    import tempfile
+
+    import numpy as np
+
+    from vimoclip_tpu_torch import losses
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.models.tfam import TFAM
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg, batches = setup["cfg"], setup["batches"]
+    layers, d = cfg.model.num_layers, cfg.model.d_model // heads
+    run = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    trainer = _wide_trainer(torch, setup, heads, run / "flash")
+    check(trainer.dtype == torch.float32, f"the trainer runs {trainer.dtype}, not float32")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    step_losses, per_step = [], []
+    for batch in batches:
+        before = dict(fa.flash_attention.launches)
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        got = {k: fa.flash_attention.launches[k] - before[k] for k in fa.LAUNCH_KINDS}
+        want = dict.fromkeys(fa.LAUNCH_KINDS, 0)
+        for (kind, _), n in _step_launches(batch, layers, heads,
+                                           fa.SINGLE_PASS_MAX_TK).items():
+            want[fa.launch_kind(kind, d)] += n
+        check(got == want, f"{heads} heads: step launches {got}, expected {want}")
+        step_losses.append(float(loss))
+        per_step.append({k: n for k, n in got.items() if n})
+    # validate: the eval path, K1 only
+    before = dict(fa.flash_attention.launches)
+    val_loss, val_map = trainer.validate()
+    val_counts = {k: fa.flash_attention.launches[k] - before[k] for k in fa.LAUNCH_KINDS}
+    want = {**dict.fromkeys(fa.LAUNCH_KINDS, 0),
+            fa.launch_kind("fwd", d): 2 * layers * len(trainer.val_loader)}
+    check(val_counts == want, f"{heads} heads: validate launched {val_counts}, expected {want}")
+    check(np.isfinite(val_loss) and 0.0 <= val_map <= 1.0, f"validate {val_loss} {val_map}")
+    launches = dict(fa.flash_attention.launches)
+    check(all(np.isfinite(step_losses)), f"{heads} heads: non-finite loss {step_losses}")
+    for kind in ("fwd", "fwd_lse", "bwd_dqkv", "bwd_dq", "bwd_dkv"):
+        check(launches[fa.launch_kind(kind, d)] > 0, f"{heads} heads: {kind} never launched")
+
+    fixed = to_device(batches[0], trainer.device)
+    fit, times = [], []
+    for i in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit.append(float(trainer.train_step(fixed)[0]))
+        if i >= 5:
+            times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(fit)) and np.mean(fit[-3:]) < fit[0],
+          f"{heads} heads: 15 steps on one batch did not lower the loss: {fit}")
+    step_ms = float(np.mean(times)) * 1e3
+    prof = profile_request(torch, lambda: trainer.train_step(fixed), smi,
+                           label=f"wide-train-profile-h{heads}")
+
+    # eager attention's warm step on the same batch (a trainer of its own)
+    eager = _wide_trainer(torch, setup, heads, run / "xla", impl="xla")
+    eager_times = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager.train_step(fixed)
+        if i >= 3:
+            eager_times.append(time.perf_counter() - t0)
+    eager_ms = float(np.mean(eager_times)) * 1e3
+    eager_prof = profile_request(torch, lambda: eager.train_step(fixed), smi,
+                                 label=f"wide-eager-profile-h{heads}")
+    del eager
+
+    # flash against eager: one dropout-0 step from the same weights
+    state = trainer.model.state_dict()
+
+    def loss_and_grads(impl):
+        model_cfg = dataclasses.replace(cfg.model, nhead=heads, dropout=0.0, mlp_dropout=0.0,
+                                        attention_impl=impl)
+        model = TFAM(model_cfg, num_classes=cfg.data.num_classes, dtype=torch.float32).cuda()
+        model.load_state_dict(state)
+        model.train()
+        logits = model(fixed["embeddings"], fixed["motion_embeddings"],
+                       fixed["mask_rgb"], fixed["mask_motion"])
+        loss = losses.bce_with_logits(logits, fixed["labels"])
+        loss.backward()
+        grads = [p.grad.float().flatten() for p in model.parameters() if p.grad is not None]
+        return loss.item(), torch.cat(grads)
+
+    loss_f, grads_f = loss_and_grads("flash")
+    loss_x, grads_x = loss_and_grads("xla")
+    grad_rel_l2 = ((grads_f - grads_x).norm() / grads_x.norm()).item()
+    check(abs(loss_f - loss_x) <= TRAIN_LOSS_TOL,
+          f"{heads} heads: flash vs eager loss {loss_f} vs {loss_x} > {TRAIN_LOSS_TOL}")
+    check(grad_rel_l2 <= TRAIN_GRAD_TOL,
+          f"{heads} heads: flash vs eager gradients rel. L2 {grad_rel_l2} > {TRAIN_GRAD_TOL}")
+    return {
+        "heads": heads, "head_dim": d, "dtype": "float32", "step_losses": step_losses,
+        "launches": launches, "launches_per_step": per_step, "fit_losses": fit,
+        "val_loss": val_loss, "val_map": val_map,
+        "warm_step_ms": step_ms, "device_idle_share": prof["device_idle_share"],
+        "eager_warm_step_ms": eager_ms, "eager_device_idle_share": eager_prof["device_idle_share"],
+        "phase6_8head_bf16_step_ms": base_step_ms,
+        "flash_vs_eager_loss": [loss_f, loss_x], "flash_vs_eager_grad_rel_l2": grad_rel_l2,
+        "bucket": int(fixed["embeddings"].shape[1]),
+    }
+
+
+def _wide_crossover(torch, setup: dict, smi: str) -> list[dict]:
+    """Phase 17(b): ``auto``'s measurement above head dim 128. The trainer's
+    step with dropout 0.1 (``train_step``) and its eval step without
+    (``eval_step``) at each of ``WIDE_CROSSOVER_BUCKETS``, at 2 and 1 heads,
+    in float32 (the trainer's default) and bf16, every attention site on the
+    eager path and on the kernels in turn (eager, kernels, kernels, eager;
+    CUDA events, the host's launches included)."""
+    import tempfile
+
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, _auto_impl
+
+    rng = setup["rng"]
+    cfg = setup["cfg"]
+    run = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    batches = {}
+    for bucket in WIDE_CROSSOVER_BUCKETS:
+        items = _clips(rng, rng.integers(bucket - 27, bucket + 1, 8), cfg.model.d_model,
+                       cfg.data.num_classes, f"w{bucket}-")
+        batches[bucket] = items
+    rows = []
+    for half in (False, True):
+        for heads in WIDE_HEADS:
+            trainer = _wide_trainer(torch, setup, heads, run / f"h{heads}{half}", half=half)
+            sites = [m for m in trainer.model.modules() if isinstance(m, MultiHeadAttention)]
+            for bucket in WIDE_CROSSOVER_BUCKETS:
+                batch = to_device(trainer.collate(batches[bucket]), trainer.device)
+                lengths = (batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])
+                check(lengths == (bucket, bucket), f"bucket {bucket}: lengths {lengths}")
+                for mode in ("train", "eval"):
+                    step = trainer.train_step if mode == "train" else trainer.eval_step
+                    iters, warmup = (2, 1) if bucket >= 1024 else (5, 1)
+                    row = {"mode": mode, "dropout": cfg.model.dropout if mode == "train" else 0.0,
+                           "dtype": "bfloat16" if half else "float32", "heads": heads,
+                           "head_dim": cfg.model.d_model // heads, "bucket": bucket,
+                           "xla_ms": 0.0, "flash_ms": 0.0}
+                    for impl in ("xla", "flash", "flash", "xla"):
+                        for m in sites:
+                            m.implementation = impl
+                        row[f"{impl}_ms"] += cuda_ms(torch, lambda: step(batch), iters=iters,
+                                                     warmup=warmup) / 2
+                    row["faster"] = "flash" if row["flash_ms"] < row["xla_ms"] else "xla"
+                    row["auto"] = _auto_impl(True, mode == "train", bucket, row["head_dim"])
+                    print("[wide-crossover] " + json.dumps(row) + f" [{smi}]")
+                    rows.append(row)
+            del trainer
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _wide_seq_step(torch, setup: dict, smi: str) -> dict:
+    """Phase 17(c): one seq-2 trainer step at 2 heads (head dim 256) as two
+    spawned gloo ranks on ``cuda:0``, held to the one-card step."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg, batch = setup["cfg"], setup["batches"][0]
+    model = dataclasses.replace(cfg.model, nhead=HEAD_DIM_HEADS)
+    one_cfg = dataclasses.replace(cfg, model=model)
+    seq_cfg = dataclasses.replace(one_cfg, training=dataclasses.replace(cfg.training,
+                                                                         seq_parallel=2))
+    tmp = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    one = _one_card_step(torch, one_cfg, batch, tmp / "one")
+    torch.cuda.empty_cache()
+    jobs = [("seq2_h2", seq_cfg, [batch], 1)]
+    (tmp / "seq2_h2").mkdir()
+    mp.spawn(_seq_pipe_rank, args=(2, str(tmp / "store"), str(tmp), jobs), nprocs=2, join=True)
+    got = torch.load(tmp / "seq2_h2" / "rank0.pt", weights_only=True)
+    ranks = [torch.load(tmp / "seq2_h2" / f"launches{r}.pt", weights_only=True)
+             for r in range(2)]
+    d = cfg.model.d_model // HEAD_DIM_HEADS
+    layers = cfg.model.num_layers
+    # per rank: 2 sites x 4 layers, each a ring of 2 blocks (K1' and K2 per
+    # block: the blocks hold at most 256 keys)
+    want = dict.fromkeys(fa.LAUNCH_KINDS, 0)
+    want[fa.launch_kind("fwd_lse", d)] = 2 * layers * 2
+    want[fa.launch_kind("bwd_dqkv", d)] = 2 * layers * 2
+    for r, per in enumerate(ranks):
+        check(per["launches"] == want, f"seq 2 at 2 heads: rank {r} launched "
+                                       f"{per['launches']}, expected {want}")
+    out = dict(_held("seq 2 at 2 heads", got, one),
+               step_ms=[r["step_ms"] for r in ranks], launches_per_rank=ranks[0]["launches"])
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in fa.LAUNCH_KINDS}
+    return out
+
+
+def phase_wide(torch, seed: int, smi: str, setup: dict, base_step_ms: float) -> dict:
+    """Phase 17: the attention kernels at head dims above 128. (a) K1, K1',
+    K2, K3 and K4 against their plain versions at the wide shapes, in both
+    dtypes, with and without dropout, timed beside SDPA (and its backend),
+    and their keep bits against the plain mask; (b) stage-2 training at 2
+    and 1 heads on ``flash`` and ``auto``'s eager-against-kernels
+    measurement; (c) the ring at seq 2 and head dim 256 against one call,
+    and a gloo seq-2 step at 2 heads."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    out = {"k1": phase_kernels(torch, seed, smi, shapes=[WIDE_K1_SHAPE],
+                               main_shape=WIDE_K1_SHAPE)}
+    out["train_kernels"] = phase_training_kernels(torch, seed, smi, WIDE_MAIN_SHAPES,
+                                                  shapes=WIDE_TRAIN_SHAPES)
+    seeds = fa.expand_seed(seed + 17, 2, 2, "cuda")
+    bits = {}
+    for d in (256, 512):
+        for kind, rows, cols in (("fwd_lse", 128, 256), ("bwd_dqkv", 128, 320),
+                                 ("bwd_dq", 128, 640)):
+            got = fa.kernel_keep_bits(kind, seeds, rows, cols, 0.1, 64, 128, head_dim=d)
+            want = fa.dropout_keep_mask(seeds, rows, cols, 0.1, 64, 128)
+            check(torch.equal(got, want), f"{kind} at head dim {d}: keep bits differ from the "
+                                          f"plain mask in {int((got != want).sum())} places")
+            bits[f"{kind} D={d}"] = "equal"
+    out["keep_bits"] = bits
+    print("[wide-keep-bits] " + json.dumps(bits) + f" [{smi}]")
+    torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(fa.LAUNCH_KINDS, 0)
+    out["training"] = {}
+    for heads in WIDE_HEADS:
+        row = _wide_training(torch, setup, heads, smi, base_step_ms)
+        print("[wide-train] " + json.dumps(row) + f" [{smi}]")
+        out["training"][heads] = row
+        for k in fa.LAUNCH_KINDS:
+            launches[k] += row["launches"][k]
+        torch.cuda.empty_cache()
+    out["crossover"] = _wide_crossover(torch, setup, smi)
+    torch.cuda.empty_cache()
+
+    ring = _seq_ring(torch, seed, smi, shape=WIDE_SEQ_SHAPE, rings=(2,))
+    print("[wide-ring] " + json.dumps(ring) + f" [{smi}]")
+    out["ring"] = ring
+    torch.cuda.empty_cache()
+    out["seq2"] = _wide_seq_step(torch, setup, smi)
+    print("[wide-seq2] " + json.dumps(out["seq2"]) + f" [{smi}]")
+    for part in (ring, out["seq2"]):
+        for k in fa.LAUNCH_KINDS:
+            launches[k] += part["launches"][k]
+    out["launches"] = launches
     return out
 
 
@@ -2951,7 +3307,7 @@ def main() -> int:
     train = phase_training(torch, setup, smi)
     setup = {"cfg": setup["cfg"], "batches": setup["batches"], "steps": setup["steps"],
              "train_items": setup["trainer"].train_loader.dataset,
-             "val_items": setup["trainer"].val_loader.dataset}
+             "val_items": setup["trainer"].val_loader.dataset, "rng": setup["rng"]}
     k5 = phase_normalize_kernel(torch, args.seed, smi)
     student, student_trainer = phase_student(torch, args.seed, smi)
     export = phase_export(torch, student_trainer, args.seed, smi)
@@ -2963,6 +3319,7 @@ def main() -> int:
     par = phase_parallel(torch, args.seed, smi, setup, train, student, stats)
     seq_pipe = phase_seq_pipe(torch, args.seed, smi, setup)
     table2 = phase_table2(torch, args.seed, smi, setup)
+    wide = phase_wide(torch, args.seed, smi, setup, train["warm_step_ms"])
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
@@ -2988,6 +3345,24 @@ def main() -> int:
             "launches": (train["launches"][kind] + par["launches"][kind]
                          + seq_pipe["launches"][kind] + table2["launches"][kind]),
             "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    # above head dim 128: the wide kernels, their launches from phases 16(a)
+    # and 17
+    head_dim = table2["head_dim"]
+    wide_rows = {"fwd": wide["k1"], **wide["train_kernels"]}
+    for kind, line in (("fwd", 113), ("fwd_lse", 113), ("bwd_dqkv", 282), ("bwd_dq", 214),
+                       ("bwd_dkv", 244)):
+        wkind = f"{kind}_wide"
+        n = (wide["launches"][wkind] + head_dim["flash_launches"][wkind]
+             + head_dim["auto_launches"][wkind])
+        check(n > 0, f"{wkind} never launched on the wide paths")
+        row = wide_rows[kind]
+        kernels.append({
+            "name": f"flash_attention_{wkind}", "route": "cuda",
+            "source": fwd_src if kind.startswith("fwd") else bwd_src,
+            "replaces": f"{tpu}:{line}", "launches": n, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

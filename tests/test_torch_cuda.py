@@ -7,7 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from vimoclip_tpu_torch.ops.attention import AUTO_FLASH_MIN_T_NODROP, MultiHeadAttention
+from vimoclip_tpu_torch.ops.attention import (
+    AUTO_FLASH_MIN_T_NODROP,
+    AUTO_WIDE_FLASH_MAX_T_DROP,
+    AUTO_WIDE_FLASH_MAX_T_NODROP,
+    MultiHeadAttention,
+)
 from vimoclip_tpu_torch.ops.kernels.flash_attention import (
     expand_seed,
     flash_attention,
@@ -90,9 +95,10 @@ def test_kernel_refusals(cuda):
     q = torch.randn(1, 2, 8, 16, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())
+    # no head dim is refused: 160 runs on the wide kernels
     big = torch.randn(1, 1, 8, 160, device=cuda)
-    with pytest.raises(ValueError):
-        flash_attention(big, big, big)
+    out = flash_attention(big, big, big)
+    assert (out - flash_attention_reference(big, big, big)).abs().max().item() <= TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -353,17 +359,19 @@ def test_auto_without_dropout_follows_the_measured_crossover(cuda):
         assert flash_attention.launches["fwd"] == before + (1 if t >= n else 0), t
 
 
-def test_head_dims_past_the_kernels_take_the_eager_route_under_auto(cuda):
-    """A 2-head d512 TFAM (head dim 256) takes a train step with dropout
-    under ``auto`` on eager attention, launching no kernel, with the loss of
-    the ``xla`` step from the same state and generator; ``flash`` and the
-    ring refuse the head dim with a message that names ``auto``."""
+def test_auto_at_wide_head_dims_follows_the_measured_rule(cuda):
+    """A 2-head d512 TFAM (head dim 256) under ``auto``: a train step with
+    dropout on a short clip runs the wide kernels, with the loss of the
+    ``flash`` step from the same state and generator, and within
+    flash-vs-eager rounding of the ``xla`` step; eval steps run K1 below
+    ``AUTO_WIDE_FLASH_MAX_T_NODROP`` keys and eager attention from there,
+    and an attention with dropout runs eager from
+    ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys."""
     import dataclasses
 
     from vimoclip_tpu_torch import losses
     from vimoclip_tpu_torch.config import TFAMModelConfig
     from vimoclip_tpu_torch.models.tfam import TFAM
-    from vimoclip_tpu_torch.parallel.sequence import LocalRing, ring_attention
 
     cfg = TFAMModelConfig(d_model=512, nhead=2, num_layers=2, dim_feedforward=1024,
                           use_cross_attention=True, dropout=0.1, mlp_dropout=0.1,
@@ -372,11 +380,10 @@ def test_head_dims_past_the_kernels_take_the_eager_route_under_auto(cuda):
     x, m = torch.randn(2, 16, 512, generator=g), torch.randn(2, 15, 512, generator=g)
     labels = (torch.rand(2, 6, generator=g) < 0.3).float()
     x, m, labels = x.to(cuda), m.to(cuda), labels.to(cuda)
-    state = None
-    loss = {}
-    for impl in ("auto", "xla"):
-        torch.manual_seed(0)
-        model = TFAM(dataclasses.replace(cfg, attention_impl=impl), num_classes=6).to(cuda)
+    state, loss, ran, models = None, {}, {}, {}
+    for impl in ("auto", "flash", "xla"):
+        model = models[impl] = TFAM(dataclasses.replace(cfg, attention_impl=impl),
+                                    num_classes=6).to(cuda)
         if state is None:
             state = model.state_dict()
         model.load_state_dict(state)
@@ -385,15 +392,128 @@ def test_head_dims_past_the_kernels_take_the_eager_route_under_auto(cuda):
         out = losses.bce_with_logits(model.train()(x, m, generator=gen), labels)
         out.backward()
         torch.cuda.synchronize()
-        assert flash_attention.launches == before, impl
+        ran[impl] = {k: n - before[k] for k, n in flash_attention.launches.items()
+                     if n != before[k]}
         loss[impl] = out.item()
-    assert abs(loss["auto"] - loss["xla"]) <= 1e-6, loss
-    flash = TFAM(dataclasses.replace(cfg, attention_impl="flash"), num_classes=6).to(cuda)
-    with pytest.raises(ValueError, match=r"head dim 256 > 128.*attention_impl: auto"):
-        flash.train()(x, m, generator=torch.Generator(device=cuda).manual_seed(1))
-    q = torch.randn(2, 2, 8, 256, device=cuda)
-    with pytest.raises(ValueError, match=r"head dim 256 > 128.*attention_impl: auto"):
-        ring_attention([q, q], [q, q], [q, q], None, LocalRing(2))
+    assert ran["auto"] == ran["flash"] == {"fwd_lse_wide": 4, "bwd_dqkv_wide": 4}, ran
+    assert not ran["xla"]
+    assert loss["auto"] == loss["flash"], loss
+    assert abs(loss["flash"] - loss["xla"]) <= 1e-4, loss
+    model = models["auto"].eval()
+    n = AUTO_WIDE_FLASH_MAX_T_NODROP
+    for t in (16, n, 4096):
+        before = flash_attention.launches["fwd_wide"]
+        with torch.no_grad():
+            out = model(torch.randn(2, t, 512, device=cuda), torch.randn(2, t - 1, 512,
+                                                                       device=cuda))
+        assert torch.isfinite(out).all()
+        # 2 layers; the cross-attention site's keys are the t - 1 motion frames
+        want = 2 * ((t < n) + (t - 1 < n))
+        assert flash_attention.launches["fwd_wide"] == before + want, t
+    n = AUTO_WIDE_FLASH_MAX_T_DROP
+    mha = MultiHeadAttention(512, 2, dropout=0.1, implementation="auto").to(cuda).train()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for t, launched in ((n - 64, 1), (n, 0)):
+        before = flash_attention.launches["fwd_lse_wide"]
+        mha(torch.randn(1, t, 512, device=cuda, requires_grad=True), generator=gen)
+        assert flash_attention.launches["fwd_lse_wide"] == before + launched, t
+
+
+# ---------------------------------------------------------------------------
+# head dims above 128: the wide kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [130, 192, 256, 512])
+@pytest.mark.parametrize("tk", [300, 600], ids=["dqkv", "dq+dkv"])
+def test_wide_kernels_match_plain(cuda, tk, d, dtype, rate):
+    """K1, K1' and K2 (or K3 + K4) above head dim 128 against their plain
+    versions, at global dropout offsets; 130 is a head dim whose bf16 rows
+    TMA reads from the wrapper's padded copy."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, h, tq = 2, 2, 130
+    q, k, v, mask = _inputs(b, h, tq, tk, d, dtype, cuda, seed=d + tk)
+    seeds = expand_seed(77, b, h, cuda) if rate else None
+    at = dict(row0=192, col0=4 * tk)
+    before = dict(flash_attention.launches)
+    with torch.no_grad():
+        k1 = flash_attention(q, k, v, mask, rate, seeds, **at)
+    out, lse = fa.forward_lse(q, k, v, mask, seeds, rate, **at)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, rate, seed=seeds,
+                                             return_lse=True, **at)
+    grad = torch.randn(b, tq, h, d, device=cuda).to(dtype).transpose(1, 2)
+    got = fa.backward(q, k, v, mask, seeds, rate, out, lse, grad, **at)
+    want = flash_attention_backward_reference(q, k, v, mask, out, lse, grad, rate, seed=seeds,
+                                              **at)
+    torch.cuda.synchronize()
+    ran = {kind: n - before[kind] for kind, n in flash_attention.launches.items()
+           if n != before[kind]}
+    bwd = {"bwd_dqkv_wide": 1} if tk <= 512 else {"bwd_dq_wide": 1, "bwd_dkv_wide": 1}
+    assert ran == {"fwd_wide": 1, "fwd_lse_wide": 1, **bwd}, ran
+    assert (k1.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item() <= 1e-4
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert _rel(a, r) <= GRAD_TOL[dtype], (name, _rel(a, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("t", [200, 600], ids=["dqkv", "dq+dkv"])
+def test_wide_kernels_read_packed_heads(cuda, t, dtype, offset):
+    """Head dim 256 split out of a packed projection (strided (B, H, T)
+    views); offset 1 leaves every bf16 row misaligned, so the wrapper hands
+    the TMA kernels a padded copy."""
+    b, h, d = 2, 2, 256
+    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).to(dtype)[..., offset:]
+    q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
+    g = torch.randn(b, h, t, d, device=cuda).to(dtype)
+    got, ref = _train_call(q, k, v, None, 0.1, 5, g)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
+    for a, r in zip(got[1:], ref[1:]):
+        assert _rel(a, r) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("tk", [300, 700], ids=["dqkv", "dq+dkv"])
+def test_wide_backward_fully_masked_rows(cuda, tk, rate):
+    """Two batch rows with every key ignored at head dim 256: P = 1 on each
+    of their keys, as in the plain version (and the TPU kernels)."""
+    q, k, v, mask = _inputs(4, 2, 130, tk, 256, torch.bfloat16, cuda, seed=3,
+                            masked_rows=(0, 2))
+    g = torch.randn(4, 2, 130, 256, device=cuda).to(torch.bfloat16)
+    got, ref = _train_call(q, k, v, mask, rate, 11, g)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[torch.bfloat16]
+    for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16], (name, _rel(a, r))
+        assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("tk", [384, 1024], ids=["dqkv", "dq+dkv"])
+def test_wide_backward_is_deterministic(cuda, tk, dtype):
+    q, k, v, mask = _inputs(4, 2, 384, tk, 256, dtype, cuda)
+    g = torch.randn(4, 2, 384, 256, device=cuda).to(dtype)
+    first, _ = _train_call(q, k, v, mask, 0.1, 9, g)
+    second, _ = _train_call(q, k, v, mask, 0.1, 9, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind, rows, cols", [("fwd_lse", 128, 256), ("bwd_dqkv", 128, 320),
+                                              ("bwd_dq", 128, 640)])
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_kernels_draw_the_plain_bits(cuda, d, kind, rows, cols):
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    seed = _seeds(cuda, 2, 2)
+    got = fa.kernel_keep_bits(kind, seed, rows, cols, 0.1, 64, 128, head_dim=d)
+    assert torch.equal(got, fa.dropout_keep_mask(seed, rows, cols, 0.1, 64, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -862,10 +982,19 @@ def test_ring_matches_one_call_on_card(cuda, n, t):
     keys against one K1' + K3/K4 call on the whole sequence with the same
     seeds: output 1e-2, gradients 5e-3 relative L2; K1' n times a shard
     forward, the backward kernels n times a shard."""
+    _ring_against_one_call(cuda, n, t, 64)
+
+
+def test_ring_at_head_dim_256_matches_one_call_on_card(cuda):
+    """The same at head dim 256: the wide kernels in every ring block."""
+    _ring_against_one_call(cuda, 2, 1024, 256)
+
+
+def _ring_against_one_call(cuda, n, t, d):
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
     from vimoclip_tpu_torch.parallel.sequence import LocalRing, sequence_parallel_attention
 
-    q, k, v, mask = _inputs(2, 4, t, t, 64, torch.bfloat16, cuda, seed=9, masked_rows=())
+    q, k, v, mask = _inputs(2, 4, t, t, d, torch.bfloat16, cuda, seed=9, masked_rows=())
     mask[:, t - t // n - 64:] = True  # the last block holds padding only
     seed = _seeds(cuda, 2, 4)
     qs = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -878,9 +1007,9 @@ def test_ring_matches_one_call_on_card(cuda, n, t):
     got = torch.autograd.grad(ring, qs, g)
     torch.cuda.synchronize()
     launches = dict(flash_attention.launches)
-    assert launches["fwd_lse"] == n * n
+    assert launches[fa.launch_kind("fwd_lse", d)] == n * n
     kind = "bwd_dqkv" if t // n <= 512 else "bwd_dq"
-    assert launches[kind] == n * n
+    assert launches[fa.launch_kind(kind, d)] == n * n
     assert torch.isfinite(ring).all()
     assert (ring.float() - one.float()).abs().max().item() <= 1e-2
     for a, b in zip(got, want):

@@ -46,6 +46,10 @@ CASES = [
     (2, 2, 130, 200, 16, True, ()),
     (2, 3, 130, 77, 32, True, (1,)),
     (1, 2, 40, 300, 16, True, (0,)),
+    # head dims above 128: the port's wide kernels on the card
+    (2, 2, 70, 90, 192, True, (1,)),
+    (1, 2, 40, 100, 256, True, ()),
+    (2, 1, 33, 70, 512, True, (0,)),
 ]
 
 
@@ -196,7 +200,9 @@ def _rel(a, b):
 @pytest.mark.parametrize("shape, block", [
     ((2, 2, 70, 130, 16), 512),   # one key tile: JAX's single-pass kernel (K2)
     ((2, 2, 130, 260, 16), 128),  # three key tiles: JAX's dq + dkv sweeps (K3, K4)
-], ids=["k2", "k3k4"])
+    ((2, 1, 40, 70, 256), 512),   # head dim 256: the port's wide K2 on the card
+    ((2, 1, 40, 260, 256), 128),  # and its wide K3 + K4
+], ids=["k2", "k3k4", "k2_d256", "k3k4_d256"])
 def test_training_plain_versions_match_jax_vjp(shape, block, dtype):
     """Plain forward (lse variant) and backward with an all-keep mask at
     p = 0.1 against the JAX kernels in interpret mode, whose stubbed bits keep

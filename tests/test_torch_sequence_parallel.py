@@ -164,6 +164,35 @@ def test_gradients_match_jax(devices, strategy):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
 
 
+def test_ring_at_head_dim_256_matches_jax(devices):
+    """Head dim 256 (the wide kernels' on the card): the ring over 2 shards
+    with key padding against JAX's ``ring_attention`` on a seq-2 mesh,
+    outputs and gradients at 1e-5."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from vimoclip_tpu.parallel.sequence import sequence_parallel_attention as jsp
+
+    q, k, v = _qkv(30, b=2, h=2, t=16, d=256)
+    mask = _ragged_mask(31, 2, 16)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), axis_names=("seq",))
+
+    def loss(q, k, v):
+        out = jsp(q, k, v, mesh, key_padding_mask=mask, strategy="ring")
+        return (out ** 2).sum(), out
+
+    (_, want), want_grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                                       has_aux=True))(
+        *map(jnp.asarray, (q, k, v)))
+    ts = [t.requires_grad_() for t in _t(q, k, v)]
+    out = sequence_parallel_attention(*ts, LocalRing(2), torch.from_numpy(mask))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=1e-5)
+    got = torch.autograd.grad((out ** 2).sum(), ts)
+    for g, w in zip(got, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
 def test_composes_with_data_axis(devices):
     """data 2 x seq 4: each data block of rows runs its own ring (and its
     rows' seeds); the joined result is JAX's on a (data 2, seq 4) mesh."""

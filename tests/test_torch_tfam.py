@@ -120,29 +120,40 @@ def test_training_and_ring_refused():
     assert quiet(*(torch.from_numpy(a) for a in _inputs(0))).shape == (3, C)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128, 129, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 256, 512])
 @pytest.mark.parametrize("is_cuda", [False, True], ids=["cpu", "cuda"])
 @pytest.mark.parametrize("dropping", [False, True], ids=["nodrop", "drop"])
-def test_auto_routes_head_dims_past_the_kernels_to_eager(head_dim, is_cuda, dropping):
-    """``auto`` sends a CUDA attention to the kernels only at head dims they
-    take; above ``MAX_HEAD_DIM`` (and on the CPU) it runs eager attention,
-    whatever the key length and dropout."""
-    from vimoclip_tpu_torch.ops.attention import AUTO_FLASH_MIN_T_NODROP, _auto_impl
-    from vimoclip_tpu_torch.ops.kernels.flash_attention import MAX_HEAD_DIM
+def test_auto_follows_the_measured_crossover_at_every_head_dim(head_dim, is_cuda, dropping):
+    """``auto`` follows the crossovers measured on the card for each head
+    dim: up to 128 the kernels whenever dropout is active, and without it
+    from ``AUTO_FLASH_MIN_T_NODROP`` keys; above 128 (the wide kernels, in
+    float32 slower than eager attention on long keys) the kernels below
+    ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys with dropout and below
+    ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. On the CPU it runs eager
+    attention."""
+    from vimoclip_tpu_torch.ops.attention import (
+        AUTO_FLASH_MIN_T_NODROP,
+        AUTO_WIDE_FLASH_MAX_T_DROP,
+        AUTO_WIDE_FLASH_MAX_T_NODROP,
+        _auto_impl,
+    )
 
-    for tk in (16, AUTO_FLASH_MIN_T_NODROP, 4096):
-        kernels = is_cuda and head_dim <= MAX_HEAD_DIM and (
-            dropping or tk >= AUTO_FLASH_MIN_T_NODROP)
+    if head_dim > 128:
+        cut = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
+    else:
+        cut = AUTO_FLASH_MIN_T_NODROP
+    for tk in (16, cut - 1, cut, 4096):
+        if head_dim > 128:
+            kernels = is_cuda and tk < cut
+        else:
+            kernels = is_cuda and (dropping or tk >= cut)
         want = "flash" if kernels else "xla"
         assert _auto_impl(is_cuda, dropping, tk, head_dim) == want, tk
 
 
-def test_head_dim_256_under_auto_matches_jax():
-    """A 2-head d512 TFAM (head dim 256, past the kernels' 128) under
-    ``auto`` equals JAX's TFAM in eval mode; the kernels' wrappers refuse
-    that head dim only for CUDA tensors, so the plain versions run here."""
-    base = dict(d_model=512, nhead=2, num_layers=2, dim_feedforward=1024, dropout=0.1,
-                mlp_dropout=0.1, use_cross_attention=True, attention_impl="auto")
+def _wide_tfam(impl: str, heads: int):
+    base = dict(d_model=512, nhead=heads, num_layers=2, dim_feedforward=1024, dropout=0.1,
+                mlp_dropout=0.1, use_cross_attention=True, attention_impl=impl)
     rng = np.random.default_rng(11)
     args = (rng.standard_normal((2, 10, 512)).astype(np.float32),
             rng.standard_normal((2, 9, 512)).astype(np.float32),
@@ -155,4 +166,20 @@ def test_head_dim_256_under_auto_matches_jax():
     model.load_state_dict(to_tensors(tfam_state_from_jax(params, 2)), strict=True)
     with torch.no_grad():
         got = model.eval()(*(torch.from_numpy(a) for a in args))
-    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    return got.numpy(), ref
+
+
+def test_head_dim_256_under_auto_matches_jax():
+    """A 2-head d512 TFAM (head dim 256) under ``auto`` equals JAX's TFAM
+    in eval mode (the plain versions run on the CPU)."""
+    got, ref = _wide_tfam("auto", 2)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("heads", [2, 1])
+def test_wide_head_dims_on_flash_match_jax(heads):
+    """A d512 TFAM at 2 and 1 heads (head dims 256 and 512, the wide
+    kernels' on the card) on ``flash`` in eval mode against JAX's TFAM on
+    its Pallas kernels (interpret mode)."""
+    got, ref = _wide_tfam("flash", heads)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)

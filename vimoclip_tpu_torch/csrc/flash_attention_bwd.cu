@@ -112,6 +112,28 @@
 //   Operands TMA cannot address (a start not 16-byte aligned, a stride not a
 //   multiple of 16 bytes) are copied by the Python wrapper first; the entry
 //   refuses them (-5).
+//
+// Head dims above 128 (dq_wide_wgmma_kernel for K3, dkv_wide_wgmma_kernel for
+// K4 and, with its dq share, K2; float32 dq_wide_kernel and dkv_wide_kernel):
+// any head dim, with registers and shared memory flat in D. A grid axis over
+// output slices of 128 columns: each CTA accumulates only its slice of dQ
+// (K3) or of dK and dV (K4, K2; and K2's dq share of the slice), while S and
+// dP run over the whole head dim in 64-column chunks, recomputed by every
+// slice's CTA in the same order (bit for bit the same P and dS). In bf16 a
+// two-stage ring of four-chunk slots carries per swept tile the n_ch chunks
+// of the S and dP operands (K3: q, k, dO, v; K4 and K2: k, q, v, dO), each
+// q chunk rounded to round(q * scale) in its slot, then one slot with the
+// slice's chunks of the update's B operands (K3: k; K4 and K2: q and dO).
+// K4 takes K3's keep bits as before; K2 draws its own into shared memory and
+// gathers each thread's 32 into one word; only slice 0 of K3 stores them.
+// The extra S and dP products cost 1.5x K2's FLOPs at D 256 and 2.5x at 512.
+// At D 256 and 512 alike (ptxas -v, sm_90a; p = 0 / 0.1): K3 194 / 203
+// registers, 68,128 bytes of shared memory; K4 250 / 250, 68,904 bytes; K2
+// 252 / 255, 101,672 bytes, one CTA per SM; none spills, because K2 reads
+// its key bias from shared memory where it is used and draws the next
+// tile's keep bits under the dV/dK products (as K2 at D <= 128).
+// float32: K3 128 / 206 registers (117,504 bytes), K4 169 / 204 and K2
+// 171 / 208 (201,472 bytes), no spills.
 
 #include <type_traits>
 
@@ -1066,6 +1088,736 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kerne
 }
 
 // ---------------------------------------------------------------------------
+// head dims above 128: one CTA per (output tile, output slice of up to 128
+// columns, head, batch row). The S and dP products run over the whole head
+// dim in 64-column chunks; only the slice's columns of dq (K3), of dk and dv
+// (K4, K2) and of K2's dq share are accumulated, so registers and shared
+// memory do not grow with D. Every slice's CTA recomputes the same S and dP
+// in the same order, so they agree bit for bit; the keep bits are drawn (or,
+// for bf16 K4, read) by each CTA, and only slice 0 writes K3's keep bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice = 128;  // output columns of one CTA
+constexpr int kDC = 64;      // head-dim columns of one staged chunk (float32)
+
+__host__ __device__ constexpr int n_slices(int d) { return (d + kSlice - 1) / kSlice; }
+
+// rows [r0, r0 + kB) x columns [c0, c0 + W) of a (T, D) float32 head, times
+// `mul`, into a kB x (W + 1) shared tile; zeros past `t` and past D
+template <int W>
+__device__ __forceinline__ void stage_cols(float* dst, const float* src, long long st, int r0,
+                                           int t, int c0, int d, float mul, int tid) {
+  for (int e = tid; e < kB * W; e += kThreads) {
+    const int r = e / W, c = e % W, col = c0 + c;
+    dst[r * (W + 1) + c] = (r0 + r < t && col < d) ? src[(long long)(r0 + r) * st + col] * mul : 0.f;
+  }
+}
+
+constexpr size_t dq_wide_smem_bytes() {
+  return sizeof(float) * ((size_t)4 * kB * (kDC + 1) + kB * (kSlice + 1) + kB * (kB + 4)) +
+         sizeof(uint32_t) * kBitWords;
+}
+
+constexpr size_t dkv_wide_smem_bytes() {
+  return sizeof(float) *
+             ((size_t)4 * kB * (kDC + 1) + 3 * kB * (kSlice + 1) + 2 * kB * (kB + 4) + 2 * kB) +
+         sizeof(uint32_t) * kBitWords;
+}
+
+// K3 (float32): dq over the slice, one CTA per (64-row q tile, slice, head,
+// batch row), sweeping key tiles
+template <bool DROP>
+__global__ void __launch_bounds__(kThreads) dq_wide_kernel(const BwdParams p) {
+  constexpr int CS = kDC + 1, SS = kSlice + 1, PS = kB + 4;
+  constexpr int DPL = kSlice / kLanes;
+  extern __shared__ float smem[];
+  float* Qc = smem;           // a chunk of q * scale
+  float* dOc = Qc + kB * CS;  // the same chunk of dO, k and v
+  float* Kc = dOc + kB * CS;
+  float* Vc = Kc + kB * CS;
+  float* Ks = Vc + kB * CS;   // kB x SS : the slice's columns of k
+  float* dSs = Ks + kB * SS;  // kB x PS : dS
+  uint32_t* bits = reinterpret_cast<uint32_t*>(dSs + kB * PS);
+
+  const int tid = threadIdx.x;
+  const int row = tid / kLanes, lane = tid % kLanes;
+  const int n_sl = n_slices(p.D);
+  const int q0 = (blockIdx.x / n_sl) * kB, c0 = (blockIdx.x % n_sl) * kSlice;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+  const uint32_t seed = DROP ? (uint32_t)p.seed[b * p.H + h] : 0u;
+
+  const bool row_in = q0 + row < p.Tq;
+  const size_t rs = ((size_t)b * p.H + h) * p.Tq + q0 + row;
+  const float lse_r = row_in ? p.lse[rs] : 0.f;
+  const float delta_r = row_in ? p.delta[rs] : 0.f;
+
+  float acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  const float* qrow = Qc + row * CS;
+  const float* dorow = dOc + row * CS;
+  float* dsrow = dSs + row * PS;
+
+  const int n_tiles = (p.Tk + kB - 1) / kB;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kB;
+    float s[kPer], dp[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
+    for (int d0 = 0; d0 < p.D; d0 += kDC) {
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      stage_cols<kDC>(Qc, q, p.q_st, q0, p.Tq, d0, p.D, p.scale, tid);
+      stage_cols<kDC>(dOc, dout, p.do_st, q0, p.Tq, d0, p.D, 1.f, tid);
+      stage_cols<kDC>(Kc, k, p.k_st, k0, p.Tk, d0, p.D, 1.f, tid);
+      stage_cols<kDC>(Vc, v, p.v_st, k0, p.Tk, d0, p.D, 1.f, tid);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < kDC; ++c) {
+        const float qc = qrow[c], dc = dorow[c];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int kk = (lane + kLanes * j) * CS + c;
+          s[j] = fmaf(qc, Kc[kk], s[j]);
+          dp[j] = fmaf(dc, Vc[kk], dp[j]);
+        }
+      }
+    }
+    stage_cols<kSlice>(Ks, k, p.k_st, k0, p.Tk, c0, p.D, 1.f, tid);
+    if constexpr (DROP)
+      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int jj = lane + kLanes * j;
+      const float pj = expf(mask_score(s[j], k0 + jj, p.Tk, mask) - lse_r);
+      float dpj = dp[j];
+      if constexpr (DROP) dpj = kept(bits, row, jj) ? dpj / p.keep : 0.f;
+      dsrow[jj] = row_in ? pj * (dpj - delta_r) : 0.f;
+    }
+    __syncwarp();  // the row's four lanes see each other's dS
+
+    const int n_keys = min(kB, p.Tk - k0);
+    for (int jj = 0; jj < n_keys; ++jj) {
+      const float ds = dsrow[jj];
+      const float* krow = Ks + jj * SS + lane;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, krow[kLanes * i], acc[i]);
+    }
+  }
+
+  if (row_in) {
+    float* out = dq + (long long)(q0 + row) * p.dq_st + c0;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int c = lane + kLanes * i;
+      if (c0 + c < p.D) out[c] = acc[i] * p.scale;
+    }
+  }
+}
+
+// K4 (float32), and K2 with DQ: dk, dv over the slice, one CTA per (64-key
+// tile, slice, head, batch row), sweeping query tiles; with DQ also the
+// tile's share of dq's slice columns into scratch
+template <bool DROP, bool DQ>
+__global__ void __launch_bounds__(kThreads) dkv_wide_kernel(const BwdParams p) {
+  constexpr int CS = kDC + 1, SS = kSlice + 1, PS = kB + 4;
+  constexpr int DPL = kSlice / kLanes;
+  extern __shared__ float smem[];
+  float* Kc = smem;            // a chunk of k, v, round(q * scale) and dO
+  float* Vc = Kc + kB * CS;
+  float* Qc = Vc + kB * CS;
+  float* dOc = Qc + kB * CS;
+  float* Qs = dOc + kB * CS;   // kB x SS : the slice's columns of q, unscaled
+  float* dOs = Qs + kB * SS;   // and of dO
+  float* Ks = dOs + kB * SS;   // and of k (DQ)
+  float* Ps = Ks + kB * SS;    // kB keys x PS rows : dropped P / keep
+  float* dSs = Ps + kB * PS;   // kB keys x PS rows : dS
+  float* lse_s = dSs + kB * PS;
+  float* delta_s = lse_s + kB;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(delta_s + kB);
+
+  const int tid = threadIdx.x;
+  const int key = tid / kLanes, lane = tid % kLanes;
+  const int n_sl = n_slices(p.D);
+  const int kt = blockIdx.x / n_sl, n_kt = gridDim.x / n_sl;
+  const int k0 = kt * kB, c0 = (blockIdx.x % n_sl) * kSlice;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+  const uint32_t seed = DROP ? (uint32_t)p.seed[b * p.H + h] : 0u;
+  const size_t bh = (size_t)b * p.H + h;
+
+  if constexpr (DQ) stage_cols<kSlice>(Ks, k, p.k_st, k0, p.Tk, c0, p.D, 1.f, tid);
+
+  float dk[DPL], dv[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) dk[i] = dv[i] = 0.f;
+  const float* krow = Kc + key * CS;
+  const float* vrow = Vc + key * CS;
+  float* prow = Ps + key * PS;
+  float* dsrow = dSs + key * PS;
+
+  const int n_tiles = (p.Tq + kB - 1) / kB;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = t * kB;
+    float s[kPer], dp[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
+    for (int d0 = 0; d0 < p.D; d0 += kDC) {
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      stage_cols<kDC>(Kc, k, p.k_st, k0, p.Tk, d0, p.D, 1.f, tid);
+      stage_cols<kDC>(Vc, v, p.v_st, k0, p.Tk, d0, p.D, 1.f, tid);
+      stage_cols<kDC>(Qc, q, p.q_st, q0, p.Tq, d0, p.D, p.scale, tid);
+      stage_cols<kDC>(dOc, dout, p.do_st, q0, p.Tq, d0, p.D, 1.f, tid);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < kDC; ++c) {
+        const float kc = krow[c], vc = vrow[c];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int qq = (lane + kLanes * j) * CS + c;
+          s[j] = fmaf(Qc[qq], kc, s[j]);
+          dp[j] = fmaf(dOc[qq], vc, dp[j]);
+        }
+      }
+    }
+    stage_cols<kSlice>(Qs, q, p.q_st, q0, p.Tq, c0, p.D, 1.f, tid);
+    stage_cols<kSlice>(dOs, dout, p.do_st, q0, p.Tq, c0, p.D, 1.f, tid);
+    for (int r = tid; r < kB; r += kThreads) {
+      const bool in = q0 + r < p.Tq;
+      lse_s[r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();  // P = 0 past Tq
+      delta_s[r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
+    }
+    if constexpr (DROP)
+      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int r = lane + kLanes * j;
+      const float pj = expf(mask_score(s[j], k0 + key, p.Tk, mask) - lse_s[r]);
+      float pd = pj, dpj = dp[j];
+      if constexpr (DROP) {
+        const bool kp = kept(bits, r, key);
+        pd = kp ? pj / p.keep : 0.f;
+        dpj = kp ? dpj / p.keep : 0.f;
+      }
+      prow[r] = pd;
+      dsrow[r] = pj * (dpj - delta_s[r]);
+    }
+    __syncwarp();  // the key's four lanes see each other's P and dS
+
+    const int n_rows = min(kB, p.Tq - q0);
+    for (int r = 0; r < n_rows; ++r) {
+      const float pd = prow[r], ds = dsrow[r];
+      const float* dor = dOs + r * SS + lane;
+      const float* qur = Qs + r * SS + lane;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        dv[i] = fmaf(pd, dor[kLanes * i], dv[i]);
+        dk[i] = fmaf(ds, qur[kLanes * i], dk[i]);
+      }
+    }
+
+    if constexpr (DQ) {
+      __syncthreads();  // every key's dS of this tile is in shared memory
+      const int r = tid / kLanes;
+      if (q0 + r < p.Tq) {
+        float acc[DPL];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+        const int n_keys = min(kB, p.Tk - k0);
+        for (int kk = 0; kk < n_keys; ++kk) {
+          const float ds = dSs[kk * PS + r];
+          const float* kr = Ks + kk * SS + lane;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, kr[kLanes * i], acc[i]);
+        }
+        float* out = p.dq_part + ((bh * n_kt + kt) * p.Tq + q0 + r) * p.D + c0;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int c = lane + kLanes * i;
+          if (c0 + c < p.D) out[c] = acc[i] * p.scale;
+        }
+      }
+    }
+  }
+
+  if (k0 + key < p.Tk) {
+    float* dkr = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + (long long)(k0 + key) * p.dk_st + c0;
+    float* dvr = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + (long long)(k0 + key) * p.dv_st + c0;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int c = lane + kLanes * i;
+      if (c0 + c < p.D) {
+        dkr[c] = dk[i] * p.scale;
+        dvr[c] = dv[i];
+      }
+    }
+  }
+}
+
+// a float from shared memory, kept in program order among the asm
+// statements around it (as ld_shared_f2): the value is loaded where it is
+// used and holds no register before
+__device__ __forceinline__ float ld_shared_f1(const float* ptr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(smem_u32(ptr)));
+  return v;
+}
+
+// bf16 above 128: a ring of slots of four 64x64 chunks. Per swept tile the
+// producer fills n_ch slots with chunk c of the S and dP operands (K3: q, k,
+// dO, v; K4 and K2: k, q, v, dO), then one with the slice's chunks of the
+// update's B operands (K3: k; K4 and K2: q and dO). A tile takes
+// n_ch + 1 >= 4 slots, more than the ring holds, so the producer writes tile
+// t + 2's row data (key bias; lse, delta and K3's keep bits) only after the
+// consumers released a slot of tile t + 1, when they are done with tile t's
+// in the same buffer.
+constexpr int kWideStages = 2;
+
+constexpr size_t dq_wide_hop_smem_bytes() {
+  return 1024 + (size_t)kWideStages * 4 * kChunk * sizeof(bf16) + sizeof(float) * 2 * kTile +
+         sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * 2 * kWideStages;
+}
+
+template <bool DQ>
+constexpr size_t dkv_wide_hop_smem_bytes() {
+  return 1024 + (size_t)(kWideStages * 4 + (DQ ? 4 : 0)) * kChunk * sizeof(bf16) +
+         sizeof(float) * 2 * 2 * kTile + sizeof(uint32_t) * 2 * 2 * kTile + sizeof(float) * kTile +
+         sizeof(uint64_t) * (2 * kWideStages + 1);
+}
+
+// K3 (bf16): dq over the slice, one CTA per (64-row q tile, slice, head,
+// batch row)
+template <bool DROP>
+__global__ void __launch_bounds__(kHopThreads, 1) dq_wide_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  constexpr uint32_t kChunkBytes = kChunk * sizeof(bf16);
+  extern __shared__ uint8_t smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(align1024(smem_raw));  // kWideStages x 4 chunks
+  float* bias_buf = reinterpret_cast<float*>(ring + kWideStages * 4 * kChunk);  // 2 x 64
+  uint32_t* bits = reinterpret_cast<uint32_t*>(bias_buf + 2 * kTile);          // 2 x 128 words
+  uint64_t* full = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
+  uint64_t* empty = full + kWideStages;
+
+  const int tid = threadIdx.x;
+  const int n_ch = (p.D + 63) / 64;
+  const int n_sl = n_slices(p.D);
+  const int sl = blockIdx.x % n_sl;
+  const int q0 = (blockIdx.x / n_sl) * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = sl * kSlice;
+  const int sl_ch = min(2, n_ch - 2 * sl);  // chunks of the slice that hold columns
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    const int lane = tid - kConsumers;
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    int n = 0;  // slots filled so far
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kTile;
+      for (int c = 0; c <= n_ch; ++c, ++n) {
+        const int s = n % kWideStages;
+        if (n >= kWideStages) mbar_wait(&empty[s], ((n / kWideStages) - 1) & 1);
+        bf16* slot = ring + s * 4 * kChunk;
+        if (lane == 0) {
+          if (c < n_ch) {
+            mbar_expect_tx(&full[s], 4 * kChunkBytes);
+            tma_load(slot, &tm_q, &full[s], 64 * c, q0, h, b);
+            tma_load(slot + kChunk, &tm_k, &full[s], 64 * c, k0, h, b);
+            tma_load(slot + 2 * kChunk, &tm_do, &full[s], 64 * c, q0, h, b);
+            tma_load(slot + 3 * kChunk, &tm_v, &full[s], 64 * c, k0, h, b);
+          } else {
+            mbar_expect_tx(&full[s], sl_ch * kChunkBytes);
+            for (int i = 0; i < sl_ch; ++i)
+              tma_load(slot + i * kChunk, &tm_k, &full[s], c0 + 64 * i, k0, h, b);
+          }
+        }
+        if (c == 0) {
+          for (int j = lane; j < kTile; j += 32) {
+            const int key = k0 + j;
+            bias_buf[(t & 1) * kTile + j] =
+                key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+          }
+        }
+        mbar_arrive(&full[s]);  // each lane after its own writes
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows r_lo and r_lo + 8 of the tile per thread
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = warp * 16 + g;
+  float lse_r[2], delta_r[2];
+  bool row_in[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r_lo + 8 * r;
+    row_in[r] = row < p.Tq;
+    lse_r[r] = row_in[r] ? p.lse[bh * p.Tq + row] : 0.f;
+    delta_r[r] = row_in[r] ? p.delta[bh * p.Tq + row] : 0.f;
+  }
+  const uint32_t seed = DROP ? (uint32_t)p.seed[bh] : 0u;
+  const float inv_keep = 1.f / p.keep;
+
+  float acc[64];  // the slice's 128 columns
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  int n = 0;  // slots consumed so far
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    // this tile's keep bits, double-buffered; the barrier of the first chunk
+    // below orders the fill against every reader. Slice 0 stores them for K4.
+    uint32_t* tb = bits + (t & 1) * 2 * kTile;
+    if constexpr (DROP) {
+      fill_keep_bits(tb, kTile, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kConsumers);
+      if (sl == 0) p.keep_bits[((bh * n_tiles + t) * p.tq_pad + q0) * 2 + tid] = tb[tid];
+    }
+
+    float sacc[32], dpacc[32];
+    for (int c = 0; c < n_ch; ++c, ++n) {
+      const int s = n % kWideStages;
+      bf16* slot = ring + s * 4 * kChunk;
+      mbar_wait(&full[s], (n / kWideStages) & 1);
+      scale_tile<1>(slot, slot, p.scale, tid);  // round(q * scale) in place
+      fence_proxy_async();
+      consumer_sync();
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(sacc, kmajor_desc(slot, kk), kmajor_desc(slot + kChunk, kk), c == 0 && kk == 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(dpacc, kmajor_desc(slot + 2 * kChunk, kk), kmajor_desc(slot + 3 * kChunk, kk),
+                     c == 0 && kk == 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      mbar_arrive(&empty[s]);
+    }
+
+    const float* bias = bias_buf + (t & 1) * kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bias2 = reinterpret_cast<const float2*>(bias)[4 * j + t4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = 8 * j + 2 * t4 + (e & 1);
+        const float pj = exp_approx(sacc[4 * j + e] + ((e & 1) ? bias2.y : bias2.x) - lse_r[r]);
+        float dpj = dpacc[4 * j + e];
+        if constexpr (DROP) dpj *= keep_scale(tb, r_lo + 8 * r, col, inv_keep);
+        sacc[4 * j + e] = row_in[r] ? pj * (dpj - delta_r[r]) : 0.f;  // dS
+      }
+    }
+    uint32_t a[4][4];
+    to_a_operand(sacc, a);
+    const int s = n % kWideStages;
+    const bf16* kslot = ring + s * 4 * kChunk;
+    mbar_wait(&full[s], (n / kWideStages) & 1);
+    wg_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs<2>(acc, a[c], kslot, c);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+    ++n;
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + c0;
+  store_rows<2>(dq, p.dq_st, q0, p.Tq, p.D - c0, acc, p.scale, tid);
+}
+
+// K4 (bf16), and K2 with DQ: dk, dv over the slice, one CTA per (64-key
+// tile, slice, head, batch row); K4 reads K3's keep bits, K2 draws its own
+// and adds its share of dq's slice columns to scratch
+template <bool DROP, bool DQ>
+__global__ void __launch_bounds__(kHopThreads, 1) dkv_wide_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  constexpr uint32_t kChunkBytes = kChunk * sizeof(bf16);
+  constexpr bool kReadBits = DROP && !DQ;  // K4: K3's keep bits, one bulk copy per tile
+  extern __shared__ uint8_t smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(align1024(smem_raw));  // kWideStages x 4 chunks
+  bf16* Ksl = ring + kWideStages * 4 * kChunk;  // DQ: the slice's k chunks
+  bf16* dSt = Ksl + (DQ ? 2 * kChunk : 0);      // DQ: 2 tiles of round(dS)^T (keys x rows)
+  float* lse_buf = reinterpret_cast<float*>(dSt + (DQ ? 2 * kChunk : 0));  // 2 x 64
+  float* delta_buf = lse_buf + 2 * kTile;                                    // 2 x 64
+  uint32_t* bits_buf = reinterpret_cast<uint32_t*>(delta_buf + 2 * kTile);  // 2 x 128 words
+  float* kbias_s = reinterpret_cast<float*>(bits_buf + 2 * 2 * kTile);        // the keys' bias
+  uint64_t* full = reinterpret_cast<uint64_t*>(kbias_s + kTile);
+  uint64_t* empty = full + kWideStages;
+  uint64_t* kbar = empty + kWideStages;
+
+  const int tid = threadIdx.x;
+  const int n_ch = (p.D + 63) / 64;
+  const int n_sl = n_slices(p.D);
+  const int sl = blockIdx.x % n_sl;
+  const int kt = blockIdx.x / n_sl, n_kt = (p.Tk + kTile - 1) / kTile;
+  const int k0 = kt * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = sl * kSlice;
+  const int sl_ch = min(2, n_ch - 2 * sl);
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    const int lane = tid - kConsumers;
+    if (DQ && lane == 0) {
+      mbar_arrive_tx(kbar, sl_ch * kChunkBytes);
+      for (int i = 0; i < sl_ch; ++i) tma_load(Ksl + i * kChunk, &tm_k, kbar, c0 + 64 * i, k0, h, b);
+    }
+    int n = 0;  // slots filled so far
+    for (int t = 0; t < n_tiles; ++t) {
+      const int q0 = t * kTile;
+      for (int c = 0; c <= n_ch; ++c, ++n) {
+        const int s = n % kWideStages;
+        if (n >= kWideStages) mbar_wait(&empty[s], ((n / kWideStages) - 1) & 1);
+        bf16* slot = ring + s * 4 * kChunk;
+        if (lane == 0) {
+          if (c < n_ch) {
+            const bool bits_here = kReadBits && c == 0;
+            mbar_expect_tx(&full[s], 4 * kChunkBytes + (bits_here ? kBitsBytes : 0));
+            tma_load(slot, &tm_k, &full[s], 64 * c, k0, h, b);
+            tma_load(slot + kChunk, &tm_q, &full[s], 64 * c, q0, h, b);
+            tma_load(slot + 2 * kChunk, &tm_v, &full[s], 64 * c, k0, h, b);
+            tma_load(slot + 3 * kChunk, &tm_do, &full[s], 64 * c, q0, h, b);
+            if (bits_here)  // K3's keep bits of this (key tile, q tile): 512 bytes
+              bulk_load(bits_buf + (t & 1) * 2 * kTile,
+                        p.keep_bits + ((bh * n_kt + kt) * p.tq_pad + q0) * 2, kBitsBytes, &full[s]);
+          } else {
+            mbar_expect_tx(&full[s], 2 * sl_ch * kChunkBytes);
+            for (int i = 0; i < sl_ch; ++i) {
+              tma_load(slot + i * kChunk, &tm_q, &full[s], c0 + 64 * i, q0, h, b);
+              tma_load(slot + (2 + i) * kChunk, &tm_do, &full[s], c0 + 64 * i, q0, h, b);
+            }
+          }
+        }
+        if (c == 0) {
+          for (int r = lane; r < kTile; r += 32) {
+            const bool in = q0 + r < p.Tq;
+            lse_buf[(t & 1) * kTile + r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();
+            delta_buf[(t & 1) * kTile + r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
+          }
+        }
+        mbar_arrive(&full[s]);  // each lane after its own writes
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: keys kl_lo and kl_lo + 8 of the tile per thread
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kl_lo = warp * 16 + g;
+  // the tile's key bias (-1e9 masked, -inf past Tk) in shared memory, read
+  // where it is used: registers are what this kernel runs short of
+  {
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    if (tid < kTile) {
+      const int key = k0 + tid;
+      kbias_s[tid] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+    }
+    consumer_sync();
+  }
+  if constexpr (DQ) mbar_wait(kbar, 0);
+  // this thread's 32 keep bits of the tile (gather_keep): K4 gathers K3's
+  // with the first chunk, K2 draws each tile's under the previous tile's
+  // dV/dK products (as K2 at D <= 128), the first one's here
+  uint32_t keep_word = 0u;
+  const uint32_t seed_at = blockIdx.z * p.H + blockIdx.y;  // K2's seed: p.seed[seed_at]
+  if constexpr (DROP && DQ) {
+    fill_keep_bits<2>(bits_buf, kTile, p.row0, p.col0 + k0, (uint32_t)p.seed[seed_at],
+                      p.threshold, tid, kConsumers);
+    consumer_sync();
+    keep_word = gather_keep(bits_buf, kl_lo, t4);
+  }
+
+  float dk[64], dv[64];  // the slice's 128 columns
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  int n = 0;  // slots consumed so far
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = t * kTile;
+    const uint32_t* bits_t = bits_buf + (t & 1) * 2 * kTile;  // K4: K3's bits of this tile
+    float sacc[32], dpacc[32];  // S^T and dP^T: keys x query rows
+    for (int c = 0; c < n_ch; ++c, ++n) {
+      const int s = n % kWideStages;
+      bf16* slot = ring + s * 4 * kChunk;
+      mbar_wait(&full[s], (n / kWideStages) & 1);
+      scale_tile<1>(slot + kChunk, slot + kChunk, p.scale, tid);  // round(q * scale) in place
+      fence_proxy_async();
+      consumer_sync();
+      // K4: K3's bits came with the first slot, and S^T and dP^T hold no
+      // registers yet
+      if constexpr (DROP && !DQ) {
+        if (c == 0) keep_word = gather_keep(bits_t, kl_lo, t4);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(sacc, kmajor_desc(slot, kk), kmajor_desc(slot + kChunk, kk), c == 0 && kk == 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(dpacc, kmajor_desc(slot + 2 * kChunk, kk), kmajor_desc(slot + 3 * kChunk, kk),
+                     c == 0 && kk == 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      mbar_arrive(&empty[s]);
+    }
+
+    // P^T (dropped) and dS^T, packed to bf16 A operands 16 query rows at a
+    // time, so that the float32 tiles die as they go (as in K2 at D <= 128)
+    const float* lse_t = lse_buf + (t & 1) * kTile;
+    const float* delta_t = delta_buf + (t & 1) * kTile;
+    const float inv_keep = 1.f / p.keep;
+    // this thread's two keys' bias, loaded where it is used
+    const float kb0 = ld_shared_f1(kbias_s + kl_lo), kb1 = ld_shared_f1(kbias_s + kl_lo + 8);
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int j = 2 * c; j < 2 * c + 2; ++j) {
+        // query rows 8j + 2 t4 and the next: one 8-byte load each of lse,
+        // delta, where they are used
+        const float2 lse2 = ld_shared_f2(lse_t + 8 * j + 2 * t4);
+        const float2 delta2 = ld_shared_f2(delta_t + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float pj = exp_approx(sacc[4 * j + e] + (r ? kb1 : kb0) - ((e & 1) ? lse2.y : lse2.x));
+          float pd = pj, dpj = dpacc[4 * j + e];
+          if constexpr (DROP) {  // 1 / (1 - rate) where kept, else 0
+            const float m =
+                __uint2float_rn((keep_word >> (2 * (2 * j + (e & 1)) + r)) & 1u) * inv_keep;
+            pd *= m;
+            dpj *= m;
+          }
+          sacc[4 * j + e] = pd;                                             // P^T, dropped
+          dpacc[4 * j + e] = pj * (dpj - ((e & 1) ? delta2.y : delta2.x));  // dS^T
+        }
+      }
+      pa[c][0] = pack_bf16(sacc[8 * c + 0], sacc[8 * c + 1]);
+      pa[c][1] = pack_bf16(sacc[8 * c + 2], sacc[8 * c + 3]);
+      pa[c][2] = pack_bf16(sacc[8 * c + 4], sacc[8 * c + 5]);
+      pa[c][3] = pack_bf16(sacc[8 * c + 6], sacc[8 * c + 7]);
+      dsa[c][0] = pack_bf16(dpacc[8 * c + 0], dpacc[8 * c + 1]);
+      dsa[c][1] = pack_bf16(dpacc[8 * c + 2], dpacc[8 * c + 3]);
+      dsa[c][2] = pack_bf16(dpacc[8 * c + 4], dpacc[8 * c + 5]);
+      dsa[c][3] = pack_bf16(dpacc[8 * c + 6], dpacc[8 * c + 7]);
+    }
+    const int s = n % kWideStages;
+    const bf16* uslot = ring + s * 4 * kChunk;  // q's slice chunks, then dO's
+    mbar_wait(&full[s], (n / kWideStages) & 1);
+    wg_fence();
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wgmma_rs<2>(dv, pa[c], uslot + 2 * kChunk, c);
+      wgmma_rs<2>(dk, dsa[c], uslot, c);
+    }
+    wg_commit();
+    uint32_t* next_bits = bits_buf + ((t + 1) & 1) * 2 * kTile;
+    if constexpr (DROP && DQ) {
+      if (t + 1 < n_tiles)
+        fill_keep_bits<2>(next_bits, kTile, p.row0 + q0 + kTile, p.col0 + k0,
+                          (uint32_t)p.seed[seed_at], p.threshold, tid, kConsumers);
+    }
+    bf16* ds_tile = dSt + (t & 1) * kChunk;  // rewritten two tiles later
+    if constexpr (DQ) {
+      store_swizzled(ds_tile, dsa, kl_lo, t4);
+      fence_proxy_async();
+      consumer_sync();  // every warp's dS^T is in place
+    }
+    if constexpr (DROP && DQ) keep_word = gather_keep(next_bits, kl_lo, t4);
+    wg_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[s]);
+    ++n;
+
+    if constexpr (DQ) {
+      // this tile's share of dq's slice columns: round(dS) K over the CTA's
+      // 64 keys, dS^T read MN-major as the A operand and K's slice chunks
+      // MN-major as B, one 64-column half at a time, into the scratch
+      // (B, H, nk, Tq, D) that dq_reduce_kernel adds up
+      float* part = p.dq_part + ((size_t)(blockIdx.z * p.H + blockIdx.y) * n_kt +
+                                 blockIdx.x / n_slices(p.D)) * p.Tq * p.D;
+      for (int hh = 0; hh < sl_ch; ++hh) {
+        float dq[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64_tt(dq, mnmajor_desc(ds_tile, kk), mnmajor_desc(Ksl + hh * kChunk, kk), kk == 0);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(dq);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = q0 + kl_lo + 8 * r, c = c0 + 64 * hh + 8 * j + 2 * t4;
+            if (row >= p.Tq || c >= p.D) continue;
+            float* out = part + (long long)row * p.D + c;
+            const float x = dq[4 * j + 2 * r] * p.scale, y = dq[4 * j + 2 * r + 1] * p.scale;
+            if (p.D % 2 == 0) {
+              *reinterpret_cast<float2*>(out) = make_float2(x, y);
+            } else {
+              out[0] = x;
+              if (c + 1 < p.D) out[1] = y;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh + c0;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh + c0;
+  store_rows<2>(dkp, p.dk_st, k0, p.Tk, p.D - c0, dk, p.scale, tid);
+  store_rows<2>(dvp, p.dv_st, k0, p.Tk, p.D - c0, dv, 1.f, tid);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1102,10 +1854,28 @@ int run_f32_drop(const BwdParams& p, int which, cudaStream_t s) {
   return run_f32<DP, false>(p, which, s);
 }
 
+// float32 above 128: the same three launches on the wide kernels
+template <bool DROP>
+int run_f32_wide(const BwdParams& p, int which, cudaStream_t s) {
+  const int n_sl = n_slices(p.D);
+  const int n_qt = (p.Tq + kB - 1) / kB, n_kt = (p.Tk + kB - 1) / kB;
+  if (which == 1)
+    return launch(dq_wide_kernel<DROP>, dq_wide_smem_bytes(), dim3(n_qt * n_sl, p.H, p.B), p, s);
+  const dim3 grid(n_kt * n_sl, p.H, p.B);
+  if (which == 2) return launch(dkv_wide_kernel<DROP, false>, dkv_wide_smem_bytes(), grid, p, s);
+  if (which != 0) return -3;
+  const int rc = launch(dkv_wide_kernel<DROP, true>, dkv_wide_smem_bytes(), grid, p, s);
+  if (rc != 0) return rc;
+  const long long n = (long long)p.B * p.H * p.Tq * p.D;
+  dq_reduce_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
+  return (int)cudaGetLastError();
+}
+
 int run_float(const BwdParams& p, int which, cudaStream_t s) {
   if (p.D <= 32) return run_f32_drop<32>(p, which, s);
   if (p.D <= 64) return run_f32_drop<64>(p, which, s);
-  return run_f32_drop<128>(p, which, s);
+  if (p.D <= kSlice) return run_f32_drop<128>(p, which, s);
+  return p.seed != nullptr ? run_f32_wide<true>(p, which, s) : run_f32_wide<false>(p, which, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1168,6 +1938,27 @@ int run_hop(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
               : launch_hop(dkv_wgmma_kernel<NC, false, false>, smem, grid, m, p, s);
 }
 
+// bf16 above 128: K3, K4, or K2 and its dq sum, on the wide kernels
+template <bool DROP>
+int run_hop_wide(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
+  const int n_sl = n_slices(p.D);
+  const int n_qt = (p.Tq + kTile - 1) / kTile, n_kt = (p.Tk + kTile - 1) / kTile;
+  if (which == 1)
+    return launch_hop(dq_wide_wgmma_kernel<DROP>, dq_wide_hop_smem_bytes(),
+                      dim3(n_qt * n_sl, p.H, p.B), m, p, s);
+  const dim3 grid(n_kt * n_sl, p.H, p.B);
+  if (which == 2)
+    return launch_hop(dkv_wide_wgmma_kernel<DROP, false>, dkv_wide_hop_smem_bytes<false>(), grid,
+                      m, p, s);
+  if (p.dq_part == nullptr) return -7;
+  const int rc = launch_hop(dkv_wide_wgmma_kernel<DROP, true>, dkv_wide_hop_smem_bytes<true>(),
+                            grid, m, p, s);
+  if (rc != 0) return rc;
+  const long long n = (long long)p.B * p.H * p.Tq * p.D;
+  dq_reduce_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
+  return (int)cudaGetLastError();
+}
+
 // bf16: K2 (which 0), K3 (which 1) or K4 (which 2); with dropout K3 writes
 // the keep bits to p.keep_bits and K4 reads them, while K2 draws its own
 int run_hopper(const BwdParams& p, int which, cudaStream_t s) {
@@ -1183,6 +1974,8 @@ int run_hopper(const BwdParams& p, int which, cudaStream_t s) {
   if (rc == 0) rc = encode_map(&m.v, p.v, p.B, p.H, p.Tk, p.D, p.v_sb, p.v_sh, p.v_st);
   if (rc == 0) rc = encode_map(&m.dout, p.dout, p.B, p.H, p.Tq, p.D, p.do_sb, p.do_sh, p.do_st);
   if (rc != 0) return rc;
+  if (p.D > kSlice)
+    return p.seed != nullptr ? run_hop_wide<true>(m, p, which, s) : run_hop_wide<false>(m, p, which, s);
   return p.D <= 64 ? run_hop<1>(m, p, which, s) : run_hop<2>(m, p, which, s);
 }
 
@@ -1194,11 +1987,11 @@ int run_hopper(const BwdParams& p, int which, cudaStream_t s) {
 // dropout in bf16 K3/K4, a (B, H, ceil(Tk/64), 64 ceil(Tq/64), 2) uint32
 // buffer (the keep bits of each 64x64 tile in 512 contiguous bytes) that K3
 // fills and K4 reads; null otherwise.
-// Returns 0, a cudaError_t code, -1 for an unknown dtype, -2 for a head dim
-// above 128, -3 for an unknown `which`, -4 when the driver refuses a tensor
-// map, -5 for a bf16 operand TMA cannot address, -6 for dropout without
-// keep_bits, -7 for bf16 K2 without dq_part, -8 for a negative offset or a
-// col0 that is no multiple of 4.
+// Any head dim: above 128 the wide kernels run. Returns 0, a cudaError_t
+// code, -1 for an unknown dtype, -3 for an unknown `which`, -4 when the
+// driver refuses a tensor map, -5 for a bf16 operand TMA cannot address, -6
+// for dropout without keep_bits, -7 for bf16 K2 without dq_part, -8 for a
+// negative offset or a col0 that is no multiple of 4.
 extern "C" int vimo_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* mask,
     const float* lse, const float* delta, const int* seed,
@@ -1233,7 +2026,6 @@ extern "C" int vimo_flash_attention_bwd(
   p.threshold = seed != nullptr ? threshold : 0u;
   p.keep = seed != nullptr ? keep : 1.0f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > 128) return -2;
   if (dtype == 0) return run_float(p, which, s);
   if (dtype == 1) return run_hopper(p, which, s);
   return -1;
@@ -1241,22 +2033,25 @@ extern "C" int vimo_flash_attention_bwd(
 
 // CTAs of bf16 K2 that fit one SM at head dim D, with or without dropout
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the power-of-two-scale
-// kernel at D <= 64); a negative cudaError_t code on failure
-extern "C" int vimo_flash_attention_bwd_dqkv_occupancy(int D, int drop) {
+// kernel at D <= 64, the wide kernel above 128); a negative cudaError_t code
+// on failure
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem) {
   int n = 0;
-  cudaError_t err;
-  if (D <= 64) {
-    const auto kernel = drop ? dqkv_wgmma_kernel<1, true, true> : dqkv_wgmma_kernel<1, false, true>;
-    const size_t smem = dqkv_hop_smem_bytes<1, true>();
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kHopThreads, smem);
-  } else {
-    const auto kernel = drop ? dqkv_wgmma_kernel<2, true, false> : dqkv_wgmma_kernel<2, false, false>;
-    const size_t smem = dqkv_hop_smem_bytes<2, false>();
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kHopThreads, smem);
-  }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kHopThreads, smem);
   return err == cudaSuccess ? n : -(int)err;
+}
+
+extern "C" int vimo_flash_attention_bwd_dqkv_occupancy(int D, int drop) {
+  if (D <= 64)
+    return drop ? occupancy(dqkv_wgmma_kernel<1, true, true>, dqkv_hop_smem_bytes<1, true>())
+                : occupancy(dqkv_wgmma_kernel<1, false, true>, dqkv_hop_smem_bytes<1, true>());
+  if (D <= kSlice)
+    return drop ? occupancy(dqkv_wgmma_kernel<2, true, false>, dqkv_hop_smem_bytes<2, false>())
+                : occupancy(dqkv_wgmma_kernel<2, false, false>, dqkv_hop_smem_bytes<2, false>());
+  return drop ? occupancy(dkv_wide_wgmma_kernel<true, true>, dkv_wide_hop_smem_bytes<true>())
+              : occupancy(dkv_wide_wgmma_kernel<false, true>, dkv_wide_hop_smem_bytes<true>());
 }
 
 extern "C" const char* vimo_cuda_error_string(int code) {

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vimoclip_tpu_torch.ops.kernels.flash_attention import (
-    MAX_HEAD_DIM,
+    WIDE_ABOVE_HEAD_DIM,
     dropout_keep_mask,
     expand_seed,
     flash_attention,
@@ -70,15 +70,34 @@ IMPLEMENTATIONS = ("xla", "flash", "auto", "ring", "ring_inner")
 # quotes). Shorter keys were not measured; the TFAM pipelines pad to
 # multiples of 128.
 AUTO_FLASH_MIN_T_NODROP = 128
+# Above head dim 128 (the wide kernels) the crossovers fall the other way in
+# float32, the stage-2 trainer's default. chip_smoke.py phase 17 timed
+# TFAM's steps (d512, 4 layers, batch 8) at 2 heads (head dim 256) and 1
+# (512) on an NVIDIA H100 80GB HBM3 (700 W), in three runs: with dropout 0.1
+# the kernels' train step won up to the 512-frame bucket (38.1 against 57.4
+# ms eager at 2 heads) and lost from 1024 (129.9 against 104.9; 743 against
+# 188 at 1 head and 2048), where the float32 FMA kernels' products cost more
+# than eager attention's cuBLAS ones; without dropout the kernels' eval step
+# won below 512 frames at 2 heads (3.93 against 5.14 ms at 128; at 1 head
+# the two were within about a millisecond either way) and lost from 512
+# (8.31 against 5.30). In bf16 the kernels won nearly every bucket, but
+# ``_auto_impl`` sees no dtype, and the trainer's default is float32.
+AUTO_WIDE_FLASH_MAX_T_DROP = 1024
+AUTO_WIDE_FLASH_MAX_T_NODROP = 512
 
 
 def _auto_impl(is_cuda: bool, dropping: bool, tk: int, head_dim: int) -> str:
-    """``auto``'s route: the kernels ("flash") for CUDA tensors whose head
-    dim they take (up to ``MAX_HEAD_DIM``) when dropout is active or the
-    keys reach ``AUTO_FLASH_MIN_T_NODROP``; eager attention ("xla")
-    otherwise, which takes any head dim on any device."""
-    if not is_cuda or head_dim > MAX_HEAD_DIM:
+    """``auto``'s route on CUDA tensors, by the crossovers measured for
+    each head dim: up to ``WIDE_ABOVE_HEAD_DIM`` the kernels ("flash") when
+    dropout is active or the keys reach ``AUTO_FLASH_MIN_T_NODROP``; above
+    it the kernels while the keys stay below ``AUTO_WIDE_FLASH_MAX_T_DROP``
+    with dropout, ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. Eager attention
+    ("xla") otherwise, and on the CPU."""
+    if not is_cuda:
         return "xla"
+    if head_dim > WIDE_ABOVE_HEAD_DIM:
+        max_t = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
+        return "flash" if tk < max_t else "xla"
     return "flash" if dropping or tk >= AUTO_FLASH_MIN_T_NODROP else "xla"
 
 
@@ -132,9 +151,9 @@ class MultiHeadAttention(nn.Module):
     - "xla": ``dot_product_attention`` (the name is the JAX package's);
     - "flash": the hand-written CUDA kernel on a card, its plain version on
       the CPU (``ops/kernels/flash_attention.py``);
-    - "auto": flash for CUDA tensors with attention dropout active, or
-      once the key length reaches the no-dropout crossover, when the head
-      dim is one the kernels take; the eager path otherwise (``_auto_impl``);
+    - "auto": on CUDA tensors, flash or the eager path by the crossovers
+      measured for the head dim, the key length and dropout
+      (``_auto_impl``); the eager path on the CPU;
     - "ring" / "ring_inner": ring attention over the ``seq`` group of
       ``shard`` (module docstring); without one it raises.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's

@@ -11,6 +11,12 @@ flash_attention`` (wrapper :751) and its kernels:
   ``_dq_kernel`` :214 and K4 ``_dkv_kernel`` :244 (longer keys):
   ``csrc/flash_attention_bwd.cu``.
 
+Every head dim runs on the kernels, as on the TPU. Above
+``WIDE_ABOVE_HEAD_DIM`` (128) each kernel has a wide variant: one CTA per
+slice of up to 128 output columns, the score products streamed over the
+whole head dim, so registers and shared memory stay flat in D; its launches
+count under the kind's ``_wide`` name.
+
 In bf16 every kernel runs on the tensor cores (wgmma) from tiles that TMA
 copies into shared memory; with dropout K3 also writes the keep bits of each
 64x64 tile to a uint32 buffer that K4 reads instead of drawing them again
@@ -43,7 +49,8 @@ design does about it.
   an explicit ``keep`` mask (the tests pass all-True, which is what JAX's
   CPU interpreter's stubbed bits give).
 - ``flash_attention.launches`` counts kernel launches by kind (``fwd``,
-  ``fwd_lse``, ``bwd_dqkv``, ``bwd_dq``, ``bwd_dkv``), never CPU calls.
+  ``fwd_lse``, ``bwd_dqkv``, ``bwd_dq``, ``bwd_dkv``, and each of them with
+  ``_wide`` above head dim 128), never CPU calls.
 
 A fully masked row (every key ignored) comes out uniform over the real
 keys, and its lse is -1e9 + log(n) rounded in float32, i.e. -1e9: the
@@ -58,11 +65,13 @@ import torch
 
 _MASK_VALUE = -1e9  # ops/attention.py::_MASK_VALUE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+# head dims above this run on the wide kernels (output slices of 128 columns)
+WIDE_ABOVE_HEAD_DIM = 128
 # JAX's backward takes its single-pass kernel when the keys fit one
 # block_k = 512 tile (nk == 1); the port keeps the same rule
 SINGLE_PASS_MAX_TK = 512
-LAUNCH_KINDS = ("fwd", "fwd_lse", "bwd_dqkv", "bwd_dq", "bwd_dkv")
+_KINDS = ("fwd", "fwd_lse", "bwd_dqkv", "bwd_dq", "bwd_dkv")
+LAUNCH_KINDS = _KINDS + tuple(f"{k}_wide" for k in _KINDS)
 _BWD_WHICH = {"bwd_dqkv": 0, "bwd_dq": 1, "bwd_dkv": 2}
 _BWD_TILE = 64  # key tile of the backward kernels (dq scratch of K2)
 
@@ -305,17 +314,10 @@ _BWD_ARGS = [_P] * 13 + [_I] * 9 + [_LL] * 22 + [_F, _U32, _F, _P]
 _TMA_ALIGN = 16  # bytes: TMA's start address and stride granule
 
 
-def check_head_dim(q: torch.Tensor) -> None:
-    """Refuse a CUDA tensor whose head dim the kernels do not take (above
-    ``MAX_HEAD_DIM``). JAX's kernels set no such limit; on the card the
-    port's eager attention takes any head dim, and ``auto`` picks it there.
-    CPU tensors pass: the plain versions take any head dim."""
-    d = q.shape[-1]
-    if q.device.type == "cuda" and d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d} > {MAX_HEAD_DIM}: the attention kernels take head dims up to "
-            f"{MAX_HEAD_DIM}; use attention_impl: auto (eager attention above "
-            f"{MAX_HEAD_DIM}) or xla")
+def launch_kind(kind: str, head_dim: int) -> str:
+    """The launch counter of ``kind`` at ``head_dim``: the kind itself, or
+    its wide variant above ``WIDE_ABOVE_HEAD_DIM``."""
+    return f"{kind}_wide" if head_dim > WIDE_ABOVE_HEAD_DIM else kind
 
 
 def _check_kernel_inputs(q, k, v):
@@ -326,7 +328,6 @@ def _check_kernel_inputs(q, k, v):
         )
     if not (k.device == q.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    check_head_dim(q)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -350,10 +351,19 @@ def _heads_major(b, t, h, d, dtype, device) -> torch.Tensor:
     return torch.empty((b, t, h, d), dtype=dtype, device=device).transpose(1, 2)
 
 
+# the entry points' own return codes (the csrc headers list them)
+_RC_REASONS = {
+    -1: "unknown dtype", -3: "unknown backward kernel",
+    -4: "the driver refused a tensor map", -5: "a bf16 operand TMA cannot address",
+    -6: "dropout without the keep-bit buffer", -7: "K2 without its dq scratch",
+    -8: "a negative offset or a col0 that is no multiple of 4",
+}
+
+
 def _raise_on(lib, rc, what):
     if rc != 0:
         reason = (lib.vimo_cuda_error_string(rc).decode() if rc > 0
-                  else f"unsupported arguments (code {rc})")
+                  else f"{_RC_REASONS.get(rc, 'unsupported arguments')} (code {rc})")
         raise RuntimeError(f"{what} kernel launch failed: {reason}")
 
 
@@ -386,7 +396,7 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse, row0=0,
             stream,
         )
     _raise_on(lib, rc, "flash_attention forward")
-    flash_attention.launches["fwd_lse" if with_lse else "fwd"] += 1
+    flash_attention.launches[launch_kind("fwd_lse" if with_lse else "fwd", d)] += 1
     return out, lse
 
 
@@ -447,7 +457,7 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
             stream,
         )
     _raise_on(lib, rc, f"flash_attention backward ({kind})")
-    flash_attention.launches[kind] += 1
+    flash_attention.launches[launch_kind(kind, d)] += 1
 
 
 def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
@@ -589,11 +599,13 @@ def reset_launch_counts() -> None:
 
 
 def kernel_keep_bits(kind: str, seed: torch.Tensor, rows: int, cols: int, dropout_rate: float,
-                     row0: int = 0, col0: int = 0) -> torch.Tensor:
+                     row0: int = 0, col0: int = 0, head_dim: int = 64) -> torch.Tensor:
     """The keep bits a bf16 kernel draws for (``row0`` + r, ``col0`` + c),
     r < ``rows``, c < ``cols``, read back from the card: (B, H, rows, cols)
     bool, for holding the kernels' bits to ``dropout_keep_mask`` bit for
-    bit. ``seed``: (B, H) int32 on the card.
+    bit. ``seed``: (B, H) int32 on the card; ``head_dim``: which kernel
+    draws them (above 128 the wide ones; the probes below sit in its first
+    64 columns, zeros past them).
 
     - ``fwd_lse`` (K1'): q = k = 0 and v = I over 64-key windows, so
       o[r, c] = keep[r, c] / (64 (1 - p)); ``cols`` a multiple of 64;
@@ -603,29 +615,30 @@ def kernel_keep_bits(kind: str, seed: torch.Tensor, rows: int, cols: int, dropou
     - ``bwd_dq`` (K3, ``cols`` > 512): the keep-bit buffer it fills for K4.
     Each launch counts as any other."""
     b, h = seed.shape
-    dev, bf = seed.device, torch.bfloat16
-    eye = torch.eye(64, dtype=bf, device=dev).expand(b, h, 64, 64).contiguous()
+    dev, bf, d = seed.device, torch.bfloat16, head_dim
+    eye = torch.zeros(b, h, 64, d, dtype=bf, device=dev)
+    eye[..., :64] = torch.eye(64, dtype=bf, device=dev)
     if kind == "fwd_lse":
-        q, k = (torch.zeros(b, h, n, 64, dtype=bf, device=dev) for n in (rows, 64))
-        outs = [forward_lse(q, k, eye, None, seed, dropout_rate, row0, col0 + c)[0]
+        q, k = (torch.zeros(b, h, n, d, dtype=bf, device=dev) for n in (rows, 64))
+        outs = [forward_lse(q, k, eye, None, seed, dropout_rate, row0, col0 + c)[0][..., :64]
                 for c in range(0, cols, 64)]
         return torch.cat(outs, dim=-1) != 0
     if kind == "bwd_dqkv":
-        q = torch.zeros(b, h, 64, 64, dtype=bf, device=dev)
-        k = torch.zeros(b, h, cols, 64, dtype=bf, device=dev)
+        q = torch.zeros(b, h, 64, d, dtype=bf, device=dev)
+        k = torch.zeros(b, h, cols, d, dtype=bf, device=dev)
         zero = torch.zeros(b, h, 64, dtype=torch.float32, device=dev)
         outs = [backward_kernels(q, k, k, None, seed, dropout_rate, None, zero, eye,
-                                 row0 + r, col0, delta=zero)[2].transpose(-1, -2)
+                                 row0 + r, col0, delta=zero)[2][..., :64].transpose(-1, -2)
                 for r in range(0, rows, 64)]
         return torch.cat(outs, dim=-2) != 0
     if kind != "bwd_dq":
         raise ValueError(f"no keep-bit probe for {kind!r}")
-    q = torch.zeros(b, h, rows, 64, dtype=bf, device=dev)
-    k = torch.zeros(b, h, cols, 64, dtype=bf, device=dev)
+    q = torch.zeros(b, h, rows, d, dtype=bf, device=dev)
+    k = torch.zeros(b, h, cols, d, dtype=bf, device=dev)
     zero = torch.zeros(b, h, rows, dtype=torch.float32, device=dev)
     nk, tq_pad = -(-cols // 64), -(-rows // 64) * 64
     bits = torch.zeros(b, h, nk, tq_pad, 2, dtype=torch.int32, device=dev)
-    dq = _heads_major(b, rows, h, 64, bf, dev)
+    dq = _heads_major(b, rows, h, d, bf, dev)
     _launch_bwd("bwd_dq", q, k, k, None, seed, dropout_rate, zero, zero, q, dq, None, None,
                 bits, row0=row0, col0=col0)
     shifts = torch.arange(32, device=dev, dtype=torch.int64)

@@ -283,7 +283,6 @@ def ring_attention(q, k, v, key_padding_mask, ring, dropout_rate: float = 0.0,
         (B, H, Tq/n, D) in q's dtype (a list with a ``LocalRing``).
     """
     single, qs, ks, vs, masks = _as_lists(ring, q, k, v, key_padding_mask)
-    fa.check_head_dim(qs[0])  # before any hop
     seed = _seeds(dropout_rate, dropout_seed, qs[0])
     tk = ks[0].shape[2]
     if dropout_rate > 0.0 and tk % 4:
