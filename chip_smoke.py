@@ -207,7 +207,11 @@ HERE = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: outside the tensor cores
+# float32: the TF32 tensor cores' 495 TFLOP/s over the three passes each
+# float32 product takes there (csrc/tf32.cuh); float32 K3 still runs on the
+# FMA units (67 TFLOP/s), whose bound every float32 row also gives
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+FMA_FLOPS = 67e12
 
 # Kernel vs plain: float32 sums in another order (~1e-6); bfloat16 rounds p
 # at another running max and stores a bf16 output (rel. 2^-8 at |o| ~ 1).
@@ -238,29 +242,34 @@ LSE_TOL = 1e-4
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the device-side kernels of each wrapper by dtype (profiler entry names),
 # and how many of them one call launches
-_FWD_NAMES = {"float32": ("fma_kernel",), "bfloat16": ("fwd_wgmma_kernel",)}
-_FWD_WIDE_NAMES = {"float32": ("fma_wide_kernel",), "bfloat16": ("fwd_wide_wgmma_kernel",)}
+# (float32 K1, K1', K2 and K4: one three-pass TF32 template each at every
+# head dim)
+_FWD_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_wgmma_kernel",)}
+_FWD_WIDE_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_wide_wgmma_kernel",)}
+_DQKV_F32 = ("dkv_tf32_kernel", "dq_reduce_kernel<float")
 KERNEL_NAMES = {
     "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
-    "bwd_dqkv": {"float32": ("dkv_kernel<float", "dq_reduce_kernel<float"),
+    "bwd_dqkv": {"float32": _DQKV_F32,
                  "bfloat16": ("dqkv_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
     "bwd_dq": {"float32": ("dq_kernel<float",), "bfloat16": ("dq_wgmma_kernel",)},
-    "bwd_dkv": {"float32": ("dkv_kernel<float",), "bfloat16": ("dkv_wgmma_kernel",)},
+    "bwd_dkv": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_wgmma_kernel",)},
     # above head dim 128 (one template serves wide K2 and K4)
     "fwd_wide": _FWD_WIDE_NAMES, "fwd_lse_wide": _FWD_WIDE_NAMES,
-    "bwd_dqkv_wide": {"float32": ("dkv_wide_kernel<", "dq_reduce_kernel<float"),
+    "bwd_dqkv_wide": {"float32": _DQKV_F32,
                       "bfloat16": ("dkv_wide_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
     "bwd_dq_wide": {"float32": ("dq_wide_kernel<",), "bfloat16": ("dq_wide_wgmma_kernel",)},
-    "bwd_dkv_wide": {"float32": ("dkv_wide_kernel<",), "bfloat16": ("dkv_wide_wgmma_kernel",)},
+    "bwd_dkv_wide": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_wide_wgmma_kernel",)},
 }
 # each named kernel launches once per call
 KERNEL_PER_CALL = {kind: {dt: len(names) for dt, names in by_dtype.items()}
                    for kind, by_dtype in KERNEL_NAMES.items()}
-# the bf16 kernels whose SASS must hold HGMMA and UTMALDG, by library
-WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_wide_wgmma_kernel"),
+# the kernels whose SASS must hold HGMMA and UTMALDG, by library: every
+# bf16 one and the float32 TF32 ones
+WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_wide_wgmma_kernel",
+                                         "fwd_tf32_kernel"),
                  "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
                                          "dkv_wgmma_kernel", "dq_wide_wgmma_kernel",
-                                         "dkv_wide_wgmma_kernel")}
+                                         "dkv_wide_wgmma_kernel", "dkv_tf32_kernel")}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -604,7 +613,7 @@ def phase_kernels(torch, seed: int, smi: str, shapes=KERNEL_SHAPES,
         launch_kind,
     )
 
-    main = None
+    rows = {}  # the main shape's row of each dtype
     g = torch.Generator(device="cuda").manual_seed(seed)
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -643,11 +652,13 @@ def phase_kernels(torch, seed: int, smi: str, shapes=KERNEL_SHAPES,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "call_ms": cuda_ms(torch, kernel),  # host launch time included
             }
+            if dtype_name == "float32":  # the FMA kernel's bound, beside
+                row["fma_bound_ms"] = max(t_bytes, flops / FMA_FLOPS * 1e3)
             print(f"[kernel] flash_attention_{kind} " + json.dumps(row) + f" [{smi}]")
-            if dtype_name == "bfloat16" and shape == main_shape:
-                main = row
-    check(main is not None, "no measurement at the main path's shape")
-    return main
+            if shape == main_shape:
+                rows[dtype_name] = row
+    check(set(rows) == {"float32", "bfloat16"}, "no measurement at the main path's shape")
+    return {**rows["bfloat16"], "float32": rows["float32"]}
 
 
 def _rel(a, b) -> float:
@@ -663,9 +674,12 @@ def _lse_err(a, b) -> float:
     return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
 
 
-def _bound(kind: str, dtype_name: str, shape, item: int, rate: float) -> tuple[float, str]:
+def _bound(kind: str, dtype_name: str, shape, item: int, rate: float,
+           peak: float | None = None) -> tuple[float, str]:
     """Least time for the work: every input read once, every output written
-    once, at 3.35 TB/s; or the products at the type's peak rate."""
+    once, at 3.35 TB/s; or the products at the peak rate of the units the
+    kernel uses (``peak``, else the type's: float32 K3 runs on the FMA
+    units)."""
     b, h, tq, tk, d = shape
     qo, kv = b * h * tq * d * item, b * h * tk * d * item
     rows = 4 * b * h * tq  # one float32 per query row (lse, delta)
@@ -675,8 +689,10 @@ def _bound(kind: str, dtype_name: str, shape, item: int, rate: float) -> tuple[f
              "bwd_dq": 3 * qo + 2 * kv + 2 * rows,         # ... -> dq
              "bwd_dkv": 2 * qo + 4 * kv + 2 * rows}[kind] + small
     ops = OPS_PER_ELEMENT[kind] * b * h * tq * tk * d
+    if peak is None:
+        peak = FMA_FLOPS if (dtype_name, kind) == ("float32", "bwd_dq") else PEAK_FLOPS[dtype_name]
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -684,8 +700,8 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                            shapes=TRAIN_SHAPES, dtypes=("float32", "bfloat16")) -> dict:
     """K1' and K2 / K3 + K4 against their plain versions, timed, at
     ``shapes`` and the main path's shapes in each of ``dtypes``; returns the
-    p = 0.1 rows of the last dtype at ``main_shapes[kind]``, each kernel's
-    most launched shape."""
+    p = 0.1 rows at ``main_shapes[kind]``, each kernel's most launched shape:
+    the last dtype's under ``kind``, the others' under ``kind@dtype``."""
     import torch.nn.functional as F
 
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
@@ -793,6 +809,8 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                                  "bwd": sdpa_backend(torch, sdpa_train)}
                 for kind, _ in calls:
                     bound_ms, bound_by = _bound(kind, dtype_name, shape, item, rate)
+                    fma_bound = (_bound(kind, dtype_name, shape, item, rate, FMA_FLOPS)[0]
+                                 if dtype_name == "float32" else None)
                     stage = "fwd" if kind == "fwd_lse" else "bwd"
                     row = {
                         "kernel": kind, "dtype": dtype_name, "shape": list(shape),
@@ -804,7 +822,7 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                         "library_call_ms": sdpa_call_ms[stage],
                         "achieved_TF_per_s": OPS_PER_ELEMENT[kind] * b * h * tq * tk * d
                         / (kernel_ms[kind] * 1e-3) / 1e12,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "fma_bound_ms": fma_bound,
                         "max_abs_err": out_err if kind == "fwd_lse" else max(
                             (a.float() - r.float()).abs().max().item()
                             for a, r in zip(grads, ref_grads)),
@@ -815,9 +833,10 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                     if kind == "bwd_dqkv" and pair is not None:
                         row["k3k4_pair"] = pair
                     print("[train-kernel] " + json.dumps(row) + f" [{smi}]")
-                    if dtype_name == dtypes[-1] and rate and shape == main_shapes.get(kind):
-                        main[kind] = row
-    check(set(main) == set(main_shapes), f"main-shape rows missing: {sorted(main)}")
+                    if rate and shape == main_shapes.get(kind):
+                        main[kind if dtype_name == dtypes[-1] else f"{kind}@{dtype_name}"] = row
+    check({k for k in main if "@" not in k} == set(main_shapes),
+          f"main-shape rows missing: {sorted(main)}")
     return main
 
 
@@ -1141,6 +1160,7 @@ def phase_training(torch, setup: dict, smi: str) -> dict:
     check(grad_rel_l2 <= TRAIN_GRAD_TOL,
           f"flash vs eager gradients: relative L2 {grad_rel_l2} > {TRAIN_GRAD_TOL}")
     crossover = _crossover(torch, setup, smi)
+    float32_auto = _f32_recipe(torch, setup, smi)
 
     stats = {
         "step_losses": step_losses, "fit_losses": fit, "launches": launches,
@@ -1154,9 +1174,74 @@ def phase_training(torch, setup: dict, smi: str) -> dict:
         "lengths": [[int(b["embeddings"].shape[1]), int(b["motion_embeddings"].shape[1])]
                     for b in batches],
         "kernel_main_shapes": setup["main_shapes"], "crossover": crossover,
+        "float32_auto": float32_auto,
     }
     print("[train] " + json.dumps(stats) + f" [{smi}]")
     return stats
+
+
+def _f32_recipe(torch, setup: dict, smi: str) -> dict:
+    """Phase 6's recipe in float32, the trainer's default (``half_precision``
+    False; the main path above runs bf16), under ``attention_impl: auto``:
+    15 steps on the first batch that lower its loss, each step's launches by
+    kind (``auto`` sends every site with dropout to the kernels at head dim
+    64), a warm step's ms and idle share, then one step of the long batch (K3
+    + K4) and ``validate`` (K1); and the ``xla`` route's warm step on the
+    same batch, a trainer of its own."""
+    import tempfile
+
+    import numpy as np
+
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.train.tfam_trainer import TFAMTrainer
+
+    cfg, batches = setup["cfg"], setup["batches"]
+    datasets = {"train_dataset": setup["trainer"].train_loader.dataset,
+                "val_dataset": setup["trainer"].val_loader.dataset}
+    run = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    out = {"dtype": "float32", "bucket": int(batches[0]["embeddings"].shape[1])}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, attention_impl=impl),
+            training=dataclasses.replace(cfg.training, half_precision=False))
+        trainer = TFAMTrainer(c, log_dir=str(run / impl / "logs"),
+                              checkpoint_dir=str(run / impl / "ckpt"), **datasets)
+        check(trainer.dtype == torch.float32, f"the trainer runs {trainer.dtype}, not float32")
+        fixed = to_device(batches[0], trainer.device)
+        fa.reset_launch_counts()
+        fit, times = [], []
+        for i in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit.append(float(trainer.train_step(fixed)[0]))
+            if i >= 5:
+                times.append(time.perf_counter() - t0)
+        launches = dict(fa.flash_attention.launches)
+        check(all(np.isfinite(fit)) and np.mean(fit[-3:]) < fit[0],
+              f"float32 {impl}: 15 steps on one batch did not lower the loss: {fit}")
+        prof = profile_request(torch, lambda: trainer.train_step(fixed), smi,
+                               label=f"train-f32-{impl}-profile")
+        row = {"warm_step_ms": float(np.mean(times)) * 1e3,
+               "device_idle_share": prof["device_idle_share"], "fit_losses": fit,
+               "launches_per_step": {k: n // 15 for k, n in launches.items() if n}}
+        if impl == "auto":
+            want = {k: 15 * n for k, n in _per_kind(setup["steps"][0]).items()}
+            check(launches == want, f"float32 auto: 15 steps launched {launches}, expected {want}")
+            fa.reset_launch_counts()
+            loss, _ = trainer.train_step(batches[-1])  # the long batch: K3 + K4
+            check(np.isfinite(float(loss)), f"float32 auto: long batch loss {float(loss)}")
+            check(dict(fa.flash_attention.launches) == _per_kind(setup["steps"][-1]),
+                  f"float32 auto: the long batch launched {fa.flash_attention.launches}")
+            val_loss, val_map = trainer.validate()
+            check(np.isfinite(val_loss) and 0.0 <= val_map <= 1.0, f"validate {val_loss} {val_map}")
+            row["launches"] = {k: n + launches[k] for k, n in fa.flash_attention.launches.items()}
+        else:
+            check(sum(launches.values()) == 0, f"float32 xla launched {launches}")
+        out[impl] = row
+        del trainer
+    print("[train-f32] " + json.dumps(out) + f" [{smi}]")
+    return out
 
 
 def _crossover(torch, setup: dict, smi: str) -> list[dict]:
@@ -1237,7 +1322,7 @@ def phase_normalize_kernel(torch, seed: int, smi: str) -> dict:
             plain_ms = device_ms(torch, lambda: fused_normalize_reference(x, dtype=dtype))
             moved = n * (1 + dtype.itemsize)  # uint8 in, dtype out
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = 2 * n / PEAK_FLOPS["float32"] * 1e3  # a subtraction and a product
+            t_ops = 2 * n / FMA_FLOPS * 1e3  # a subtraction and a product (FMA units)
             row = {"dtype": dtype_name, "shape": list(shape), "offset": offset,
                    "max_abs_err": err, "bitwise": True, "ms": ms, "warm_ms": warm_ms,
                    "plain_ms": plain_ms,
@@ -2840,7 +2925,7 @@ def _head_dim_route(torch, setup: dict) -> dict:
         out[f"{impl}_loss"] = float(loss)
         out[f"{impl}_launches"] = dict(fa.flash_attention.launches)
     sites = {(batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])}
-    routes = {_auto_impl(True, True, tk, d) for tk in next(iter(sites))}
+    routes = {_auto_impl(True, True, tk, d, torch.bfloat16) for tk in next(iter(sites))}
     out["auto_routes"] = sorted(routes)
     layers = cfg.model.num_layers
     want_flash = {k: 0 for k in fa.LAUNCH_KINDS}
@@ -2994,12 +3079,13 @@ def _wide_training(torch, setup: dict, heads: int, smi: str, base_step_ms: float
 
 
 def _wide_crossover(torch, setup: dict, smi: str) -> list[dict]:
-    """Phase 17(b): ``auto``'s measurement above head dim 128. The trainer's
-    step with dropout 0.1 (``train_step``) and its eval step without
-    (``eval_step``) at each of ``WIDE_CROSSOVER_BUCKETS``, at 2 and 1 heads,
-    in float32 (the trainer's default) and bf16, every attention site on the
-    eager path and on the kernels in turn (eager, kernels, kernels, eager;
-    CUDA events, the host's launches included)."""
+    """Phase 17(b): ``auto``'s measurement. The trainer's step with dropout
+    0.1 (``train_step``) and its eval step without (``eval_step``) at each
+    of ``WIDE_CROSSOVER_BUCKETS``: above head dim 128 at 2 and 1 heads in
+    float32 (the trainer's default) and bf16, and at 8 heads (head dim 64)
+    in float32; every attention site on the eager path and on the kernels in
+    turn (eager, kernels, kernels, eager; CUDA events, the host's launches
+    included)."""
     import tempfile
 
     from vimoclip_tpu_torch.data.pipeline import to_device
@@ -3014,32 +3100,32 @@ def _wide_crossover(torch, setup: dict, smi: str) -> list[dict]:
                        cfg.data.num_classes, f"w{bucket}-")
         batches[bucket] = items
     rows = []
-    for half in (False, True):
-        for heads in WIDE_HEADS:
-            trainer = _wide_trainer(torch, setup, heads, run / f"h{heads}{half}", half=half)
-            sites = [m for m in trainer.model.modules() if isinstance(m, MultiHeadAttention)]
-            for bucket in WIDE_CROSSOVER_BUCKETS:
-                batch = to_device(trainer.collate(batches[bucket]), trainer.device)
-                lengths = (batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])
-                check(lengths == (bucket, bucket), f"bucket {bucket}: lengths {lengths}")
-                for mode in ("train", "eval"):
-                    step = trainer.train_step if mode == "train" else trainer.eval_step
-                    iters, warmup = (2, 1) if bucket >= 1024 else (5, 1)
-                    row = {"mode": mode, "dropout": cfg.model.dropout if mode == "train" else 0.0,
-                           "dtype": "bfloat16" if half else "float32", "heads": heads,
-                           "head_dim": cfg.model.d_model // heads, "bucket": bucket,
-                           "xla_ms": 0.0, "flash_ms": 0.0}
-                    for impl in ("xla", "flash", "flash", "xla"):
-                        for m in sites:
-                            m.implementation = impl
-                        row[f"{impl}_ms"] += cuda_ms(torch, lambda: step(batch), iters=iters,
-                                                     warmup=warmup) / 2
-                    row["faster"] = "flash" if row["flash_ms"] < row["xla_ms"] else "xla"
-                    row["auto"] = _auto_impl(True, mode == "train", bucket, row["head_dim"])
-                    print("[wide-crossover] " + json.dumps(row) + f" [{smi}]")
-                    rows.append(row)
-            del trainer
-            torch.cuda.empty_cache()
+    for half, heads in ((False, 8), *((h, n) for h in (False, True) for n in WIDE_HEADS)):
+        trainer = _wide_trainer(torch, setup, heads, run / f"h{heads}{half}", half=half)
+        sites = [m for m in trainer.model.modules() if isinstance(m, MultiHeadAttention)]
+        for bucket in WIDE_CROSSOVER_BUCKETS:
+            batch = to_device(trainer.collate(batches[bucket]), trainer.device)
+            lengths = (batch["embeddings"].shape[1], batch["motion_embeddings"].shape[1])
+            check(lengths == (bucket, bucket), f"bucket {bucket}: lengths {lengths}")
+            for mode in ("train", "eval"):
+                step = trainer.train_step if mode == "train" else trainer.eval_step
+                iters, warmup = (2, 1) if bucket >= 1024 else (5, 1)
+                row = {"mode": mode, "dropout": cfg.model.dropout if mode == "train" else 0.0,
+                       "dtype": "bfloat16" if half else "float32", "heads": heads,
+                       "head_dim": cfg.model.d_model // heads, "bucket": bucket,
+                       "xla_ms": 0.0, "flash_ms": 0.0}
+                for impl in ("xla", "flash", "flash", "xla"):
+                    for m in sites:
+                        m.implementation = impl
+                    row[f"{impl}_ms"] += cuda_ms(torch, lambda: step(batch), iters=iters,
+                                                 warmup=warmup) / 2
+                row["faster"] = "flash" if row["flash_ms"] < row["xla_ms"] else "xla"
+                row["auto"] = _auto_impl(True, mode == "train", bucket, row["head_dim"],
+                                         torch.bfloat16 if half else torch.float32)
+                print("[wide-crossover] " + json.dumps(row) + f" [{smi}]")
+                rows.append(row)
+        del trainer
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3366,6 +3452,27 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # float32 K1, K1', K2 and K4 (three-pass TF32: fwd_tf32_kernel,
+    # dkv_tf32_kernel), with their launches on the float32 paths: phase 6's
+    # float32 recipe and phase 16's contrast at head dim 64, phase 17's
+    # training above 128
+    f32_launches = train["float32_auto"]["auto"]["launches"]
+    wide_f32_launches = {k: sum(wide["training"][h]["launches"][k] for h in WIDE_HEADS)
+                         for k in wide["launches"]}
+    for kind, line in (("fwd", 113), ("fwd_lse", 113), ("bwd_dqkv", 282), ("bwd_dkv", 244)):
+        for wkind, row, n in (
+                (kind, k1["float32"] if kind == "fwd" else train_rows[f"{kind}@float32"],
+                 f32_launches[kind] + table2["launches"][kind]),
+                (f"{kind}_wide", wide["k1"]["float32"] if kind == "fwd"
+                 else wide["train_kernels"][f"{kind}@float32"], wide_f32_launches[f"{kind}_wide"])):
+            check(n > 0, f"float32 {wkind} never launched on the float32 paths")
+            kernels.append({
+                "name": f"flash_attention_{wkind}_f32", "route": "cuda",
+                "source": fwd_src if kind.startswith("fwd") else bwd_src,
+                "replaces": f"{tpu}:{line}", "launches": n, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            })
     k5_launches = (student["mn_k5_launches"] + export["k5_launches"]
                    + extraction["stats"]["k5_launches"] + served["k5_launches"]
                    + par["k5_launches"])

@@ -65,13 +65,18 @@ def _rel(a, b):
     (3, 8, 384, 384, 64), (3, 8, 384, 256, 64), (3, 8, 384, 299, 64),
     (3, 8, 2048, 2048, 64), (2, 2, 130, 77, 16), (2, 2, 70, 200, 128),
     (1, 3, 65, 65, 80), (2, 2, 33, 47, 20),
+    # Tq != Tk at head dims 32, 256 and 512 (the wide kernels)
+    (2, 2, 96, 130, 32), (2, 2, 100, 70, 256), (1, 2, 70, 90, 512),
 ], ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_reference(cuda, shape, dtype):
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import launch_kind
+
     q, k, v, mask = _inputs(*shape, dtype, cuda)
-    before = flash_attention.launches["fwd"]
+    kind = launch_kind("fwd", shape[-1])
+    before = flash_attention.launches[kind]
     out = flash_attention(q, k, v, key_padding_mask=mask)
     torch.cuda.synchronize()
-    assert flash_attention.launches["fwd"] == before + 1
+    assert flash_attention.launches[kind] == before + 1
     ref = flash_attention_reference(q, k, v, mask)
     assert out.dtype == dtype and out.shape == ref.shape
     err = (out.float() - ref.float()).abs().max().item()
@@ -135,6 +140,8 @@ def _train_call(q, k, v, mask, rate, seed, grad_out):
     # past 512 keys: ragged Tq != Tk at head dim 32, head dim 128, Tq below
     # one tile, and a head dim TMA needs the padded copy for (bf16 rows of 40 bytes)
     (2, 2, 700, 613, 32), (2, 2, 530, 1000, 128), (2, 2, 40, 777, 64), (2, 3, 100, 530, 20),
+    # Tq above Tk at head dim 128, head dim 16 past 512 keys
+    (2, 2, 300, 140, 128), (2, 2, 100, 600, 16),
 ], ids=lambda s: "x".join(map(str, s)))
 def test_training_kernels_match_plain(cuda, shape, dtype, rate):
     b, h, tq, tk, d = shape
@@ -209,27 +216,29 @@ def test_long_backward_fully_masked_rows(cuda, dtype, rate):
         assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("tk", [384, 1024], ids=["dqkv", "dq+dkv"])
-def test_backward_is_deterministic(cuda, tk):
-    q, k, v, mask = _inputs(4, 8, 384, tk, 64, torch.bfloat16, cuda)
-    g = torch.randn(4, 8, 384, 64, device=cuda).to(torch.bfloat16)
+def test_backward_is_deterministic(cuda, tk, dtype):
+    q, k, v, mask = _inputs(4, 8, 384, tk, 64, dtype, cuda)
+    g = torch.randn(4, 8, 384, 64, device=cuda).to(dtype)
     first, _ = _train_call(q, k, v, mask, 0.1, 9, g)
     second, _ = _train_call(q, k, v, mask, 0.1, 9, g)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("tq, tk", [(40, 64), (40, 299), (40, 512), (130, 299), (300, 512)],
                          ids=lambda v: str(v))
-def test_single_pass_kernels_match_plain(cuda, tq, tk, d, rate):
-    """bf16 K1, K1' and K2 (keys within one 512-key tile) against their plain
-    versions: Tq below one tile, ragged Tk, head dims 32 (the 64-column
-    kernels), 64 and 128 (two chunks)."""
+def test_single_pass_kernels_match_plain(cuda, tq, tk, d, rate, dtype):
+    """K1, K1' and K2 (keys within one 512-key tile) against their plain
+    versions: Tq below one tile, ragged Tk, head dims 16 and 32 (the
+    64-column kernels), 64 and 128 (two chunks)."""
     b, h = 2, 3
-    q, k, v, mask = _inputs(b, h, tq, tk, d, torch.bfloat16, cuda, seed=tq + tk + d)
-    g = torch.randn(b, tq, h, d, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    q, k, v, mask = _inputs(b, h, tq, tk, d, dtype, cuda, seed=tq + tk + d)
+    g = torch.randn(b, tq, h, d, device=cuda).to(dtype).transpose(1, 2)
     before = dict(flash_attention.launches)
     got, ref = _train_call(q, k, v, mask, rate, 77, g)
     with torch.no_grad():
@@ -239,46 +248,49 @@ def test_single_pass_kernels_match_plain(cuda, tq, tk, d, rate):
     assert after["fwd_lse"] == before["fwd_lse"] + 1 and after["fwd"] == before["fwd"] + 1
     assert after["bwd_dqkv"] == before["bwd_dqkv"] + 1
     assert (out1.float() - flash_attention_reference(q, k, v, mask).float()).abs().max() <= TOL[
-        torch.bfloat16]
-    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[torch.bfloat16]
+        dtype]
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
     for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
         assert torch.isfinite(a.float()).all(), name
-        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16], (name, _rel(a, r))
+        assert _rel(a, r) <= GRAD_TOL[dtype], (name, _rel(a, r))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
-def test_single_pass_kernels_read_packed_heads(cuda, d, offset):
-    # heads split out of a packed projection; offset 1 leaves every bf16 row
+def test_single_pass_kernels_read_packed_heads(cuda, d, offset, dtype):
+    # heads split out of a packed projection; offset 1 leaves every row
     # misaligned, so the wrapper hands the TMA kernels padded copies
     b, t, h = 2, 260, 4
-    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).bfloat16()[..., offset:]
+    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).to(dtype)[..., offset:]
     q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
-    g = torch.randn(b, t, h, d, device=cuda).bfloat16().transpose(1, 2)
+    g = torch.randn(b, t, h, d, device=cuda).to(dtype).transpose(1, 2)
     got, ref = _train_call(q, k, v, None, 0.1, 21, g)
-    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
     for a, r in zip(got[1:], ref[1:]):
-        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16]
+        assert _rel(a, r) <= GRAD_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
-def test_single_pass_backward_fully_masked_rows(cuda, rate):
+def test_single_pass_backward_fully_masked_rows(cuda, rate, dtype):
     # K2 with two batch rows whose every key is ignored: P = 1 on each key
     b, h, tq, tk, d = 4, 2, 130, 300, 64
-    q, k, v, mask = _inputs(b, h, tq, tk, d, torch.bfloat16, cuda, seed=4, masked_rows=(0, 2))
-    g = torch.randn(b, h, tq, d, device=cuda).bfloat16()
+    q, k, v, mask = _inputs(b, h, tq, tk, d, dtype, cuda, seed=4, masked_rows=(0, 2))
+    g = torch.randn(b, h, tq, d, device=cuda).to(dtype)
     got, ref = _train_call(q, k, v, mask, rate, 13, g)
     for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
         assert torch.isfinite(a.float()).all(), name
-        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16], (name, _rel(a, r))
+        assert _rel(a, r) <= GRAD_TOL[dtype], (name, _rel(a, r))
         assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
-@pytest.mark.parametrize("d", [32, 128])
-def test_single_pass_backward_is_deterministic(cuda, d, rate):
-    q, k, v, mask = _inputs(2, 4, 200, 450, d, torch.bfloat16, cuda)
-    g = torch.randn(2, 4, 200, d, device=cuda).bfloat16()
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_single_pass_backward_is_deterministic(cuda, d, rate, dtype):
+    q, k, v, mask = _inputs(2, 4, 200, 450, d, dtype, cuda)
+    g = torch.randn(2, 4, 200, d, device=cuda).to(dtype)
     first, _ = _train_call(q, k, v, mask, rate, 9, g)
     second, _ = _train_call(q, k, v, mask, rate, 9, g)
     for a, b in zip(first, second):
@@ -363,10 +375,11 @@ def test_auto_at_wide_head_dims_follows_the_measured_rule(cuda):
     """A 2-head d512 TFAM (head dim 256) under ``auto``: a train step with
     dropout on a short clip runs the wide kernels, with the loss of the
     ``flash`` step from the same state and generator, and within
-    flash-vs-eager rounding of the ``xla`` step; eval steps run K1 below
-    ``AUTO_WIDE_FLASH_MAX_T_NODROP`` keys and eager attention from there,
-    and an attention with dropout runs eager from
-    ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys."""
+    flash-vs-eager rounding of the ``xla`` step; in float32 eval steps run
+    K1 below ``AUTO_WIDE_FLASH_MAX_T_NODROP`` keys and eager attention from
+    there, and an attention with dropout runs eager from
+    ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys; in bf16 the kernels run at every
+    length."""
     import dataclasses
 
     from vimoclip_tpu_torch import losses
@@ -417,6 +430,16 @@ def test_auto_at_wide_head_dims_follows_the_measured_rule(cuda):
         before = flash_attention.launches["fwd_lse_wide"]
         mha(torch.randn(1, t, 512, device=cuda, requires_grad=True), generator=gen)
         assert flash_attention.launches["fwd_lse_wide"] == before + launched, t
+    # bf16 takes the kernels at every length, with dropout and without
+    half = MultiHeadAttention(512, 2, dropout=0.1, implementation="auto",
+                              dtype=torch.bfloat16).to(cuda)
+    x = torch.randn(1, 2 * n, 512, device=cuda, requires_grad=True)
+    before = dict(flash_attention.launches)
+    half.train()(x, generator=gen)
+    with torch.no_grad():
+        half.eval()(x)
+    assert flash_attention.launches["fwd_lse_wide"] == before["fwd_lse_wide"] + 1
+    assert flash_attention.launches["fwd_wide"] == before["fwd_wide"] + 1
 
 
 # ---------------------------------------------------------------------------
@@ -478,19 +501,19 @@ def test_wide_kernels_read_packed_heads(cuda, t, dtype, offset):
         assert _rel(a, r) <= GRAD_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("tk", [300, 700], ids=["dqkv", "dq+dkv"])
-def test_wide_backward_fully_masked_rows(cuda, tk, rate):
+def test_wide_backward_fully_masked_rows(cuda, tk, rate, dtype):
     """Two batch rows with every key ignored at head dim 256: P = 1 on each
     of their keys, as in the plain version (and the TPU kernels)."""
-    q, k, v, mask = _inputs(4, 2, 130, tk, 256, torch.bfloat16, cuda, seed=3,
-                            masked_rows=(0, 2))
-    g = torch.randn(4, 2, 130, 256, device=cuda).to(torch.bfloat16)
+    q, k, v, mask = _inputs(4, 2, 130, tk, 256, dtype, cuda, seed=3, masked_rows=(0, 2))
+    g = torch.randn(4, 2, 130, 256, device=cuda).to(dtype)
     got, ref = _train_call(q, k, v, mask, rate, 11, g)
-    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= TOL[dtype]
     for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
         assert torch.isfinite(a.float()).all(), name
-        assert _rel(a, r) <= GRAD_TOL[torch.bfloat16], (name, _rel(a, r))
+        assert _rel(a, r) <= GRAD_TOL[dtype], (name, _rel(a, r))
         assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
 
 

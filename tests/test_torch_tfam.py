@@ -125,9 +125,10 @@ def test_training_and_ring_refused():
 @pytest.mark.parametrize("dropping", [False, True], ids=["nodrop", "drop"])
 def test_auto_follows_the_measured_crossover_at_every_head_dim(head_dim, is_cuda, dropping):
     """``auto`` follows the crossovers measured on the card for each head
-    dim: up to 128 the kernels whenever dropout is active, and without it
-    from ``AUTO_FLASH_MIN_T_NODROP`` keys; above 128 (the wide kernels, in
-    float32 slower than eager attention on long keys) the kernels below
+    dim and dtype: up to 128 the kernels whenever dropout is active, and
+    without it from ``AUTO_FLASH_MIN_T_NODROP`` keys; above 128 (the wide
+    kernels) in bf16 the kernels at every length, in float32 (whose dq sweep
+    is slower than eager attention on long keys) the kernels below
     ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys with dropout and below
     ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. On the CPU it runs eager
     attention."""
@@ -138,17 +139,18 @@ def test_auto_follows_the_measured_crossover_at_every_head_dim(head_dim, is_cuda
         _auto_impl,
     )
 
-    if head_dim > 128:
-        cut = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
-    else:
-        cut = AUTO_FLASH_MIN_T_NODROP
-    for tk in (16, cut - 1, cut, 4096):
+    for dtype in (torch.float32, torch.bfloat16):
         if head_dim > 128:
-            kernels = is_cuda and tk < cut
+            cut = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
         else:
-            kernels = is_cuda and (dropping or tk >= cut)
-        want = "flash" if kernels else "xla"
-        assert _auto_impl(is_cuda, dropping, tk, head_dim) == want, tk
+            cut = AUTO_FLASH_MIN_T_NODROP
+        for tk in (16, cut - 1, cut, 4096):
+            if head_dim > 128:
+                kernels = is_cuda and (dtype == torch.bfloat16 or tk < cut)
+            else:
+                kernels = is_cuda and (dropping or tk >= cut)
+            want = "flash" if kernels else "xla"
+            assert _auto_impl(is_cuda, dropping, tk, head_dim, dtype) == want, (dtype, tk)
 
 
 def _wide_tfam(impl: str, heads: int):

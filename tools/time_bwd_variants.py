@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 attention kernels side by side on one CUDA card
-(the PyTorch/CUDA port, ``vimoclip_tpu_torch``).
+"""Time variants of the attention kernels side by side on one CUDA card (the
+PyTorch/CUDA port, ``vimoclip_tpu_torch``).
 
 Each variant is a copy of ``vimoclip_tpu_torch/csrc`` with an edit, placed
 in ``build/variants/<name>/`` (git-ignored). All variants build together
-(one nvcc per source and variant), then take turns, twice, at one shape,
+(one nvcc per source and variant), then take turns, twice, at each shape,
 at p = 0 and p = 0.1, through the port's wrappers with the variant's
 libraries swapped in. Device time per call comes from ``torch.profiler``
 by kernel name (warm, and with the 50 MB L2 flushed before each call), and
 the results are held against the plain versions.
 
-    python3 tools/time_bwd_variants.py NAME[,NAME...] [B,H,TQ,TK,D] [--kernels KIND]
+    python3 tools/time_bwd_variants.py NAME[,NAME...] [B,H,TQ,TK,D[;...]] \
+        [--kernels KIND] [--dtype bfloat16|float32]
+    python3 tools/time_bwd_variants.py --prepare NAME=REV[,NAME=REV...]
 
 KIND picks the kernels timed (and the default shape):
-- ``k3k4``: the backward past 512 keys, K3 (``dq_wgmma``) and K4
-  (``dkv_wgmma``), at (8, 8, 768, 768, 64);
-- ``k2``: the single-pass backward, K2 (``dqkv_wgmma``, and
-  ``dq_reduce`` where a variant adds its dq shares through scratch;
-  ``dkv_kernel`` for the FMA K2 of earlier trees), at (8, 8, 512, 512, 64);
+- ``k3k4``: the backward past 512 keys, K3 and K4, at (8, 8, 768, 768, 64);
+- ``k2``: the single-pass backward, K2 (with ``dq_reduce`` where a variant
+  adds its dq shares through scratch), at (8, 8, 512, 512, 64);
 - ``fwd``: the forward, K1 (no lse, no dropout) and K1' (lse and dropout),
-  ``fwd_wgmma`` (``mma_kernel`` in earlier trees), at (3, 8, 384, 384, 64).
-A variant may be a copy of an earlier tree's ``csrc`` (the same C entry
-points), so that it is timed in the same call as the current one.
-Gradients are compared as the largest difference over the largest value of
-each batch row, outputs as the largest difference. SDPA's call time (forward
-+ backward for the backward kinds, forward for ``fwd``) closes the run.
+  at (3, 8, 384, 384, 64);
+- ``auto``: at each shape the forward, then K2 where the keys fit one
+  512-key tile and K3 + K4 past it (as the wrappers launch them).
+The kernels are told apart by name: in bf16 the wgmma kernels (and the
+FMA or ``mma_kernel`` names of earlier trees), in float32 the three-pass
+TF32 ``fwd_tf32`` and ``dkv_tf32`` and the FMA ``dq_kernel`` (and the FMA
+``fma_kernel``, ``fma_wide_kernel``, ``dkv_kernel`` and ``dkv_wide_kernel``
+of trees before them).
 
-Prints one JSON line per (variant, dropout rate, turn).
+A variant may be a copy of an earlier tree's ``csrc`` (the same C entry
+points), so that it is timed in the same call as the current one:
+``--prepare parent=HEAD`` writes ``git show HEAD:vimoclip_tpu_torch/csrc/...``
+into ``build/variants/parent/`` (run it where the git history is; the card's
+machine gets the copy), and ``--prepare change=`` copies the working tree's
+``csrc``. Gradients are compared as the largest difference over the largest
+value of each batch row, outputs as the largest difference. SDPA's call
+time (forward + backward for the backward kinds, forward for ``fwd``, in
+the run's dtype) closes each shape.
+
+Prints one JSON line per (shape, variant, dropout rate, turn).
 """
 
 from __future__ import annotations
@@ -40,12 +52,47 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 VARIANTS = ROOT / "build" / "variants"
-KINDS = {
-    "k3k4": (("dq_wgmma", "dkv_wgmma"), "8,8,768,768,64"),
-    "k2": (("dqkv_wgmma", "dq_reduce", "dkv_kernel"), "8,8,512,512,64"),
-    "fwd": (("fwd_wgmma", "mma_kernel"), "3,8,384,384,64"),
+# kernel names by kind and dtype (this tree's and earlier trees'), and the
+# default shape
+NAMES = {
+    "bfloat16": {"k3k4": ("dq_wgmma", "dkv_wgmma"),
+                 "k2": ("dqkv_wgmma", "dkv_wide_wgmma", "dq_reduce", "dkv_kernel"),
+                 "fwd": ("fwd_wgmma", "fwd_wide_wgmma", "mma_kernel")},
+    "float32": {"k3k4": ("dq_kernel", "dq_wide_kernel", "dkv_tf32", "dkv_kernel",
+                         "dkv_wide_kernel"),
+                "k2": ("dkv_tf32", "dq_reduce", "dkv_kernel", "dkv_wide_kernel"),
+                "fwd": ("fwd_tf32", "fma_kernel", "fma_wide_kernel")},
 }
+SHAPES = {"k3k4": "8,8,768,768,64", "k2": "8,8,512,512,64", "fwd": "3,8,384,384,64",
+          "auto": "3,8,384,384,64"}
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+CSRC = "vimoclip_tpu_torch/csrc"
+
+
+def prepare(specs: str) -> None:
+    """``NAME=REV``: the csrc of git revision REV into build/variants/NAME
+    (``NAME=`` alone: the working tree's csrc)."""
+    import shutil
+
+    for spec in specs.split(","):
+        name, _, rev = spec.partition("=")
+        out = VARIANTS / name
+        if out.exists():
+            shutil.rmtree(out)
+        out.mkdir(parents=True)
+        if not rev:
+            for f in (ROOT / CSRC).iterdir():
+                if f.suffix in (".cu", ".cuh"):
+                    shutil.copy(f, out / f.name)
+            continue
+        files = subprocess.run(["git", "ls-tree", "--name-only", f"{rev}:{CSRC}"], cwd=ROOT,
+                               capture_output=True, text=True, check=True).stdout.split()
+        for f in files:
+            if f.endswith((".cu", ".cuh")):
+                (out / f).write_bytes(subprocess.run(["git", "show", f"{rev}:{CSRC}/{f}"],
+                                                     cwd=ROOT, capture_output=True,
+                                                     check=True).stdout)
+        print(f"[prepare] {name}: {rev} ({len(files)} files)")
 
 
 def _rel(a, b) -> float:
@@ -96,8 +143,8 @@ def build(names: list[str]) -> dict[str, dict[str, Path]]:
 
 
 def ptxas_report(log: str) -> dict[str, list[int]]:
-    """``-Xptxas -v``'s registers and spill-store bytes of each wgmma kernel
-    instantiation in an nvcc log, by demangled name."""
+    """``-Xptxas -v``'s registers and spill-store bytes of each wgmma or TF32
+    kernel instantiation in an nvcc log, by demangled name."""
     import re
     import shutil
 
@@ -105,7 +152,7 @@ def ptxas_report(log: str) -> dict[str, list[int]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) if "wgmma" in m.group(1) else None
+            name = m.group(1) if ("wgmma" in m.group(1) or "tf32" in m.group(1)) else None
         elif name and "spill stores" in line:
             out[name] = [0, int(re.search(r"(\d+) bytes spill stores", line).group(1))]
         elif name and "Used" in line and name in out:
@@ -118,12 +165,43 @@ def ptxas_report(log: str) -> dict[str, list[int]]:
     return out
 
 
+def _sdpa_ms(torch, F, q, k, v, mask, grad, backward: bool) -> float:
+    """SDPA's call time (CUDA events, warm) on the same inputs: forward, or
+    forward + backward with dropout 0.1."""
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    bias = torch.where(mask, -1e9, 0.0)[:, None, None, :].to(q.dtype)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=bias,
+                                           dropout_p=0.1 if backward else 0.0)
+        if backward:
+            o.backward(grad)
+
+    for _ in range(3):
+        sdpa()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        sdpa()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 10
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("names", help="comma-separated variant directories under build/variants")
-    ap.add_argument("shape", nargs="?", default=None, help="B,H,TQ,TK,D")
-    ap.add_argument("--kernels", choices=sorted(KINDS), default="k3k4")
+    ap.add_argument("names", nargs="?", help="comma-separated variant directories under build/variants")
+    ap.add_argument("shape", nargs="?", default=None, help="B,H,TQ,TK,D[;B,H,TQ,TK,D...]")
+    ap.add_argument("--kernels", choices=sorted(SHAPES), default="k3k4")
+    ap.add_argument("--dtype", choices=sorted(NAMES), default="bfloat16")
+    ap.add_argument("--prepare", help="NAME=REV[,NAME=REV...]: write variants from git and stop")
     args = ap.parse_intermixed_args()
+    if args.prepare:
+        prepare(args.prepare)
+        return 0
+    if not args.names:
+        ap.error("names are needed unless --prepare is given")
 
     import torch
 
@@ -137,68 +215,63 @@ def main() -> int:
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
     from vimoclip_tpu_torch.utils.device import describe_card
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
     smi = describe_card("cuda")
     print(smi)
-    kernels, default_shape = KINDS[args.kernels]
+    dtype = getattr(torch, args.dtype)
     names = args.names.split(",")
     libs = build(names)
-    b, h, tq, tk, d = map(int, (args.shape or default_shape).split(","))
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(b, h, tq, d, device="cuda", generator=g).bfloat16()
-    k = torch.randn(b, h, tk, d, device="cuda", generator=g).bfloat16()
-    v = torch.randn(b, h, tk, d, device="cuda", generator=g).bfloat16()
-    mask = torch.rand(b, tk, device="cuda", generator=g) < 0.25
-    mask[0] = True
-    grad = torch.randn(b, tq, h, d, device="cuda", generator=g).bfloat16().transpose(1, 2)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    for turn in range(2):
-        for n in names:
-            for src in SOURCES:
-                _build._loaded[src] = ctypes.CDLL(str(libs[n][src].resolve()))
-            for rate in (0.0, 0.1):
-                seeds = fa.expand_seed(7, b, h, "cuda") if rate else None
-                row = {"variant": n, "turn": turn, "rate": rate, "shape": [b, h, tq, tk, d]}
-                if args.kernels == "fwd":
-                    # K1 at p = 0 (serving), K1' with lse at the rate
-                    if rate:
-                        call = lambda: fa.forward_lse(q, k, v, mask, seeds, rate)
-                        got = call()[0]
-                    else:
-                        call = lambda: fa.flash_attention(q, k, v, key_padding_mask=mask)
-                        got = call()
-                    ref = fa.flash_attention_reference(q, k, v, mask, rate, seed=seeds)
-                    row["out_max_abs_err"] = (got.float() - ref.float()).abs().max().item()
-                else:
-                    out, lse = fa.forward_lse(q, k, v, mask, seeds, rate)
-                    call = lambda: fa.backward_kernels(q, k, v, mask, seeds, rate, out, lse, grad)
-                    got = call()
-                    ref = fa.flash_attention_backward_reference(q, k, v, mask, out, lse, grad,
-                                                                rate, seed=seeds)
-                    row["grad_rel_err"] = {m: _rel(a, r)
-                                           for m, a, r in zip(("dq", "dk", "dv"), got, ref)}
-                row["warm_ms"] = _device_ms(torch, call, kernels)
-                row["flushed_ms"] = _device_ms(torch, lambda: (flush.zero_(), call()), kernels)
-                print(json.dumps(row) + f" [{smi}]", flush=True)
-    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    bias = torch.where(mask, -1e9, 0.0)[:, None, None, :].bfloat16()
-
-    def sdpa():
-        o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=bias,
-                                           dropout_p=0.0 if args.kernels == "fwd" else 0.1)
-        if args.kernels != "fwd":
-            o.backward(grad)
-
-    for _ in range(3):
-        sdpa()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(10):
-        sdpa()
-    end.record()
-    torch.cuda.synchronize()
-    what = "fwd" if args.kernels == "fwd" else "fwd_bwd"
-    print(json.dumps({f"sdpa_{what}_call_ms": start.elapsed_time(end) / 10}) + f" [{smi}]")
+    for spec in (args.shape or SHAPES[args.kernels]).split(";"):
+        b, h, tq, tk, d = map(int, spec.split(","))
+        kinds = [args.kernels]
+        if args.kernels == "auto":
+            kinds = ["fwd", "k2" if tk <= fa.SINGLE_PASS_MAX_TK else "k3k4"]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(b, h, tq, d, device="cuda", generator=g).to(dtype)
+        k = torch.randn(b, h, tk, d, device="cuda", generator=g).to(dtype)
+        v = torch.randn(b, h, tk, d, device="cuda", generator=g).to(dtype)
+        mask = torch.rand(b, tk, device="cuda", generator=g) < 0.25
+        mask[0] = True
+        grad = torch.randn(b, tq, h, d, device="cuda", generator=g).to(dtype).transpose(1, 2)
+        for kind in kinds:
+            kernels = NAMES[args.dtype][kind]
+            for turn in range(2):
+                for n in names:
+                    for src in SOURCES:
+                        _build._loaded[src] = ctypes.CDLL(str(libs[n][src].resolve()))
+                    for rate in (0.0, 0.1):
+                        seeds = fa.expand_seed(7, b, h, "cuda") if rate else None
+                        row = {"variant": n, "turn": turn, "rate": rate, "kernels": kind,
+                               "dtype": args.dtype, "shape": [b, h, tq, tk, d]}
+                        if kind == "fwd":
+                            # K1 at p = 0 (serving), K1' with lse at the rate
+                            if rate:
+                                call = lambda: fa.forward_lse(q, k, v, mask, seeds, rate)
+                                got = call()[0]
+                            else:
+                                call = lambda: fa.flash_attention(q, k, v, key_padding_mask=mask)
+                                got = call()
+                            ref = fa.flash_attention_reference(q, k, v, mask, rate, seed=seeds)
+                            row["out_max_abs_err"] = (got.float() - ref.float()).abs().max().item()
+                        else:
+                            out, lse = fa.forward_lse(q, k, v, mask, seeds, rate)
+                            call = lambda: fa.backward_kernels(q, k, v, mask, seeds, rate, out,
+                                                               lse, grad)
+                            got = call()
+                            ref = fa.flash_attention_backward_reference(q, k, v, mask, out, lse,
+                                                                        grad, rate, seed=seeds)
+                            row["grad_rel_err"] = {m: _rel(a, r) for m, a, r in
+                                                   zip(("dq", "dk", "dv"), got, ref)}
+                        row["warm_ms"] = _device_ms(torch, call, kernels)
+                        row["flushed_ms"] = _device_ms(torch, lambda: (flush.zero_(), call()),
+                                                       kernels)
+                        print(json.dumps(row) + f" [{smi}]", flush=True)
+            what = "fwd" if kind == "fwd" else "fwd_bwd"
+            print(json.dumps({"shape": [b, h, tq, tk, d], "dtype": args.dtype,
+                              f"sdpa_{what}_call_ms": _sdpa_ms(torch, F, q, k, v, mask, grad,
+                                                               kind != "fwd")})
+                  + f" [{smi}]", flush=True)
     return 0
 
 

@@ -29,16 +29,47 @@
 // anywhere: every sum runs in a fixed order, so two calls give bitwise-equal
 // gradients.
 //
-// float32 (dkv_kernel, dq_kernel, dq_reduce_kernel): every product with
-// float32 FMAs from shared memory (four lanes share a row or key), since
-// tensor cores would round float32 inputs to TF32. K2 is one CTA per (64-key
-// tile, head, batch row) sweeping every 64-row query tile with its keys'
-// dK/dV in registers, writing its share of dQ (the sum over its 64 keys) to
-// float32 scratch (B, H, nk, Tq, D) that a second small kernel adds up in
-// tile order; K4 is the same CTA without the dQ share; K3 is one CTA per
-// 64-row query tile sweeping the key tiles with dQ in registers. The keep
-// bits of each 64x64 tile are drawn into a shared-memory bitmask by the
-// whole CTA from global (row, column) coordinates.
+// float32 K4 and K2 (dkv_tf32_kernel, and dq_reduce_kernel for K2's dq
+// sum), at every head dim: three TF32 passes on the tensor cores per product
+// (tf32.cuh: each operand split into hi = rna_tf32(x) and lo =
+// rna_tf32(x - hi), A.B = A_lo.B_hi + A_hi.B_lo + A_hi.B_hi in float32,
+// about 2^-21 relative error a product). Bound: 3 x the FLOPs at 495
+// TFLOP/s: K2 at (8, 8, 384, 384, 64) 6.04 GFLOP x 3 = 0.0366 ms, K4 at
+// (8, 8, 1024, 1024, 64) 34.4 GFLOP x 3 = 0.208 ms. One CTA per (64-key
+// tile, output slice of up to 128 columns, head, batch row), one producer
+// warp and one consumer warpgroup. Per q tile the producer streams, through
+// a three-slot ring of two-chunk slots (64 rows x 64 float32 columns a
+// chunk, two 32-column 128-byte-swizzled TMA boxes, zeros past Tq, Tk and
+// D), the head dim's (k, q) chunk pairs, then its (v, dO) pairs, then the
+// slice's dO and q chunks, with the rows' lse and delta by tile parity.
+// S^T = K (q * scale)^T and dP^T = V dO^T run on wgmma m64n64k8 (SS), each
+// slot's chunks split in place into hi with their lo beside them (TF32 wgmma
+// reads K-major operands only, and these are); q * scale is rounded to
+// float32 first, the FMA kernel's rounding point. P = exp(S + bias - lse)
+// goes to shared memory (query rows x keys) before dP^T starts, so the two
+// score accumulators never hold registers together; then dS = P (dP -
+// delta) and the dropped P / (1 - rate) replace it there. dV += P^T dO and
+// dK += dS^T q need dO and q as MN-major operands, which TF32 wgmma cannot
+// read, so mma.sync m16n8k8 runs them: A gathered from P and dS in shared
+// memory, B rows gathered from the raw slot, both split in registers (the
+// k-step loop unrolled only for K4 at D <= 64: elsewhere hoisted loads of
+// later k-steps spilled, and one k-step at a time ran faster). K2's dq share of the slice, dS K
+// over the CTA's 64 keys, is an mma.sync too (A the rows of dS, B the
+// slice's k chunks, resident raw), written to float32 scratch (B, H, nk,
+// Tq, D) that dq_reduce_kernel adds up in tile order: no atomics. dK =
+// scale (dS^T q) from unscaled q, as before. K4 and K2 both draw their own
+// keep bits per tile (the float32 K3 writes none) and gather each thread's
+// 32 into one word, as bf16 K2 does. Shared memory: ring 96 KB + lo 32 KB +
+// P and dS 34 KB: 169,272 bytes for K4; K2 adds the slice's k chunks,
+// 185,656 bytes at D <= 64 and 202,040 above; one CTA per SM. ptxas -v
+// (sm_90a; p = 0 / 0.1): K4 212 / 208 registers at D <= 64, 252 / 251
+// above, no spills; K2 223 / 224 at D <= 64, no spills, and 255 above,
+// where dK and dV hold 128 and it spills 184 / 176 bytes.
+// float32 K3 (dq_kernel, dq_wide_kernel): float32 FMAs from shared memory
+// (four lanes share a row), one CTA per 64-row query tile sweeping the key
+// tiles with dQ in registers; the keep bits of each 64x64 tile drawn into a
+// shared-memory bitmask by the whole CTA from global (row, column)
+// coordinates. It is the next kernel to move to the tensor cores.
 //
 // bfloat16: K2 (dqkv_wgmma_kernel), K3 (dq_wgmma_kernel), K4
 // (dkv_wgmma_kernel), on the tensor cores from TMA-fed shared-memory tiles
@@ -114,7 +145,8 @@
 //   refuses them (-5).
 //
 // Head dims above 128 (dq_wide_wgmma_kernel for K3, dkv_wide_wgmma_kernel for
-// K4 and, with its dq share, K2; float32 dq_wide_kernel and dkv_wide_kernel):
+// K4 and, with its dq share, K2; float32 dq_wide_kernel, and dkv_tf32_kernel
+// with its 128-column slices):
 // any head dim, with registers and shared memory flat in D. A grid axis over
 // output slices of 128 columns: each CTA accumulates only its slice of dQ
 // (K3) or of dK and dV (K4, K2; and K2's dq share of the slice), while S and
@@ -132,13 +164,13 @@
 // 252 / 255, 101,672 bytes, one CTA per SM; none spills, because K2 reads
 // its key bias from shared memory where it is used and draws the next
 // tile's keep bits under the dV/dK products (as K2 at D <= 128).
-// float32: K3 128 / 206 registers (117,504 bytes), K4 169 / 204 and K2
-// 171 / 208 (201,472 bytes), no spills.
+// float32 K3: 128 / 206 registers (117,504 bytes), no spills.
 
 #include <type_traits>
 
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -215,12 +247,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long s
 template <int DP>
 constexpr size_t dq_smem_bytes() {
   return sizeof(float) * ((size_t)4 * kB * (DP + 1) + kB * (kB + 4)) +
-         sizeof(uint32_t) * kBitWords;
-}
-
-template <int DP>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * ((size_t)5 * kB * (DP + 1) + 2 * kB * (kB + 4) + 2 * kB) +
          sizeof(uint32_t) * kBitWords;
 }
 
@@ -314,145 +340,6 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
     for (int i = 0; i < DPL; ++i) {
       const int c = lane + kLanes * i;
       if (c < p.D) out[c] = from_f<T>(acc[i] * p.scale);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4 (and K2 with DQ): dk/dv, one CTA per (64-key tile, head, batch row),
-// sweeping query tiles; with DQ also the tile's share of dq into scratch
-// ---------------------------------------------------------------------------
-
-template <typename T, int DP, bool DROP, bool DQ>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const BwdParams p) {
-  constexpr int S = DP + 1;
-  constexpr int PS = kB + 4;
-  constexpr int DPL = DP / kLanes;
-  extern __shared__ float smem[];
-  float* Ks = smem;            // this CTA's keys, unscaled
-  float* Vs = Ks + kB * S;
-  float* Qs = Vs + kB * S;     // round_T(q * scale) of the current q tile
-  float* Qu = Qs + kB * S;     // q, unscaled
-  float* dOs = Qu + kB * S;
-  float* Ps = dOs + kB * S;    // kB keys x PS rows : round_T(dropped P / keep)
-  float* dSs = Ps + kB * PS;   // kB keys x PS rows : round_T(dS)
-  float* lse_s = dSs + kB * PS;
-  float* delta_s = lse_s + kB;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(delta_s + kB);
-
-  const int tid = threadIdx.x;
-  const int key = tid / kLanes, lane = tid % kLanes;
-  const int k0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
-  const uint32_t seed = DROP ? (uint32_t)p.seed[b * p.H + h] : 0u;
-  const size_t bh = (size_t)b * p.H + h;
-
-  stage_rows<T, DP>(Ks, k, p.k_st, k0, p.Tk, p.D, 1.f, false, tid);
-  stage_rows<T, DP>(Vs, v, p.v_st, k0, p.Tk, p.D, 1.f, false, tid);
-
-  float dk[DPL], dv[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) dk[i] = dv[i] = 0.f;
-  const float* krow = Ks + key * S;
-  const float* vrow = Vs + key * S;
-  float* prow = Ps + key * PS;
-  float* dsrow = dSs + key * PS;
-
-  const int n_tiles = (p.Tq + kB - 1) / kB;
-  const int n_kt = gridDim.x;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kB;
-    __syncthreads();  // the previous tile is consumed (and Ks/Vs written)
-    stage_rows<T, DP>(Qs, q, p.q_st, q0, p.Tq, p.D, p.scale, true, tid);
-    stage_rows<T, DP>(Qu, q, p.q_st, q0, p.Tq, p.D, 1.f, false, tid);
-    stage_rows<T, DP>(dOs, dout, p.do_st, q0, p.Tq, p.D, 1.f, false, tid);
-    for (int r = tid; r < kB; r += kThreads) {
-      const bool in = q0 + r < p.Tq;
-      lse_s[r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();  // P = 0 past Tq
-      delta_s[r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
-    }
-    if constexpr (DROP)
-      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
-    __syncthreads();
-
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      const float kc = krow[c], vc = vrow[c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int qq = (lane + kLanes * j) * S + c;
-        s[j] = fmaf(Qs[qq], kc, s[j]);
-        dp[j] = fmaf(dOs[qq], vc, dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int r = lane + kLanes * j;
-      const float pj = expf(mask_score(s[j], k0 + key, p.Tk, mask) - lse_s[r]);
-      float pd = pj, dpj = dp[j];
-      if constexpr (DROP) {
-        const bool kp = kept(bits, r, key);
-        pd = kp ? pj / p.keep : 0.f;
-        dpj = kp ? dpj / p.keep : 0.f;
-      }
-      prow[r] = round_t<T>(pd);
-      dsrow[r] = round_t<T>(pj * (dpj - delta_s[r]));
-    }
-    __syncwarp();  // the key's four lanes see each other's P and dS
-
-    const int n_rows = min(kB, p.Tq - q0);
-    for (int r = 0; r < n_rows; ++r) {
-      const float pd = prow[r], ds = dsrow[r];
-      const float* dor = dOs + r * S + lane;
-      const float* qur = Qu + r * S + lane;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        dv[i] = fmaf(pd, dor[kLanes * i], dv[i]);
-        dk[i] = fmaf(ds, qur[kLanes * i], dk[i]);
-      }
-    }
-
-    if constexpr (DQ) {
-      __syncthreads();  // every key's dS of this tile is in shared memory
-      const int r = tid / kLanes;
-      if (q0 + r < p.Tq) {
-        float acc[DPL];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-        const int n_keys = min(kB, p.Tk - k0);
-        for (int kk = 0; kk < n_keys; ++kk) {
-          const float ds = dSs[kk * PS + r];
-          const float* kr = Ks + kk * S + lane;
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, kr[kLanes * i], acc[i]);
-        }
-        float* out = p.dq_part + ((bh * n_kt + blockIdx.x) * p.Tq + q0 + r) * p.D;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int c = lane + kLanes * i;
-          if (c < p.D) out[c] = acc[i] * p.scale;
-        }
-      }
-    }
-  }
-
-  if (k0 + key < p.Tk) {
-    T* dkr = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh + (long long)(k0 + key) * p.dk_st;
-    T* dvr = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh + (long long)(k0 + key) * p.dv_st;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int c = lane + kLanes * i;
-      if (c < p.D) {
-        dkr[c] = from_f<T>(dk[i] * p.scale);
-        dvr[c] = from_f<T>(dv[i]);
-      }
     }
   }
 }
@@ -1118,12 +1005,6 @@ constexpr size_t dq_wide_smem_bytes() {
          sizeof(uint32_t) * kBitWords;
 }
 
-constexpr size_t dkv_wide_smem_bytes() {
-  return sizeof(float) *
-             ((size_t)4 * kB * (kDC + 1) + 3 * kB * (kSlice + 1) + 2 * kB * (kB + 4) + 2 * kB) +
-         sizeof(uint32_t) * kBitWords;
-}
-
 // K3 (float32): dq over the slice, one CTA per (64-row q tile, slice, head,
 // batch row), sweeping key tiles
 template <bool DROP>
@@ -1218,151 +1099,6 @@ __global__ void __launch_bounds__(kThreads) dq_wide_kernel(const BwdParams p) {
     for (int i = 0; i < DPL; ++i) {
       const int c = lane + kLanes * i;
       if (c0 + c < p.D) out[c] = acc[i] * p.scale;
-    }
-  }
-}
-
-// K4 (float32), and K2 with DQ: dk, dv over the slice, one CTA per (64-key
-// tile, slice, head, batch row), sweeping query tiles; with DQ also the
-// tile's share of dq's slice columns into scratch
-template <bool DROP, bool DQ>
-__global__ void __launch_bounds__(kThreads) dkv_wide_kernel(const BwdParams p) {
-  constexpr int CS = kDC + 1, SS = kSlice + 1, PS = kB + 4;
-  constexpr int DPL = kSlice / kLanes;
-  extern __shared__ float smem[];
-  float* Kc = smem;            // a chunk of k, v, round(q * scale) and dO
-  float* Vc = Kc + kB * CS;
-  float* Qc = Vc + kB * CS;
-  float* dOc = Qc + kB * CS;
-  float* Qs = dOc + kB * CS;   // kB x SS : the slice's columns of q, unscaled
-  float* dOs = Qs + kB * SS;   // and of dO
-  float* Ks = dOs + kB * SS;   // and of k (DQ)
-  float* Ps = Ks + kB * SS;    // kB keys x PS rows : dropped P / keep
-  float* dSs = Ps + kB * PS;   // kB keys x PS rows : dS
-  float* lse_s = dSs + kB * PS;
-  float* delta_s = lse_s + kB;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(delta_s + kB);
-
-  const int tid = threadIdx.x;
-  const int key = tid / kLanes, lane = tid % kLanes;
-  const int n_sl = n_slices(p.D);
-  const int kt = blockIdx.x / n_sl, n_kt = gridDim.x / n_sl;
-  const int k0 = kt * kB, c0 = (blockIdx.x % n_sl) * kSlice;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
-  const uint32_t seed = DROP ? (uint32_t)p.seed[b * p.H + h] : 0u;
-  const size_t bh = (size_t)b * p.H + h;
-
-  if constexpr (DQ) stage_cols<kSlice>(Ks, k, p.k_st, k0, p.Tk, c0, p.D, 1.f, tid);
-
-  float dk[DPL], dv[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) dk[i] = dv[i] = 0.f;
-  const float* krow = Kc + key * CS;
-  const float* vrow = Vc + key * CS;
-  float* prow = Ps + key * PS;
-  float* dsrow = dSs + key * PS;
-
-  const int n_tiles = (p.Tq + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kB;
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
-    for (int d0 = 0; d0 < p.D; d0 += kDC) {
-      __syncthreads();  // the previous chunk (and tile) is consumed
-      stage_cols<kDC>(Kc, k, p.k_st, k0, p.Tk, d0, p.D, 1.f, tid);
-      stage_cols<kDC>(Vc, v, p.v_st, k0, p.Tk, d0, p.D, 1.f, tid);
-      stage_cols<kDC>(Qc, q, p.q_st, q0, p.Tq, d0, p.D, p.scale, tid);
-      stage_cols<kDC>(dOc, dout, p.do_st, q0, p.Tq, d0, p.D, 1.f, tid);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < kDC; ++c) {
-        const float kc = krow[c], vc = vrow[c];
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int qq = (lane + kLanes * j) * CS + c;
-          s[j] = fmaf(Qc[qq], kc, s[j]);
-          dp[j] = fmaf(dOc[qq], vc, dp[j]);
-        }
-      }
-    }
-    stage_cols<kSlice>(Qs, q, p.q_st, q0, p.Tq, c0, p.D, 1.f, tid);
-    stage_cols<kSlice>(dOs, dout, p.do_st, q0, p.Tq, c0, p.D, 1.f, tid);
-    for (int r = tid; r < kB; r += kThreads) {
-      const bool in = q0 + r < p.Tq;
-      lse_s[r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();  // P = 0 past Tq
-      delta_s[r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
-    }
-    if constexpr (DROP)
-      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int r = lane + kLanes * j;
-      const float pj = expf(mask_score(s[j], k0 + key, p.Tk, mask) - lse_s[r]);
-      float pd = pj, dpj = dp[j];
-      if constexpr (DROP) {
-        const bool kp = kept(bits, r, key);
-        pd = kp ? pj / p.keep : 0.f;
-        dpj = kp ? dpj / p.keep : 0.f;
-      }
-      prow[r] = pd;
-      dsrow[r] = pj * (dpj - delta_s[r]);
-    }
-    __syncwarp();  // the key's four lanes see each other's P and dS
-
-    const int n_rows = min(kB, p.Tq - q0);
-    for (int r = 0; r < n_rows; ++r) {
-      const float pd = prow[r], ds = dsrow[r];
-      const float* dor = dOs + r * SS + lane;
-      const float* qur = Qs + r * SS + lane;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        dv[i] = fmaf(pd, dor[kLanes * i], dv[i]);
-        dk[i] = fmaf(ds, qur[kLanes * i], dk[i]);
-      }
-    }
-
-    if constexpr (DQ) {
-      __syncthreads();  // every key's dS of this tile is in shared memory
-      const int r = tid / kLanes;
-      if (q0 + r < p.Tq) {
-        float acc[DPL];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-        const int n_keys = min(kB, p.Tk - k0);
-        for (int kk = 0; kk < n_keys; ++kk) {
-          const float ds = dSs[kk * PS + r];
-          const float* kr = Ks + kk * SS + lane;
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, kr[kLanes * i], acc[i]);
-        }
-        float* out = p.dq_part + ((bh * n_kt + kt) * p.Tq + q0 + r) * p.D + c0;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int c = lane + kLanes * i;
-          if (c0 + c < p.D) out[c] = acc[i] * p.scale;
-        }
-      }
-    }
-  }
-
-  if (k0 + key < p.Tk) {
-    float* dkr = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + (long long)(k0 + key) * p.dk_st + c0;
-    float* dvr = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + (long long)(k0 + key) * p.dv_st + c0;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int c = lane + kLanes * i;
-      if (c0 + c < p.D) {
-        dkr[c] = dk[i] * p.scale;
-        dvr[c] = dv[i];
-      }
     }
   }
 }
@@ -1818,6 +1554,307 @@ __global__ void __launch_bounds__(kHopThreads, 1) dkv_wide_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K4 and K2 in float32: three-pass TF32 on the tensor cores (tf32.cuh), one
+// CTA per (64-key tile, output slice of up to 128 columns, head, batch row),
+// sweeping query tiles; with DQ (K2) also each q tile's dq share of the slice
+// into scratch
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Slots = 3;          // ring of two-chunk slots
+constexpr int kDsStride = kTile + 4;  // K2's dS rows in shared memory, padded
+
+// SC: chunks of the output slice (1 at D <= 64, else 2)
+template <int SC, bool DQ>
+constexpr size_t dkv_tf32_smem_bytes() {
+  return 1024 +
+         sizeof(float) * ((size_t)(2 * kF32Slots + 2 + (DQ ? SC : 0)) * kFChunk +
+                          2 * kTile * kDsStride + 2 * 2 * kTile + kTile) +
+         sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * (2 * kF32Slots + 1);
+}
+
+// acc {+}= one ring slot's (A chunk, B chunk) product, three TF32 passes:
+// both chunks split in the slot (B times `mul_b`), the products waited for,
+// the slot released; `n` counts the slots consumed
+__device__ __forceinline__ void score_chunk(float (&acc)[32], float* ring, float* lo,
+                                            uint64_t* full, uint64_t* empty, int& n,
+                                            float mul_b, bool zero, int tid) {
+  const int s = n % kF32Slots;
+  float* slot = ring + s * 2 * kFChunk;
+  mbar_wait(&full[s], (n / kF32Slots) & 1);
+  ++n;
+  split_pair(slot, lo, mul_b, tid);
+  wg_fence();
+  wgmma_tf32x3(acc, slot, lo, slot + kFChunk, lo + kFChunk, zero);
+  wg_commit();
+  wg_wait_all();
+  fence_regs(acc);
+  consumer_sync();  // every warp's products are done with lo
+  mbar_arrive(&empty[s]);
+}
+
+template <int SC, bool DROP, bool DQ>
+__global__ void __launch_bounds__(kHopThreads, 1) dkv_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(align1024(smem_raw));  // kF32Slots x 2 chunks
+  float* lo = ring + kF32Slots * 2 * kFChunk;    // lo of the score slot's two chunks
+  float* Ksl = lo + 2 * kFChunk;                 // DQ: the slice's k chunks, raw
+  float* P_s = Ksl + (DQ ? SC : 0) * kFChunk;    // dropped P / (1 - rate), query rows x keys
+  float* dS_s = P_s + kTile * kDsStride;         // dS, query rows x keys
+  float* lse_buf = dS_s + kTile * kDsStride;     // 2 x 64, by tile parity
+  float* delta_buf = lse_buf + 2 * kTile;                 // 2 x 64
+  float* kbias_s = delta_buf + 2 * kTile;                 // the keys' bias
+  uint32_t* bits = reinterpret_cast<uint32_t*>(kbias_s + kTile);  // 2 x 128 words
+  uint64_t* full = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
+  uint64_t* empty = full + kF32Slots;
+  uint64_t* kbar = empty + kF32Slots;
+
+  const int tid = threadIdx.x;
+  const int n_ch = (p.D + 63) / 64;
+  const int n_sl = n_slices(p.D);
+  const int sl = blockIdx.x % n_sl;
+  const int kt = blockIdx.x / n_sl, n_kt = (p.Tk + kTile - 1) / kTile;
+  const int k0 = kt * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = sl * kSlice;
+  const int sl_ch = min(SC, n_ch - 2 * sl);
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kF32Slots; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Per q tile the producer fills n_ch slots with (k chunk c, q chunk c),
+  // n_ch with (v chunk c, dO chunk c), then one with dO's and one with q's
+  // chunks of the slice: at least four slots, more than the ring holds, so it
+  // writes tile t + 2's lse and delta only after the consumers released a
+  // slot of tile t + 1, when they are done with tile t's.
+  if (tid >= kConsumers) {
+    const int lane = tid - kConsumers;
+    if (DQ && lane == 0) {
+      mbar_arrive_tx(kbar, sl_ch * kFChunkBytes);
+      for (int i = 0; i < sl_ch; ++i) tma_chunk(Ksl + i * kFChunk, &tm_k, kbar, c0 + 64 * i, k0, h, b);
+    }
+    int n = 0;  // slots filled so far
+    for (int t = 0; t < n_tiles; ++t) {
+      const int q0 = t * kTile;
+      for (int f = 0; f < 2 * n_ch + 2; ++f, ++n) {
+        const int s = n % kF32Slots;
+        if (n >= kF32Slots) mbar_wait(&empty[s], ((n / kF32Slots) - 1) & 1);
+        if (lane == 0) {
+          float* slot = ring + s * 2 * kFChunk;
+          if (f < 2 * n_ch) {
+            const bool dp = f >= n_ch;  // the dP^T operands
+            const int c = dp ? f - n_ch : f;
+            mbar_expect_tx(&full[s], 2 * kFChunkBytes);
+            tma_chunk(slot, dp ? &tm_v : &tm_k, &full[s], 64 * c, k0, h, b);
+            tma_chunk(slot + kFChunk, dp ? &tm_do : &tm_q, &full[s], 64 * c, q0, h, b);
+          } else {
+            const CUtensorMap* map = f == 2 * n_ch ? &tm_do : &tm_q;
+            mbar_expect_tx(&full[s], sl_ch * kFChunkBytes);
+            for (int i = 0; i < sl_ch; ++i)
+              tma_chunk(slot + i * kFChunk, map, &full[s], c0 + 64 * i, q0, h, b);
+          }
+        }
+        if (f == 0) {
+          for (int r = lane; r < kTile; r += 32) {
+            const bool in = q0 + r < p.Tq;
+            lse_buf[(t & 1) * kTile + r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();  // P = 0
+            delta_buf[(t & 1) * kTile + r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
+          }
+        }
+        mbar_arrive(&full[s]);  // each lane after its own writes
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: keys kl_lo and kl_lo + 8 of the tile per thread
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kl_lo = warp * 16 + g;
+  const BOffsets bo = b_offsets(lane);
+  {
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    if (tid < kTile) {
+      const int key = k0 + tid;
+      kbias_s[tid] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+    }
+    consumer_sync();
+  }
+  if constexpr (DQ) mbar_wait(kbar, 0);
+  const uint32_t seed = DROP ? (uint32_t)p.seed[bh] : 0u;
+  const float inv_keep = 1.f / p.keep;
+
+  float dk[SC][32], dv[SC][32];  // the slice's columns, 64 per chunk
+#pragma unroll
+  for (int i = 0; i < SC; ++i) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[i][e] = dv[i][e] = 0.f;
+  }
+
+  int n = 0;  // slots consumed so far
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = t * kTile;
+    // the keep bits of this tile, ordered against their readers by the
+    // first slot's barrier, and gathered into one word per thread after it
+    uint32_t* tb = bits + (t & 1) * 2 * kTile;
+    if constexpr (DROP)
+      fill_keep_bits<2>(tb, kTile, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kConsumers);
+
+    // S^T = K (q * scale)^T over the head dim's chunks, three TF32 passes
+    // (SS), every chunk split in its slot; then P^T = exp(S^T + bias - lse)
+    // goes to shared memory (as P: query rows x keys), so that S^T's and
+    // dP^T's accumulators never hold registers at once
+    const float* lse_t = lse_buf + (t & 1) * kTile;
+    const float* delta_t = delta_buf + (t & 1) * kTile;
+    {
+      float sacc[32];  // keys x query rows
+      for (int c = 0; c < n_ch; ++c)
+        score_chunk(sacc, ring, lo, full, empty, n, p.scale, c == 0, tid);
+      const float kb0 = kbias_s[kl_lo], kb1 = kbias_s[kl_lo + 8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // query rows 8j + 2 t4 and the next
+        const float2 lse2 = reinterpret_cast<const float2*>(lse_t)[4 * j + t4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          P_s[(8 * j + 2 * t4 + (e & 1)) * kDsStride + kl_lo + 8 * r] =
+              exp_approx(sacc[4 * j + e] + (r ? kb1 : kb0) - ((e & 1) ? lse2.y : lse2.x));
+        }
+      }
+    }
+    uint32_t keep_word = 0u;
+    if constexpr (DROP) keep_word = gather_keep(tb, kl_lo, t4);
+
+    // dP^T = V dO^T likewise; then dS = P (dP - delta) and P dropped (times
+    // 1 / (1 - rate)) in shared memory, where the updates below gather
+    // their A fragments (each thread rewrites only the elements it wrote)
+    {
+      float dpacc[32];
+      for (int c = 0; c < n_ch; ++c)
+        score_chunk(dpacc, ring, lo, full, empty, n, 1.f, c == 0, tid);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 delta2 = reinterpret_cast<const float2*>(delta_t)[4 * j + t4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int at = (8 * j + 2 * t4 + (e & 1)) * kDsStride + kl_lo + 8 * r;
+          const float pj = P_s[at];
+          float pd = pj, dpj = dpacc[4 * j + e];
+          if constexpr (DROP) {  // 1 / (1 - rate) where kept, else 0
+            const float m =
+                __uint2float_rn((keep_word >> (2 * (2 * j + (e & 1)) + r)) & 1u) * inv_keep;
+            pd *= m;
+            dpj *= m;
+          }
+          P_s[at] = pd;
+          dS_s[at] = pj * (dpj - ((e & 1) ? delta2.y : delta2.x));
+        }
+      }
+    }
+    consumer_sync();  // ordered for K2's dq share, which reads other warps' dS
+
+    // dV += P^T dO, then dK += dS^T q, over the slice's chunks: mma.sync,
+    // the A fragments (keys kl_lo, kl_lo + 8) from P and dS in shared
+    // memory, dO and q rows gathered from the raw slot
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int s = n % kF32Slots;
+      const float* slot = ring + s * 2 * kFChunk;
+      const float* a_src = (u == 0 ? P_s : dS_s) + 2 * t4 * kDsStride + kl_lo;
+      mbar_wait(&full[s], (n / kF32Slots) & 1);
+      ++n;
+      // unrolled only for K4 at D <= 64: elsewhere the loads of later
+      // k-steps, hoisted, spill beside dK and dV's 128 registers (SC = 2)
+      // or K2's dq share, and one k-step at a time ran faster
+#pragma unroll(SC == 1 && !DQ ? 8 : 1)
+      for (int c = 0; c < 8; ++c) {
+        uint32_t ah[4], al[4];
+        const float* a = a_src + 8 * c * kDsStride;
+        split_tf32(a[0], ah[0], al[0]);
+        split_tf32(a[8], ah[1], al[1]);
+        split_tf32(a[kDsStride], ah[2], al[2]);
+        split_tf32(a[kDsStride + 8], ah[3], al[3]);
+#pragma unroll
+        for (int i = 0; i < SC; ++i) {
+          if (i < sl_ch) {
+            const int n_nt = live_ntiles(p.D, c0 + 64 * i);
+            if (u == 0) {
+              mma_tf32x3_step(dv[i], ah, al, slot + i * kFChunk, c, n_nt, bo);
+            } else {
+              mma_tf32x3_step(dk[i], ah, al, slot + i * kFChunk, c, n_nt, bo);
+            }
+          }
+        }
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    if constexpr (DQ) {
+      // this tile's share of dq's slice: dS K over the CTA's 64 keys, query
+      // rows 16 warp + g (+ 8) of dS read from shared memory as mma's A,
+      // K's slice rows gathered from its resident chunks, into the scratch
+      // (B, H, nk, Tq, D) that dq_reduce_kernel adds up in tile order
+      float* part = p.dq_part + (bh * n_kt + kt) * p.Tq * p.D;
+      const float* ds_lo_row = dS_s + (warp * 16 + g) * kDsStride + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < SC; ++i) {
+        if (i >= sl_ch) continue;
+        float dq[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+        const int n_nt = live_ntiles(p.D, c0 + 64 * i);
+#pragma unroll 1
+        for (int c = 0; c < 8; ++c) {
+          const float2 x = *reinterpret_cast<const float2*>(ds_lo_row + 8 * c);
+          const float2 y = *reinterpret_cast<const float2*>(ds_lo_row + 8 * kDsStride + 8 * c);
+          uint32_t ah[4], al[4];
+          split_tf32(x.x, ah[0], al[0]);
+          split_tf32(y.x, ah[1], al[1]);
+          split_tf32(x.y, ah[2], al[2]);
+          split_tf32(y.y, ah[3], al[3]);
+          mma_tf32x3_step(dq, ah, al, Ksl + i * kFChunk, c, n_nt, bo);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = q0 + warp * 16 + g + 8 * r, col = c0 + 64 * i + 8 * j + 2 * t4;
+            if (row >= p.Tq || col >= p.D) continue;
+            float* out = part + (long long)row * p.D + col;
+            const float x = dq[4 * j + 2 * r] * p.scale, y = dq[4 * j + 2 * r + 1] * p.scale;
+            if (p.D % 2 == 0) {
+              *reinterpret_cast<float2*>(out) = make_float2(x, y);
+            } else {
+              out[0] = x;
+              if (col + 1 < p.D) out[1] = y;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+  for (int i = 0; i < SC; ++i) {
+    store_rows_f32(dkp, p.dk_st, k0, p.Tk, c0 + 64 * i, p.D, dk[i], p.scale, tid);
+    store_rows_f32(dvp, p.dv_st, k0, p.Tk, c0 + 64 * i, p.D, dv[i], 1.f, tid);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1830,52 +1867,16 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const BwdParams& p, cudaStream
   return (int)cudaGetLastError();
 }
 
-// float32: K2 (dkv_kernel with its dq share, then dq_reduce_kernel), K3, K4
-template <int DP, bool DROP>
-int run_f32(const BwdParams& p, int which, cudaStream_t s) {
-  const int n_qt = (p.Tq + kB - 1) / kB, n_kt = (p.Tk + kB - 1) / kB;
-  if (which == 1)
-    return launch(dq_kernel<float, DP, DROP>, dq_smem_bytes<DP>(), dim3(n_qt, p.H, p.B), p, s);
-  if (which == 2)
-    return launch(dkv_kernel<float, DP, DROP, false>, dkv_smem_bytes<DP>(),
-                  dim3(n_kt, p.H, p.B), p, s);
-  if (which != 0) return -3;
-  const int rc = launch(dkv_kernel<float, DP, DROP, true>, dkv_smem_bytes<DP>(),
-                        dim3(n_kt, p.H, p.B), p, s);
-  if (rc != 0) return rc;
-  const long long n = (long long)p.B * p.H * p.Tq * p.D;
-  dq_reduce_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
-  return (int)cudaGetLastError();
-}
-
-template <int DP>
-int run_f32_drop(const BwdParams& p, int which, cudaStream_t s) {
-  if (p.seed != nullptr) return run_f32<DP, true>(p, which, s);
-  return run_f32<DP, false>(p, which, s);
-}
-
-// float32 above 128: the same three launches on the wide kernels
+// float32 K3: the FMA dq kernels
 template <bool DROP>
-int run_f32_wide(const BwdParams& p, int which, cudaStream_t s) {
-  const int n_sl = n_slices(p.D);
-  const int n_qt = (p.Tq + kB - 1) / kB, n_kt = (p.Tk + kB - 1) / kB;
-  if (which == 1)
-    return launch(dq_wide_kernel<DROP>, dq_wide_smem_bytes(), dim3(n_qt * n_sl, p.H, p.B), p, s);
-  const dim3 grid(n_kt * n_sl, p.H, p.B);
-  if (which == 2) return launch(dkv_wide_kernel<DROP, false>, dkv_wide_smem_bytes(), grid, p, s);
-  if (which != 0) return -3;
-  const int rc = launch(dkv_wide_kernel<DROP, true>, dkv_wide_smem_bytes(), grid, p, s);
-  if (rc != 0) return rc;
-  const long long n = (long long)p.B * p.H * p.Tq * p.D;
-  dq_reduce_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
-  return (int)cudaGetLastError();
-}
-
-int run_float(const BwdParams& p, int which, cudaStream_t s) {
-  if (p.D <= 32) return run_f32_drop<32>(p, which, s);
-  if (p.D <= 64) return run_f32_drop<64>(p, which, s);
-  if (p.D <= kSlice) return run_f32_drop<128>(p, which, s);
-  return p.seed != nullptr ? run_f32_wide<true>(p, which, s) : run_f32_wide<false>(p, which, s);
+int run_dq_f32(const BwdParams& p, cudaStream_t s) {
+  const int n_qt = (p.Tq + kB - 1) / kB;
+  if (p.D <= 32) return launch(dq_kernel<float, 32, DROP>, dq_smem_bytes<32>(), dim3(n_qt, p.H, p.B), p, s);
+  if (p.D <= 64) return launch(dq_kernel<float, 64, DROP>, dq_smem_bytes<64>(), dim3(n_qt, p.H, p.B), p, s);
+  if (p.D <= kSlice)
+    return launch(dq_kernel<float, 128, DROP>, dq_smem_bytes<128>(), dim3(n_qt, p.H, p.B), p, s);
+  return launch(dq_wide_kernel<DROP>, dq_wide_smem_bytes(), dim3(n_qt * n_slices(p.D), p.H, p.B),
+                p, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1957,6 +1958,45 @@ int run_hop_wide(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
   const long long n = (long long)p.B * p.H * p.Tq * p.D;
   dq_reduce_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
   return (int)cudaGetLastError();
+}
+
+// float32 K4 (which 2) or K2 (which 0, then dq_reduce_kernel over its dq
+// shares) on the TF32 kernel
+template <int SC, bool DROP>
+int run_dkv_tf32(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
+  const int n_kt = (p.Tk + kTile - 1) / kTile;
+  const dim3 grid(n_kt * n_slices(p.D), p.H, p.B);
+  if (which == 2)
+    return launch_hop(dkv_tf32_kernel<SC, DROP, false>, dkv_tf32_smem_bytes<SC, false>(), grid,
+                      m, p, s);
+  if (p.dq_part == nullptr) return -7;
+  const int rc = launch_hop(dkv_tf32_kernel<SC, DROP, true>, dkv_tf32_smem_bytes<SC, true>(),
+                            grid, m, p, s);
+  if (rc != 0) return rc;
+  const long long n = (long long)p.B * p.H * p.Tq * p.D;
+  dq_reduce_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
+  return (int)cudaGetLastError();
+}
+
+// float32: K3 on the FMA kernels; K2 and K4 on operands TMA can address in
+// place (-5 otherwise)
+int run_float(const BwdParams& p, int which, cudaStream_t s) {
+  if (which < 0 || which > 2) return -3;
+  if (which == 1) return p.seed != nullptr ? run_dq_f32<true>(p, s) : run_dq_f32<false>(p, s);
+  if (!tma_legal(p.q, p.q_sb, p.q_sh, p.q_st, 4) || !tma_legal(p.k, p.k_sb, p.k_sh, p.k_st, 4) ||
+      !tma_legal(p.v, p.v_sb, p.v_sh, p.v_st, 4) ||
+      !tma_legal(p.dout, p.do_sb, p.do_sh, p.do_st, 4))
+    return -5;
+  Maps m;
+  int rc = encode_map(&m.q, p.q, p.B, p.H, p.Tq, p.D, p.q_sb, p.q_sh, p.q_st, true);
+  if (rc == 0) rc = encode_map(&m.k, p.k, p.B, p.H, p.Tk, p.D, p.k_sb, p.k_sh, p.k_st, true);
+  if (rc == 0) rc = encode_map(&m.v, p.v, p.B, p.H, p.Tk, p.D, p.v_sb, p.v_sh, p.v_st, true);
+  if (rc == 0)
+    rc = encode_map(&m.dout, p.dout, p.B, p.H, p.Tq, p.D, p.do_sb, p.do_sh, p.do_st, true);
+  if (rc != 0) return rc;
+  const bool drop = p.seed != nullptr;
+  if (p.D <= 64) return drop ? run_dkv_tf32<1, true>(m, p, which, s) : run_dkv_tf32<1, false>(m, p, which, s);
+  return drop ? run_dkv_tf32<2, true>(m, p, which, s) : run_dkv_tf32<2, false>(m, p, which, s);
 }
 
 // bf16: K2 (which 0), K3 (which 1) or K4 (which 2); with dropout K3 writes

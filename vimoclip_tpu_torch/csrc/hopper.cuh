@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarriers, TMA loads,
 // 128-byte-swizzle shared-memory descriptors, wgmma wrappers, the register
-// A operand, the elementwise helpers and the host-side tensor maps.
+// A operand, the elementwise helpers and the host-side tensor maps (bf16 or
+// float32; the float32 kernels' TF32 blocks are in tf32.cuh).
 //
 // Tiles are 64 rows x 64 bf16 columns (128 bytes a row, 8 KB) in the layout
 // TMA's 128-byte swizzle writes (16-byte chunk c of row r stored at chunk
@@ -328,30 +329,34 @@ inline EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// TMA can address a (B, H, T, D) bf16 operand in place: 16-byte aligned
-// start, every stride a positive multiple of 16 bytes (8 elements)
-inline bool tma_legal(const void* ptr, long long sb, long long sh, long long st) {
+// TMA can address a (B, H, T, D) operand of `elem`-byte elements in place:
+// 16-byte aligned start, every stride a positive multiple of 16 bytes
+inline bool tma_legal(const void* ptr, long long sb, long long sh, long long st, int elem = 2) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
   const long long strides[] = {sb, sh, st};
   for (long long s : strides)
-    if (s <= 0 || s % 8) return false;
+    if (s <= 0 || s * elem % 16) return false;
   return true;
 }
 
-// dims (D, T, H, B) of a bf16 operand through its strides, 64 x 64 boxes,
+// dims (D, T, H, B) of a bf16 (or, with `f32`, float32) operand through its
+// strides, boxes of 128 bytes (64 bf16 or 32 float32 columns) x 64 rows,
 // 128-byte swizzle, zeros out of bounds; 0, or -4 when the driver refuses
 inline int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int t, int D,
-                      long long sb, long long sh, long long st) {
+                      long long sb, long long sh, long long st, bool f32 = false) {
   EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return -4;
+  const cuuint64_t elem_bytes = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)t, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)kTile, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * elem_bytes, (cuuint64_t)sh * elem_bytes,
+                                 (cuuint64_t)sb * elem_bytes};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, (cuuint32_t)kTile, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult rc = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : -4;
 }
 

@@ -68,34 +68,43 @@ IMPLEMENTATIONS = ("xla", "flash", "auto", "ring", "ring_inner")
 # 8.94 ms eager against 6.79 ms on the kernels at 128 frames, and
 # 18.62 against 5.18 ms at 2048 (same card and limit; the run PERF.md
 # quotes). Shorter keys were not measured; the TFAM pipelines pad to
-# multiples of 128.
+# multiples of 128. Those steps ran bf16; in float32 (phase 17, 8 heads, the
+# three-pass TF32 kernels) the kernels won every bucket from 128 to 2048
+# frames as well (train 22.8 against 49.1 ms at 128, 163.9 against 881.9 at
+# 2048; eval 3.05 against 3.96 at 128).
 AUTO_FLASH_MIN_T_NODROP = 128
-# Above head dim 128 (the wide kernels) the crossovers fall the other way in
-# float32, the stage-2 trainer's default. chip_smoke.py phase 17 timed
-# TFAM's steps (d512, 4 layers, batch 8) at 2 heads (head dim 256) and 1
-# (512) on an NVIDIA H100 80GB HBM3 (700 W), in three runs: with dropout 0.1
-# the kernels' train step won up to the 512-frame bucket (38.1 against 57.4
-# ms eager at 2 heads) and lost from 1024 (129.9 against 104.9; 743 against
-# 188 at 1 head and 2048), where the float32 FMA kernels' products cost more
-# than eager attention's cuBLAS ones; without dropout the kernels' eval step
-# won below 512 frames at 2 heads (3.93 against 5.14 ms at 128; at 1 head
-# the two were within about a millisecond either way) and lost from 512
-# (8.31 against 5.30). In bf16 the kernels won nearly every bucket, but
-# ``_auto_impl`` sees no dtype, and the trainer's default is float32.
+# Above head dim 128 (the wide kernels) the crossovers depend on the dtype.
+# chip_smoke.py phase 17 timed TFAM's steps (d512, 4 layers, batch 8) at 2
+# heads (head dim 256) and 1 (512) on an NVIDIA H100 80GB HBM3 (700 W). In
+# bf16 the kernels won every bucket from 128 to 2048 frames, with dropout
+# and without, but the 1-head eval step at 2048 (9.22 against 8.60 ms
+# eager). In float32, the stage-2 trainer's default, on the three-pass TF32
+# kernels: with dropout 0.1 the kernels' train step won up to the 512-frame
+# bucket at both head counts (28.4 against 56.4 ms eager at 2 heads) and
+# lost from 1024 at 1 head (134.4 against 72.7), where the float32 dq sweep
+# (K3, still on the FMA units) runs; at 2 heads they stayed within 5% of
+# eager from 1024 on; without dropout the eval step won up to 512 frames
+# (5.11 against 5.45 ms at 2 heads) and lost from 1024 (11.89 against
+# 11.65).
 AUTO_WIDE_FLASH_MAX_T_DROP = 1024
-AUTO_WIDE_FLASH_MAX_T_NODROP = 512
+AUTO_WIDE_FLASH_MAX_T_NODROP = 1024
 
 
-def _auto_impl(is_cuda: bool, dropping: bool, tk: int, head_dim: int) -> str:
+def _auto_impl(is_cuda: bool, dropping: bool, tk: int, head_dim: int,
+               dtype: torch.dtype) -> str:
     """``auto``'s route on CUDA tensors, by the crossovers measured for
-    each head dim: up to ``WIDE_ABOVE_HEAD_DIM`` the kernels ("flash") when
-    dropout is active or the keys reach ``AUTO_FLASH_MIN_T_NODROP``; above
-    it the kernels while the keys stay below ``AUTO_WIDE_FLASH_MAX_T_DROP``
-    with dropout, ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. Eager attention
-    ("xla") otherwise, and on the CPU."""
+    each head dim and dtype: up to ``WIDE_ABOVE_HEAD_DIM`` the kernels
+    ("flash") when dropout is active or the keys reach
+    ``AUTO_FLASH_MIN_T_NODROP``; above it in bf16 the kernels, and in
+    float32 the kernels while the keys stay below
+    ``AUTO_WIDE_FLASH_MAX_T_DROP`` with dropout,
+    ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. Eager attention ("xla")
+    otherwise, and on the CPU."""
     if not is_cuda:
         return "xla"
     if head_dim > WIDE_ABOVE_HEAD_DIM:
+        if dtype == torch.bfloat16:
+            return "flash"
         max_t = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
         return "flash" if tk < max_t else "xla"
     return "flash" if dropping or tk >= AUTO_FLASH_MIN_T_NODROP else "xla"
@@ -242,7 +251,7 @@ class MultiHeadAttention(nn.Module):
             seed = draw(sample, (q.shape[0], heads), shard, split_last=True).to(q.device)
         impl = self.implementation
         if impl == "auto":
-            impl = _auto_impl(q.is_cuda, dropping, k.shape[2], q.shape[-1])
+            impl = _auto_impl(q.is_cuda, dropping, k.shape[2], q.shape[-1], q.dtype)
         if impl in ("ring", "ring_inner"):
             ring = None if shard is None else shard.seq_ring
             if ring is None:

@@ -20,10 +20,13 @@ count under the kind's ``_wide`` name.
 In bf16 every kernel runs on the tensor cores (wgmma) from tiles that TMA
 copies into shared memory; with dropout K3 also writes the keep bits of each
 64x64 tile to a uint32 buffer that K4 reads instead of drawing them again
-(K1' and K2 draw their own). TMA needs a 16-byte aligned start and strides
+(K1' and K2 draw their own). In float32 K1, K1', K2 and K4 run on the
+tensor cores too, each product as three TF32 passes (hi.hi + hi.lo + lo.hi
+of operands split in two, ``csrc/tf32.cuh``), from tiles TMA copies; K3
+does its products with FMAs. TMA needs a 16-byte aligned start and strides
 of 16-byte multiples: ``_launch_fwd`` and ``backward_kernels`` hand the
-kernels a padded copy of any bf16 operand that lacks them (``tma_legal``,
-``tma_operand``). In float32 every kernel does its products with FMAs.
+kernels a padded copy of any operand that lacks them (``tma_legal``,
+``tma_operand``).
 
 The sources' headers say what bounds each kernel on the H100 and what the
 design does about it.
@@ -354,7 +357,7 @@ def _heads_major(b, t, h, d, dtype, device) -> torch.Tensor:
 # the entry points' own return codes (the csrc headers list them)
 _RC_REASONS = {
     -1: "unknown dtype", -3: "unknown backward kernel",
-    -4: "the driver refused a tensor map", -5: "a bf16 operand TMA cannot address",
+    -4: "the driver refused a tensor map", -5: "an operand TMA cannot address",
     -6: "dropout without the keep-bit buffer", -7: "K2 without its dq scratch",
     -8: "a negative offset or a col0 that is no multiple of 4",
 }
@@ -375,8 +378,7 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse, row0=0,
     b, h, tq, d = q.shape
     tk = k.shape[2]
     q, k, v = _rows(q), _rows(k), _rows(v)
-    if q.dtype == torch.bfloat16:  # the wgmma kernel reads them with TMA
-        q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
+    q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)  # the kernels read them with TMA
     mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
     out = _heads_major(b, tq, h, d, q.dtype, q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -464,7 +466,7 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
                      grad_out, row0=0, col0=0, delta=None):
     """The backward kernels on CUDA tensors: K2 when the keys fit one
     512-key tile, else K3 + K4 (with dropout in bf16 through the keep-bit
-    buffer K3 fills for K4); bf16 operands are first made readable by TMA.
+    buffer K3 fills for K4); the operands are first made readable by TMA.
     ``seed``: the (B, H) int32 seeds; ``row0``/``col0``: the global
     coordinates of element (0, 0) for the bits; ``delta``: rowsum(dO * O)
     in float32, from ``out`` when not given. Returns (dq, dk, dv)."""
@@ -482,8 +484,7 @@ def backward_kernels(q, k, v, key_padding_mask, seed, dropout_rate, out, lse,
     dq = _heads_major(b, tq, h, d, q.dtype, q.device)
     dk = _heads_major(b, tk, h, d, k.dtype, q.device)
     dv = _heads_major(b, tk, h, d, v.dtype, q.device)
-    if q.dtype == torch.bfloat16:
-        q, k, v, grad_out = (tma_operand(t) for t in (q, k, v, grad_out))
+    q, k, v, grad_out = (tma_operand(t) for t in (q, k, v, grad_out))
     args = (q, k, v, key_padding_mask, seed, dropout_rate, lse, delta, grad_out)
     at = {"row0": row0, "col0": col0}
     if tk <= SINGLE_PASS_MAX_TK:
