@@ -208,8 +208,9 @@ HERE = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet; dense), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 # float32: the TF32 tensor cores' 495 TFLOP/s over the three passes each
-# float32 product takes there (csrc/tf32.cuh); float32 K3 still runs on the
-# FMA units (67 TFLOP/s), whose bound every float32 row also gives
+# float32 product takes there (csrc/tf32.cuh), for every float32 kernel; every
+# float32 row also gives the bound on the FMA units (67 TFLOP/s), where the
+# float32 kernels of earlier trees ran (the parent in tools/time_bwd_variants.py)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 FMA_FLOPS = 67e12
 
@@ -243,7 +244,7 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the device-side kernels of each wrapper by dtype (profiler entry names),
 # and how many of them one call launches
 # (float32 K1, K1', K2 and K4: one three-pass TF32 template each at every
-# head dim)
+# head dim; K3 one up to head dim 128 and one above)
 _FWD_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_wgmma_kernel",)}
 _FWD_WIDE_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_wide_wgmma_kernel",)}
 _DQKV_F32 = ("dkv_tf32_kernel", "dq_reduce_kernel<float")
@@ -251,13 +252,13 @@ KERNEL_NAMES = {
     "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
     "bwd_dqkv": {"float32": _DQKV_F32,
                  "bfloat16": ("dqkv_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
-    "bwd_dq": {"float32": ("dq_kernel<float",), "bfloat16": ("dq_wgmma_kernel",)},
+    "bwd_dq": {"float32": ("dq_tf32_kernel",), "bfloat16": ("dq_wgmma_kernel",)},
     "bwd_dkv": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_wgmma_kernel",)},
     # above head dim 128 (one template serves wide K2 and K4)
     "fwd_wide": _FWD_WIDE_NAMES, "fwd_lse_wide": _FWD_WIDE_NAMES,
     "bwd_dqkv_wide": {"float32": _DQKV_F32,
                       "bfloat16": ("dkv_wide_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
-    "bwd_dq_wide": {"float32": ("dq_wide_kernel<",), "bfloat16": ("dq_wide_wgmma_kernel",)},
+    "bwd_dq_wide": {"float32": ("dq_tf32_wide_kernel",), "bfloat16": ("dq_wide_wgmma_kernel",)},
     "bwd_dkv_wide": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_wide_wgmma_kernel",)},
 }
 # each named kernel launches once per call
@@ -269,7 +270,8 @@ WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_wide_wgmma_ker
                                          "fwd_tf32_kernel"),
                  "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
                                          "dkv_wgmma_kernel", "dq_wide_wgmma_kernel",
-                                         "dkv_wide_wgmma_kernel", "dkv_tf32_kernel")}
+                                         "dkv_wide_wgmma_kernel", "dkv_tf32_kernel",
+                                         "dq_tf32_kernel", "dq_tf32_wide_kernel")}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -677,9 +679,8 @@ def _lse_err(a, b) -> float:
 def _bound(kind: str, dtype_name: str, shape, item: int, rate: float,
            peak: float | None = None) -> tuple[float, str]:
     """Least time for the work: every input read once, every output written
-    once, at 3.35 TB/s; or the products at the peak rate of the units the
-    kernel uses (``peak``, else the type's: float32 K3 runs on the FMA
-    units)."""
+    once, at 3.35 TB/s; or the products at ``peak``, else the type's peak
+    on the tensor cores (float32: three TF32 passes a product)."""
     b, h, tq, tk, d = shape
     qo, kv = b * h * tq * d * item, b * h * tk * d * item
     rows = 4 * b * h * tq  # one float32 per query row (lse, delta)
@@ -690,7 +691,7 @@ def _bound(kind: str, dtype_name: str, shape, item: int, rate: float,
              "bwd_dkv": 2 * qo + 4 * kv + 2 * rows}[kind] + small
     ops = OPS_PER_ELEMENT[kind] * b * h * tq * tk * d
     if peak is None:
-        peak = FMA_FLOPS if (dtype_name, kind) == ("float32", "bwd_dq") else PEAK_FLOPS[dtype_name]
+        peak = PEAK_FLOPS[dtype_name]
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1187,7 +1188,8 @@ def _f32_recipe(torch, setup: dict, smi: str) -> dict:
     kind (``auto`` sends every site with dropout to the kernels at head dim
     64), a warm step's ms and idle share, then one step of the long batch (K3
     + K4) and ``validate`` (K1); and the ``xla`` route's warm step on the
-    same batch, a trainer of its own."""
+    same batch, a trainer of its own. Each route also times the long batch's
+    warm step."""
     import tempfile
 
     import numpy as np
@@ -1238,6 +1240,11 @@ def _f32_recipe(torch, setup: dict, smi: str) -> dict:
             row["launches"] = {k: n + launches[k] for k, n in fa.flash_attention.launches.items()}
         else:
             check(sum(launches.values()) == 0, f"float32 xla launched {launches}")
+        # the long batch's warm step (under auto: K1' + K3 + K4 where its keys
+        # pass 512)
+        long = to_device(batches[-1], trainer.device)
+        row["long_bucket"] = int(long["embeddings"].shape[1])
+        row["long_step_ms"] = cuda_ms(torch, lambda: trainer.train_step(long), iters=3, warmup=1)
         out[impl] = row
         del trainer
     print("[train-f32] " + json.dumps(out) + f" [{smi}]")
@@ -3192,6 +3199,14 @@ def phase_wide(torch, seed: int, smi: str, setup: dict, base_step_ms: float) -> 
             check(torch.equal(got, want), f"{kind} at head dim {d}: keep bits differ from the "
                                           f"plain mask in {int((got != want).sum())} places")
             bits[f"{kind} D={d}"] = "equal"
+    # the float32 K3 keeps no keep-bit buffer: its bits read back through dq
+    for d in (64, 128, 256, 512):
+        got = fa.kernel_keep_bits("bwd_dq", seeds, 128, 640, 0.1, 64, 128, head_dim=d,
+                                  dtype=torch.float32)
+        want = fa.dropout_keep_mask(seeds, 128, 640, 0.1, 64, 128)
+        check(torch.equal(got, want), f"float32 bwd_dq at head dim {d}: keep bits differ from "
+                                      f"the plain mask in {int((got != want).sum())} places")
+        bits[f"bwd_dq float32 D={d}"] = "equal"
     out["keep_bits"] = bits
     print("[wide-keep-bits] " + json.dumps(bits) + f" [{smi}]")
     torch.cuda.empty_cache()
@@ -3452,14 +3467,15 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    # float32 K1, K1', K2 and K4 (three-pass TF32: fwd_tf32_kernel,
-    # dkv_tf32_kernel), with their launches on the float32 paths: phase 6's
-    # float32 recipe and phase 16's contrast at head dim 64, phase 17's
-    # training above 128
+    # float32 K1, K1', K2, K3 and K4 (three-pass TF32: fwd_tf32_kernel,
+    # dkv_tf32_kernel, dq_tf32_kernel, dq_tf32_wide_kernel), with their
+    # launches on the float32 paths: phase 6's float32 recipe and phase 16's
+    # contrast at head dim 64, phase 17's training above 128
     f32_launches = train["float32_auto"]["auto"]["launches"]
     wide_f32_launches = {k: sum(wide["training"][h]["launches"][k] for h in WIDE_HEADS)
                          for k in wide["launches"]}
-    for kind, line in (("fwd", 113), ("fwd_lse", 113), ("bwd_dqkv", 282), ("bwd_dkv", 244)):
+    for kind, line in (("fwd", 113), ("fwd_lse", 113), ("bwd_dqkv", 282), ("bwd_dq", 214),
+                       ("bwd_dkv", 244)):
         for wkind, row, n in (
                 (kind, k1["float32"] if kind == "fwd" else train_rows[f"{kind}@float32"],
                  f32_launches[kind] + table2["launches"][kind]),

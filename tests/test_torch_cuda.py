@@ -9,7 +9,6 @@ import torch
 
 from vimoclip_tpu_torch.ops.attention import (
     AUTO_FLASH_MIN_T_NODROP,
-    AUTO_WIDE_FLASH_MAX_T_DROP,
     AUTO_WIDE_FLASH_MAX_T_NODROP,
     MultiHeadAttention,
 )
@@ -377,9 +376,8 @@ def test_auto_at_wide_head_dims_follows_the_measured_rule(cuda):
     ``flash`` step from the same state and generator, and within
     flash-vs-eager rounding of the ``xla`` step; in float32 eval steps run
     K1 below ``AUTO_WIDE_FLASH_MAX_T_NODROP`` keys and eager attention from
-    there, and an attention with dropout runs eager from
-    ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys; in bf16 the kernels run at every
-    length."""
+    there, and an attention with dropout runs the kernels at every length,
+    as bf16 does with dropout and without."""
     import dataclasses
 
     from vimoclip_tpu_torch import losses
@@ -423,13 +421,12 @@ def test_auto_at_wide_head_dims_follows_the_measured_rule(cuda):
         # 2 layers; the cross-attention site's keys are the t - 1 motion frames
         want = 2 * ((t < n) + (t - 1 < n))
         assert flash_attention.launches["fwd_wide"] == before + want, t
-    n = AUTO_WIDE_FLASH_MAX_T_DROP
     mha = MultiHeadAttention(512, 2, dropout=0.1, implementation="auto").to(cuda).train()
     gen = torch.Generator(device=cuda).manual_seed(2)
-    for t, launched in ((n - 64, 1), (n, 0)):
+    for t in (n - 64, n, 2 * n, 4096):
         before = flash_attention.launches["fwd_lse_wide"]
         mha(torch.randn(1, t, 512, device=cuda, requires_grad=True), generator=gen)
-        assert flash_attention.launches["fwd_lse_wide"] == before + launched, t
+        assert flash_attention.launches["fwd_lse_wide"] == before + 1, t
     # bf16 takes the kernels at every length, with dropout and without
     half = MultiHeadAttention(512, 2, dropout=0.1, implementation="auto",
                               dtype=torch.bfloat16).to(cuda)
@@ -537,6 +534,91 @@ def test_wide_kernels_draw_the_plain_bits(cuda, d, kind, rows, cols):
     seed = _seeds(cuda, 2, 2)
     got = fa.kernel_keep_bits(kind, seed, rows, cols, 0.1, 64, 128, head_dim=d)
     assert torch.equal(got, fa.dropout_keep_mask(seed, rows, cols, 0.1, 64, 128))
+
+
+# ---------------------------------------------------------------------------
+# the float32 K3 alone (three-pass TF32: dq_tf32_kernel, dq_tf32_wide_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _dq_alone(q, k, v, mask, seeds, rate, grad, **at):
+    """K3 alone, launched as ``backward_kernels`` launches it past 512
+    keys, from K1''s lse: its dq and the plain version's."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, h, tq, d = q.shape
+    out, lse = fa.forward_lse(q, k, v, mask, seeds, rate, **at)
+    delta = (grad.float() * out.float()).sum(-1).contiguous()
+    ops = [fa.tma_operand(fa._rows(t)) for t in (q, k, v, grad)]
+    dq = fa._heads_major(b, tq, h, d, q.dtype, q.device)
+    fa._launch_bwd("bwd_dq", *ops[:3], mask, seeds, rate, lse, delta, ops[3], dq, None, None,
+                   **at)
+    want = flash_attention_backward_reference(q, k, v, mask, out, lse, grad, rate, seed=seeds,
+                                              **at)[0]
+    return dq, want
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("shape", [
+    *((2, 2, 130, 600, d) for d in (16, 32, 64, 96, 128, 192, 256, 512)),
+    # past 512 keys: Tq != Tk, ragged; Tq below one tile, narrow and wide
+    (2, 2, 577, 1000, 64), (2, 2, 40, 777, 64), (2, 2, 40, 777, 256),
+], ids=lambda s: "x".join(map(str, s)))
+def test_float32_dq_kernel_matches_plain(cuda, shape, rate):
+    """The float32 K3 alone within 1e-4 of its plain version at every head
+    dim, with user-masked keys and a fully masked batch row (P = 1 on each
+    of its keys, so its dq is not zero), at global dropout offsets; two
+    calls bitwise equal."""
+    b, h, tq, tk, d = shape
+    q, k, v, mask = _inputs(*shape, torch.float32, cuda, seed=tq + tk + d)
+    g = torch.randn(b, tq, h, d, device=cuda).transpose(1, 2)
+    seeds = expand_seed(21, b, h, cuda) if rate else None
+    at = dict(row0=64, col0=4 * tk)
+    kind = "bwd_dq_wide" if d > 128 else "bwd_dq"
+    before = dict(flash_attention.launches)
+    got, want = _dq_alone(q, k, v, mask, seeds, rate, g, **at)
+    again, _ = _dq_alone(q, k, v, mask, seeds, rate, g, **at)
+    torch.cuda.synchronize()
+    assert flash_attention.launches[kind] == before[kind] + 2
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= GRAD_TOL[torch.float32], _rel(got, want)
+    assert torch.equal(got, again)
+    assert got[0].abs().max().item() > 0  # the fully masked row
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_float32_dq_kernel_reads_a_misaligned_view(cuda, d):
+    """Operands split out of a packed projection 4 bytes past a 16-byte
+    boundary: ``backward_kernels`` hands K3 the padded copy ``tma_operand``
+    makes, and its dq equals the plain version's."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, t, h = 2, 600, 2
+    x = torch.randn(b, t, 3 * h * d + 1, device=cuda)[..., 1:]
+    q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
+    assert not fa.tma_legal(q)
+    g = torch.randn(b, h, t, d, device=cuda)
+    seeds = expand_seed(3, b, h, cuda)
+    out, lse = fa.forward_lse(q, k, v, None, seeds, 0.1)
+    before = flash_attention.launches[fa.launch_kind("bwd_dq", d)]
+    got = fa.backward_kernels(q, k, v, None, seeds, 0.1, out, lse, g)[0]
+    want = flash_attention_backward_reference(q, k, v, None, out, lse, g, 0.1, seed=seeds)[0]
+    torch.cuda.synchronize()
+    assert flash_attention.launches[fa.launch_kind("bwd_dq", d)] == before + 1
+    assert _rel(got, want) <= GRAD_TOL[torch.float32], _rel(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+def test_float32_dq_kernel_draws_the_plain_bits(cuda, d):
+    """The float32 K3 keeps no keep-bit buffer: its bits, read back
+    through dq (``kernel_keep_bits``), are the plain mask's bit for bit at
+    global offsets."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    seed = _seeds(cuda, 2, 2)
+    got = fa.kernel_keep_bits("bwd_dq", seed, 128, 640, 0.1, 192, 256, head_dim=d,
+                              dtype=torch.float32)
+    assert torch.equal(got, fa.dropout_keep_mask(seed, 128, 640, 0.1, 192, 256))
 
 
 # ---------------------------------------------------------------------------

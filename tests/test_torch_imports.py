@@ -101,6 +101,44 @@ def test_describe_card_queries_the_named_card(device, index, monkeypatch):
     assert "--query-gpu=name,power.limit" in cmd and "--format=csv,noheader" in cmd
 
 
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_names_no_fma_kernel_among_the_float32_kinds():
+    """Every float32 kernel ``chip_smoke.py`` times runs on the tensor
+    cores: its name is among those whose SASS phase 2 holds to HGMMA and
+    UTMALDG (K2's dq sum, a plain sum of its shares, aside), K3's among
+    them."""
+    smoke = _chip_smoke()
+    wgmma = {name for names in smoke.WGMMA_KERNELS.values() for name in names}
+    for kind, by_dtype in smoke.KERNEL_NAMES.items():
+        for name in by_dtype["float32"]:
+            assert name in wgmma or name == "dq_reduce_kernel<float", (kind, name)
+    assert smoke.KERNEL_NAMES["bwd_dq"]["float32"] == ("dq_tf32_kernel",)
+    assert smoke.KERNEL_NAMES["bwd_dq_wide"]["float32"] == ("dq_tf32_wide_kernel",)
+
+
+@pytest.mark.parametrize("kind, want_ms", [("fwd_lse", 0.0586), ("bwd_dqkv", 0.1464),
+                                           ("bwd_dq", 0.0879), ("bwd_dkv", 0.117)])
+def test_chip_smoke_bounds_every_float32_kind_at_the_tf32_rate(kind, want_ms):
+    """``_bound`` gives each float32 kind, K3 included, the three-pass TF32
+    rate (495 TFLOP/s over three) at (8, 8, 768, 768, 64), and the FMA rate
+    only when asked for it (the parent's bound)."""
+    smoke = _chip_smoke()
+    shape = (8, 8, 768, 768, 64)
+    ms, by = smoke._bound(kind, "float32", shape, 4, 0.1)
+    assert (ms, by) == smoke._bound(kind, "float32", shape, 4, 0.1, smoke.PEAK_FLOPS["float32"])
+    assert by == "operations" and ms == pytest.approx(want_ms, rel=2e-3)
+    fma_ms, _ = smoke._bound(kind, "float32", shape, 4, 0.1, smoke.FMA_FLOPS)
+    assert fma_ms > 2 * ms
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     from vimoclip_tpu_torch.ops.kernels import _build
 

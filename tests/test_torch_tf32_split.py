@@ -6,7 +6,8 @@ lo = rna(x - hi), both rounded to TF32 (10 mantissa bits, round to nearest,
 ties away from zero), and A.B = A_lo.B_hi + A_hi.B_lo + A_hi.B_hi, summed in
 float32. Here numpy emulates those passes for the five products of the
 forward and backward (S = Qs.K^T, O = P.V, dP = dO.V^T, dQ = dS.K,
-dK = dS^T.Q, dV = P^T.dO) at the kernels' rounding points, and holds the
+dK = dS^T.Q, dV = P^T.dO) at the kernels' rounding points, and K3's dq
+sweep over key tiles in its contraction order, and holds the
 attention output, lse and gradients to a float64 reference within 1e-5: a
 tenth of the 1e-4 limits the kernels meet against their plain float32
 versions on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
@@ -108,6 +109,55 @@ def test_three_pass_tf32_stays_within_a_tenth_of_the_limits(d, rate):
     for name, g, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
         assert g.dtype == np.float32
         assert _rel(g, ref) <= BUDGET, (name, _rel(g, ref))
+
+
+# the key of each slot of mma's A fragment within an 8-key k-step: the
+# accumulator layout holds keys 2 t4 and 2 t4 + 1 where the fragment wants
+# slots t4 and t4 + 4 (csrc/tf32.cuh)
+K_STEP_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def dq_sweep(ds: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """ds @ k as the float32 K3 sums it: over key tiles of 64 into one
+    float32 accumulator, each 8-key k-step as three TF32 products (lo.hi,
+    hi.lo, hi.hi, accumulated in that order) over the keys in the permuted
+    order of mma's A fragment."""
+    ds_hi, ds_lo = split(ds)
+    k_hi, k_lo = split(k)
+    tk = k.shape[-2]
+    acc = np.zeros(ds.shape[:-1] + k.shape[-1:], dtype=np.float32)
+    for k0 in range(0, tk, 64):
+        for c in range(k0, min(k0 + 64, tk), 8):
+            keys = c + K_STEP_ORDER
+            keys = keys[keys < tk]
+            for a, b in ((ds_lo, k_hi), (ds_hi, k_lo), (ds_hi, k_hi)):
+                acc = (acc + a[..., keys] @ b[..., keys, :]).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("d", [64, 256])
+def test_k3_sweep_past_512_keys_stays_within_a_tenth_of_the_limits(d, rate):
+    """K3 past 512 keys: S and dP as three TF32 passes, dS from the saved
+    lse, and dq accumulated tile by tile in float32, each tile's dS K as
+    three TF32 passes in the kernel's contraction order, against float64."""
+    q, k, v, do, masked, keep = _inputs(d, seed=d + 1, tq=96, tk=640)
+    if rate == 0.0:
+        keep = np.ones_like(keep)
+    q64, k64, v64, do64 = (x.astype(np.float64) for x in (q, k, v, do))
+    o_ref, lse_ref = _forward(q64, k64, v64, masked, keep, rate, np.matmul)
+    dq_ref = _backward(q64, k64, v64, do64, o_ref, lse_ref, masked, keep, rate, np.matmul)[0]
+
+    f = np.float32
+    o, lse = _forward(q, k, v, masked, keep, rate, mm3)
+    scale = f(1.0 / np.sqrt(d))
+    s = mm3(q * scale, np.swapaxes(k, -1, -2)) + np.where(masked, f(_MASK_VALUE), f(0))
+    p = np.exp(s - lse[..., None])
+    dp = np.where(keep, mm3(do, np.swapaxes(v, -1, -2)), 0) / f(1 - rate)
+    ds = p * (dp - (do * o).sum(-1)[..., None])
+    dq = dq_sweep(ds, k) * scale
+    assert dq.dtype == np.float32
+    assert _rel(dq, dq_ref) <= BUDGET, _rel(dq, dq_ref)
 
 
 def test_one_tf32_pass_alone_misses_the_limits():

@@ -127,26 +127,21 @@ def test_auto_follows_the_measured_crossover_at_every_head_dim(head_dim, is_cuda
     """``auto`` follows the crossovers measured on the card for each head
     dim and dtype: up to 128 the kernels whenever dropout is active, and
     without it from ``AUTO_FLASH_MIN_T_NODROP`` keys; above 128 (the wide
-    kernels) in bf16 the kernels at every length, in float32 (whose dq sweep
-    is slower than eager attention on long keys) the kernels below
-    ``AUTO_WIDE_FLASH_MAX_T_DROP`` keys with dropout and below
-    ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. On the CPU it runs eager
-    attention."""
+    kernels) the kernels at every length in bf16 and with dropout, and in
+    float32 without dropout (an eval step, K1 alone, slower than eager
+    attention on long keys) below ``AUTO_WIDE_FLASH_MAX_T_NODROP`` keys. On
+    the CPU it runs eager attention."""
     from vimoclip_tpu_torch.ops.attention import (
         AUTO_FLASH_MIN_T_NODROP,
-        AUTO_WIDE_FLASH_MAX_T_DROP,
         AUTO_WIDE_FLASH_MAX_T_NODROP,
         _auto_impl,
     )
 
     for dtype in (torch.float32, torch.bfloat16):
-        if head_dim > 128:
-            cut = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
-        else:
-            cut = AUTO_FLASH_MIN_T_NODROP
+        cut = AUTO_WIDE_FLASH_MAX_T_NODROP if head_dim > 128 else AUTO_FLASH_MIN_T_NODROP
         for tk in (16, cut - 1, cut, 4096):
             if head_dim > 128:
-                kernels = is_cuda and (dtype == torch.bfloat16 or tk < cut)
+                kernels = is_cuda and (dtype == torch.bfloat16 or dropping or tk < cut)
             else:
                 kernels = is_cuda and (dropping or tk >= cut)
             want = "flash" if kernels else "xla"

@@ -12,6 +12,7 @@ the results are held against the plain versions.
 
     python3 tools/time_bwd_variants.py NAME[,NAME...] [B,H,TQ,TK,D[;...]] \
         [--kernels KIND] [--dtype bfloat16|float32]
+    python3 tools/time_bwd_variants.py NAME[,NAME...] --steps
     python3 tools/time_bwd_variants.py --prepare NAME=REV[,NAME=REV...]
 
 KIND picks the kernels timed (and the default shape):
@@ -24,9 +25,10 @@ KIND picks the kernels timed (and the default shape):
   512-key tile and K3 + K4 past it (as the wrappers launch them).
 The kernels are told apart by name: in bf16 the wgmma kernels (and the
 FMA or ``mma_kernel`` names of earlier trees), in float32 the three-pass
-TF32 ``fwd_tf32`` and ``dkv_tf32`` and the FMA ``dq_kernel`` (and the FMA
-``fma_kernel``, ``fma_wide_kernel``, ``dkv_kernel`` and ``dkv_wide_kernel``
-of trees before them).
+TF32 ``fwd_tf32``, ``dkv_tf32`` and ``dq_tf32`` (``dq_tf32_kernel`` and
+``dq_tf32_wide_kernel``; and the FMA ``dq_kernel``,
+``dq_wide_kernel``, ``fma_kernel``, ``fma_wide_kernel``, ``dkv_kernel`` and
+``dkv_wide_kernel`` of trees before them).
 
 A variant may be a copy of an earlier tree's ``csrc`` (the same C entry
 points), so that it is timed in the same call as the current one:
@@ -39,6 +41,14 @@ time (forward + backward for the backward kinds, forward for ``fwd``, in
 the run's dtype) closes each shape.
 
 Prints one JSON line per (shape, variant, dropout rate, turn).
+
+``--steps`` times whole float32 train steps instead, with each variant's
+libraries in turns (the variants in order, then in reverse; CUDA events
+around ``TFAMTrainer.train_step``, the host's launches included):
+``chip_smoke.py`` phase 6's recipe under ``auto`` on its long batch (K1',
+K3 and K4 at head dim 64), and the recipe at 2 and 1 heads (head dims 256
+and 512) on ``flash`` at the 1024-frame bucket, where phase 17 measures
+``auto``'s float32 turn. One JSON line per step.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ NAMES = {
     "bfloat16": {"k3k4": ("dq_wgmma", "dkv_wgmma"),
                  "k2": ("dqkv_wgmma", "dkv_wide_wgmma", "dq_reduce", "dkv_kernel"),
                  "fwd": ("fwd_wgmma", "fwd_wide_wgmma", "mma_kernel")},
-    "float32": {"k3k4": ("dq_kernel", "dq_wide_kernel", "dkv_tf32", "dkv_kernel",
+    "float32": {"k3k4": ("dq_tf32", "dq_kernel", "dq_wide_kernel", "dkv_tf32", "dkv_kernel",
                          "dkv_wide_kernel"),
                 "k2": ("dkv_tf32", "dq_reduce", "dkv_kernel", "dkv_wide_kernel"),
                 "fwd": ("fwd_tf32", "fma_kernel", "fma_wide_kernel")},
@@ -189,6 +199,45 @@ def _sdpa_ms(torch, F, q, k, v, mask, grad, backward: bool) -> float:
     return start.elapsed_time(end) / 10
 
 
+def time_steps(torch, libs: dict, names: list[str], smi: str) -> None:
+    """``--steps``: the train steps of the module docstring, each variant's
+    libraries swapped in by turns."""
+    import tempfile
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.ops.kernels import _build
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cudnn.allow_tf32 = False
+    setup = cs.training_setup(torch, 0)
+    data = {"cfg": setup["cfg"], "train_items": setup["trainer"].train_loader.dataset,
+            "val_items": setup["trainer"].val_loader.dataset}
+    run = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    trainer = cs._wide_trainer(torch, data, 8, run / "h8", impl="auto")
+    jobs = [("float32 auto, 8 heads, long batch", trainer,
+             to_device(setup["batches"][-1], trainer.device))]
+    for heads in (2, 1):
+        trainer = cs._wide_trainer(torch, data, heads, run / f"h{heads}", impl="flash")
+        rng = np.random.default_rng(1)
+        items = cs._clips(rng, rng.integers(1024 - 27, 1025, 8), 512, 140, "w1024-")
+        jobs.append((f"float32 flash, {heads} heads", trainer,
+                     to_device(trainer.collate(items), trainer.device)))
+    for job, trainer, batch in jobs:
+        row = {"job": job, "bucket": int(batch["embeddings"].shape[1]), "step_ms": {}}
+        for n in names + names[::-1]:
+            for src in SOURCES:
+                _build._loaded[src] = ctypes.CDLL(str(libs[n][src].resolve()))
+            fa.reset_launch_counts()
+            ms = cs.cuda_ms(torch, lambda: trainer.train_step(batch), iters=4, warmup=1)
+            row["step_ms"].setdefault(n, []).append(ms)
+            row["launches_per_step"] = {k: c // 5 for k, c in fa.flash_attention.launches.items()
+                                        if c}
+        print(json.dumps(row) + f" [{smi}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="?", help="comma-separated variant directories under build/variants")
@@ -196,6 +245,8 @@ def main() -> int:
     ap.add_argument("--kernels", choices=sorted(SHAPES), default="k3k4")
     ap.add_argument("--dtype", choices=sorted(NAMES), default="bfloat16")
     ap.add_argument("--prepare", help="NAME=REV[,NAME=REV...]: write variants from git and stop")
+    ap.add_argument("--steps", action="store_true",
+                    help="time float32 train steps per variant instead of kernels")
     args = ap.parse_intermixed_args()
     if args.prepare:
         prepare(args.prepare)
@@ -221,6 +272,9 @@ def main() -> int:
     dtype = getattr(torch, args.dtype)
     names = args.names.split(",")
     libs = build(names)
+    if args.steps:
+        time_steps(torch, libs, names, smi)
+        return 0
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     for spec in (args.shape or SHAPES[args.kernels]).split(";"):
         b, h, tq, tk, d = map(int, spec.split(","))

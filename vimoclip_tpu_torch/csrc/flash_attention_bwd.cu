@@ -45,7 +45,7 @@
 // S^T = K (q * scale)^T and dP^T = V dO^T run on wgmma m64n64k8 (SS), each
 // slot's chunks split in place into hi with their lo beside them (TF32 wgmma
 // reads K-major operands only, and these are); q * scale is rounded to
-// float32 first, the FMA kernel's rounding point. P = exp(S + bias - lse)
+// float32 first, the plain version's rounding point. P = exp(S + bias - lse)
 // goes to shared memory (query rows x keys) before dP^T starts, so the two
 // score accumulators never hold registers together; then dS = P (dP -
 // delta) and the dropped P / (1 - rate) replace it there. dV += P^T dO and
@@ -65,11 +65,33 @@
 // (sm_90a; p = 0 / 0.1): K4 212 / 208 registers at D <= 64, 252 / 251
 // above, no spills; K2 223 / 224 at D <= 64, no spills, and 255 above,
 // where dK and dV hold 128 and it spills 184 / 176 bytes.
-// float32 K3 (dq_kernel, dq_wide_kernel): float32 FMAs from shared memory
-// (four lanes share a row), one CTA per 64-row query tile sweeping the key
-// tiles with dQ in registers; the keep bits of each 64x64 tile drawn into a
-// shared-memory bitmask by the whole CTA from global (row, column)
-// coordinates. It is the next kernel to move to the tensor cores.
+// float32 K3 (dq_tf32_kernel up to head dim 128, dq_tf32_wide_kernel
+// above), three TF32 passes a product as K4's. Bound: 3 x the FLOPs (S, dP
+// and dS K: 6 B H Tq Tk D) at 495 TFLOP/s: 0.0879 ms at (8, 8, 768, 768, 64)
+// and (8, 2, 768, 768, 256), 0.156 ms at (8, 8, 1024, 1024, 64). One
+// producer warp per consumer warpgroup streams one-chunk slots (16 KB)
+// through a three-slot ring; per key tile dP = dO V^T and then S =
+// (q * scale) K^T run on wgmma m64n64k8 (SS) with query rows as M, both
+// operands K-major along D and split in place (the lo beside); P = exp(S +
+// bias - lse), dP dropped with the tile's Philox bits drawn by the
+// warpgroup, dS = P (dP - delta) in registers; dq += dS K on mma.sync (K an
+// MN-major B: its rows gathered from a raw k chunk, streamed again, and
+// split in registers, as O += P V in the forward); dq x scale stored once
+// per CTA: no scratch, no atomics, no keep-bit buffer. What was measured
+// (PERF.md, tools/time_bwd_variants.py): at D <= 64 two CTAs per SM with q
+// and dO streamed and split per tile (85,048 bytes, 167 / 168 registers at
+// p = 0 / 0.1) beat one CTA with them split once and resident (134,200
+// bytes); at D 65-128 resident q and dO win (199,736 bytes, 212 / 218
+// registers, one CTA); gathering the update's B as hi and lo from S's split
+// k chunk, P through shared memory, and overlapping each split with the
+// previous chunk's products were all slower. Above 128 (183,392 bytes, 168
+// registers, one CTA per SM) one CTA per (q tile, pair of 128-column
+// slices) runs two consumer warpgroups, each with its own producer warp and
+// ring: warpgroup 0 computes S over the whole head dim and writes P to
+// shared memory, warpgroup 1 computes dP and turns P into dS there, and each
+// accumulates its slice of dq. So S and dP run once per pair of slices (a
+// CTA per slice, the scheme K4 and K2 keep, ran them once per slice, and
+// spilled 436 / 468 bytes under two CTAs per SM). No spills.
 //
 // bfloat16: K2 (dqkv_wgmma_kernel), K3 (dq_wgmma_kernel), K4
 // (dkv_wgmma_kernel), on the tensor cores from TMA-fed shared-memory tiles
@@ -145,8 +167,8 @@
 //   refuses them (-5).
 //
 // Head dims above 128 (dq_wide_wgmma_kernel for K3, dkv_wide_wgmma_kernel for
-// K4 and, with its dq share, K2; float32 dq_wide_kernel, and dkv_tf32_kernel
-// with its 128-column slices):
+// K4 and, with its dq share, K2; float32 dkv_tf32_kernel with its 128-column
+// slices; the float32 K3's own scheme is above):
 // any head dim, with registers and shared memory flat in D. A grid axis over
 // output slices of 128 columns: each CTA accumulates only its slice of dQ
 // (K3) or of dK and dV (K4, K2; and K2's dq share of the slice), while S and
@@ -164,7 +186,6 @@
 // 252 / 255, 101,672 bytes, one CTA per SM; none spills, because K2 reads
 // its key bias from shared memory where it is used and draws the next
 // tile's keep bits under the dV/dK products (as K2 at D <= 128).
-// float32 K3: 128 / 206 registers (117,504 bytes), no spills.
 
 #include <type_traits>
 
@@ -175,12 +196,6 @@
 namespace {
 
 using namespace vimo;
-
-constexpr int kB = 64;                  // query rows per q tile, keys per k tile
-constexpr int kLanes = 4;               // lanes sharing one row (or one key)
-constexpr int kThreads = kB * kLanes;   // 256
-constexpr int kPer = kB / kLanes;       // partners per lane in a 64x64 tile
-constexpr int kBitWords = 2 * kB;
 
 struct BwdParams {
   const void* q;
@@ -212,9 +227,6 @@ struct BwdParams {
   float keep;           // 1 - rate
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -222,126 +234,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_t(float x) { return to_f(from_f<T>(x)); }
-
-// rows [r0, r0 + kB) of a (T, D) head, as float32 (times `mul`, rounded to T
-// when `mul` != 1), into a kB x S shared tile; zeros past `t` and past D
-template <typename T, int DP>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, long long st, int r0,
-                                           int t, int d, float mul, bool scaled, int tid) {
-  constexpr int S = DP + 1;
-  for (int e = tid; e < kB * DP; e += kThreads) {
-    const int r = e / DP, c = e % DP;
-    float x = 0.f;
-    if (r0 + r < t && c < d) {
-      x = to_f(src[(long long)(r0 + r) * st + c]);
-      if (scaled) x = round_t<T>(x * mul);
-    }
-    dst[r * S + c] = x;
-  }
-}
-
-template <int DP>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * ((size_t)4 * kB * (DP + 1) + kB * (kB + 4)) +
-         sizeof(uint32_t) * kBitWords;
-}
-
-// ---------------------------------------------------------------------------
-// K3: dq, one CTA per (64-row q tile, head, batch row), sweeping key tiles
-// ---------------------------------------------------------------------------
-
-template <typename T, int DP, bool DROP>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
-  constexpr int S = DP + 1;
-  constexpr int PS = kB + 4;
-  constexpr int DPL = DP / kLanes;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // round_T(q * scale)
-  float* dOs = Qs + kB * S;
-  float* Ks = dOs + kB * S;
-  float* Vs = Ks + kB * S;
-  float* dSs = Vs + kB * S;    // kB x PS : round_T(dS)
-  uint32_t* bits = reinterpret_cast<uint32_t*>(dSs + kB * PS);
-
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes, lane = tid % kLanes;
-  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
-  const uint32_t seed = DROP ? (uint32_t)p.seed[b * p.H + h] : 0u;
-
-  stage_rows<T, DP>(Qs, q, p.q_st, q0, p.Tq, p.D, p.scale, true, tid);
-  stage_rows<T, DP>(dOs, dout, p.do_st, q0, p.Tq, p.D, 1.f, false, tid);
-  const bool row_in = q0 + row < p.Tq;
-  const size_t rs = ((size_t)b * p.H + h) * p.Tq + q0 + row;
-  const float lse_r = row_in ? p.lse[rs] : 0.f;
-  const float delta_r = row_in ? p.delta[rs] : 0.f;
-
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  const float* qrow = Qs + row * S;
-  const float* dorow = dOs + row * S;
-  float* dsrow = dSs + row * PS;
-
-  const int n_tiles = (p.Tk + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();  // the previous tile is consumed (and Qs/dOs written)
-    stage_rows<T, DP>(Ks, k, p.k_st, k0, p.Tk, p.D, 1.f, false, tid);
-    stage_rows<T, DP>(Vs, v, p.v_st, k0, p.Tk, p.D, 1.f, false, tid);
-    if constexpr (DROP)
-      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
-    __syncthreads();
-
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      const float qc = qrow[c], dc = dorow[c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int kk = (lane + kLanes * j) * S + c;
-        s[j] = fmaf(qc, Ks[kk], s[j]);
-        dp[j] = fmaf(dc, Vs[kk], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int jj = lane + kLanes * j;
-      const float pj = expf(mask_score(s[j], k0 + jj, p.Tk, mask) - lse_r);
-      float dpj = dp[j];
-      if constexpr (DROP) dpj = kept(bits, row, jj) ? dpj / p.keep : 0.f;
-      dsrow[jj] = row_in ? round_t<T>(pj * (dpj - delta_r)) : 0.f;
-    }
-    __syncwarp();  // the row's four lanes see each other's dS
-
-    const int n_keys = min(kB, p.Tk - k0);
-    for (int jj = 0; jj < n_keys; ++jj) {
-      const float ds = dsrow[jj];
-      const float* krow = Ks + jj * S + lane;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, krow[kLanes * i], acc[i]);
-    }
-  }
-
-  if (row_in) {
-    T* out = dq + (long long)(q0 + row) * p.dq_st;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int c = lane + kLanes * i;
-      if (c < p.D) out[c] = from_f<T>(acc[i] * p.scale);
-    }
-  }
 }
 
 // K2's second pass: dq = sum over the nk key tiles' shares, in tile order.
@@ -985,123 +877,8 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kerne
 // ---------------------------------------------------------------------------
 
 constexpr int kSlice = 128;  // output columns of one CTA
-constexpr int kDC = 64;      // head-dim columns of one staged chunk (float32)
 
 __host__ __device__ constexpr int n_slices(int d) { return (d + kSlice - 1) / kSlice; }
-
-// rows [r0, r0 + kB) x columns [c0, c0 + W) of a (T, D) float32 head, times
-// `mul`, into a kB x (W + 1) shared tile; zeros past `t` and past D
-template <int W>
-__device__ __forceinline__ void stage_cols(float* dst, const float* src, long long st, int r0,
-                                           int t, int c0, int d, float mul, int tid) {
-  for (int e = tid; e < kB * W; e += kThreads) {
-    const int r = e / W, c = e % W, col = c0 + c;
-    dst[r * (W + 1) + c] = (r0 + r < t && col < d) ? src[(long long)(r0 + r) * st + col] * mul : 0.f;
-  }
-}
-
-constexpr size_t dq_wide_smem_bytes() {
-  return sizeof(float) * ((size_t)4 * kB * (kDC + 1) + kB * (kSlice + 1) + kB * (kB + 4)) +
-         sizeof(uint32_t) * kBitWords;
-}
-
-// K3 (float32): dq over the slice, one CTA per (64-row q tile, slice, head,
-// batch row), sweeping key tiles
-template <bool DROP>
-__global__ void __launch_bounds__(kThreads) dq_wide_kernel(const BwdParams p) {
-  constexpr int CS = kDC + 1, SS = kSlice + 1, PS = kB + 4;
-  constexpr int DPL = kSlice / kLanes;
-  extern __shared__ float smem[];
-  float* Qc = smem;           // a chunk of q * scale
-  float* dOc = Qc + kB * CS;  // the same chunk of dO, k and v
-  float* Kc = dOc + kB * CS;
-  float* Vc = Kc + kB * CS;
-  float* Ks = Vc + kB * CS;   // kB x SS : the slice's columns of k
-  float* dSs = Ks + kB * SS;  // kB x PS : dS
-  uint32_t* bits = reinterpret_cast<uint32_t*>(dSs + kB * PS);
-
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes, lane = tid % kLanes;
-  const int n_sl = n_slices(p.D);
-  const int q0 = (blockIdx.x / n_sl) * kB, c0 = (blockIdx.x % n_sl) * kSlice;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
-  const uint32_t seed = DROP ? (uint32_t)p.seed[b * p.H + h] : 0u;
-
-  const bool row_in = q0 + row < p.Tq;
-  const size_t rs = ((size_t)b * p.H + h) * p.Tq + q0 + row;
-  const float lse_r = row_in ? p.lse[rs] : 0.f;
-  const float delta_r = row_in ? p.delta[rs] : 0.f;
-
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  const float* qrow = Qc + row * CS;
-  const float* dorow = dOc + row * CS;
-  float* dsrow = dSs + row * PS;
-
-  const int n_tiles = (p.Tk + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    float s[kPer], dp[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[j] = dp[j] = 0.f;
-    for (int d0 = 0; d0 < p.D; d0 += kDC) {
-      __syncthreads();  // the previous chunk (and tile) is consumed
-      stage_cols<kDC>(Qc, q, p.q_st, q0, p.Tq, d0, p.D, p.scale, tid);
-      stage_cols<kDC>(dOc, dout, p.do_st, q0, p.Tq, d0, p.D, 1.f, tid);
-      stage_cols<kDC>(Kc, k, p.k_st, k0, p.Tk, d0, p.D, 1.f, tid);
-      stage_cols<kDC>(Vc, v, p.v_st, k0, p.Tk, d0, p.D, 1.f, tid);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < kDC; ++c) {
-        const float qc = qrow[c], dc = dorow[c];
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int kk = (lane + kLanes * j) * CS + c;
-          s[j] = fmaf(qc, Kc[kk], s[j]);
-          dp[j] = fmaf(dc, Vc[kk], dp[j]);
-        }
-      }
-    }
-    stage_cols<kSlice>(Ks, k, p.k_st, k0, p.Tk, c0, p.D, 1.f, tid);
-    if constexpr (DROP)
-      fill_keep_bits(bits, kB, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kThreads);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int jj = lane + kLanes * j;
-      const float pj = expf(mask_score(s[j], k0 + jj, p.Tk, mask) - lse_r);
-      float dpj = dp[j];
-      if constexpr (DROP) dpj = kept(bits, row, jj) ? dpj / p.keep : 0.f;
-      dsrow[jj] = row_in ? pj * (dpj - delta_r) : 0.f;
-    }
-    __syncwarp();  // the row's four lanes see each other's dS
-
-    const int n_keys = min(kB, p.Tk - k0);
-    for (int jj = 0; jj < n_keys; ++jj) {
-      const float ds = dsrow[jj];
-      const float* krow = Ks + jj * SS + lane;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(ds, krow[kLanes * i], acc[i]);
-    }
-  }
-
-  if (row_in) {
-    float* out = dq + (long long)(q0 + row) * p.dq_st + c0;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int c = lane + kLanes * i;
-      if (c0 + c < p.D) out[c] = acc[i] * p.scale;
-    }
-  }
-}
 
 // a float from shared memory, kept in program order among the asm
 // statements around it (as ld_shared_f2): the value is loaded where it is
@@ -1855,29 +1632,425 @@ __global__ void __launch_bounds__(kHopThreads, 1) dkv_tf32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// launch
+// K3 in float32: three-pass TF32 on the tensor cores (tf32.cuh), sweeping
+// key tiles. Up to head dim 128 one CTA per (64-row q tile, head, batch row)
+// and one consumer warpgroup (dq_tf32_kernel); above it one CTA per (q tile,
+// pair of 128-column output slices, head, batch row) and two
+// (dq_tf32_wide_kernel)
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, dim3 grid, const BwdParams& p, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+constexpr int kDqSlots = 3;    // ring of one-chunk slots
+constexpr int kBiasTiles = 4;  // key bias of the tiles in flight
+
+// bar.sync on barrier `id` for `threads` threads (warpgroup-local: 128)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// float32 K3: the FMA dq kernels
-template <bool DROP>
-int run_dq_f32(const BwdParams& p, cudaStream_t s) {
-  const int n_qt = (p.Tq + kB - 1) / kB;
-  if (p.D <= 32) return launch(dq_kernel<float, 32, DROP>, dq_smem_bytes<32>(), dim3(n_qt, p.H, p.B), p, s);
-  if (p.D <= 64) return launch(dq_kernel<float, 64, DROP>, dq_smem_bytes<64>(), dim3(n_qt, p.H, p.B), p, s);
-  if (p.D <= kSlice)
-    return launch(dq_kernel<float, 128, DROP>, dq_smem_bytes<128>(), dim3(n_qt, p.H, p.B), p, s);
-  return launch(dq_wide_kernel<DROP>, dq_wide_smem_bytes(), dim3(n_qt * n_slices(p.D), p.H, p.B),
-                p, s);
+// acc = A . B^T over the head dim's n_ch chunks, three TF32 passes (SS).
+// A: QC > 0, resident and split (hi chunks at a_hi, lo at a_lo); QC = 0,
+// streamed through the ring before each B chunk and split in its slot times
+// `a_mul`, its lo into a_lo. Each B chunk (k or v) is split in its slot, its
+// lo into b_lo. `n` counts the slots consumed; `bar` is the warpgroup's
+// barrier.
+template <int QC>
+__device__ __forceinline__ void dq_score(float (&acc)[32], const float* a_hi, float* a_lo,
+                                         float a_mul, float* ring, float* b_lo, uint64_t* full,
+                                         uint64_t* empty, int& n, int n_ch, int tid, int bar) {
+  for (int c = 0; c < n_ch; ++c) {
+    const float* ah;
+    const float* al;
+    int sa = 0;
+    if constexpr (QC > 0) {
+      ah = a_hi + c * kFChunk;
+      al = a_lo + c * kFChunk;
+    } else {
+      sa = n % kDqSlots;
+      float* aslot = ring + sa * kFChunk;
+      mbar_wait(&full[sa], (n / kDqSlots) & 1);
+      ++n;
+      split_chunk(aslot, a_lo, a_mul, tid);
+      ah = aslot;
+      al = a_lo;
+    }
+    const int sb = n % kDqSlots;
+    float* bslot = ring + sb * kFChunk;
+    mbar_wait(&full[sb], (n / kDqSlots) & 1);
+    ++n;
+    split_chunk(bslot, b_lo, 1.f, tid);
+    fence_proxy_async();
+    named_sync(bar, kConsumers);
+    wg_fence();
+    wgmma_tf32x3(acc, ah, al, bslot, b_lo, c == 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    named_sync(bar, kConsumers);  // every warp's products are done with the lo chunks
+    if constexpr (QC == 0) mbar_arrive(&empty[sa]);
+    mbar_arrive(&empty[sb]);
+  }
 }
+
+// dq {+}= dS K over `n_sc` chunks of k streamed raw through the ring from
+// column `col`: mma.sync, dS (accumulator layout) from registers, K rows
+// gathered from the raw chunk and split there (tf32.cuh)
+template <int SC>
+__device__ __forceinline__ void dq_update(float (&acc)[SC][32], const float (&ds)[32],
+                                          float* ring, uint64_t* full, uint64_t* empty, int& n,
+                                          int n_sc, int col, int d, const BOffsets& bo) {
+#pragma unroll
+  for (int i = 0; i < SC; ++i) {
+    if (i < n_sc) {
+      const int s = n % kDqSlots;
+      mbar_wait(&full[s], (n / kDqSlots) & 1);
+      ++n;
+      mma_tf32x3_chunk(acc[i], ds, ring + s * kFChunk, live_ntiles(d, col + 64 * i), bo);
+      mbar_arrive(&empty[s]);
+    }
+  }
+}
+
+// a key tile's bias (-1e9 masked, -inf past Tk), written by a producer warp
+__device__ __forceinline__ void fill_bias(float* bias, const BwdParams& p, const uint8_t* mask,
+                                          int k0, int lane) {
+  for (int j = lane; j < kTile; j += 32) {
+    const int key = k0 + j;
+    bias[j] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+  }
+}
+
+// the rows' lse and delta for query rows r_lo and r_lo + 8 of the tile from
+// q0 (lse = +inf past Tq: P = 0 there)
+__device__ __forceinline__ void row_stats(const BwdParams& p, size_t bh, int q0, int r_lo,
+                                          float (&lse_r)[2], float (&delta_r)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r_lo + 8 * r;
+    lse_r[r] = row < p.Tq ? p.lse[bh * p.Tq + row] : pos_inf();
+    delta_r[r] = row < p.Tq ? p.delta[bh * p.Tq + row] : 0.f;
+  }
+}
+
+// QC: chunks of q and of dO kept resident (2 at D 65-128), 0 when both are
+// streamed beside k and v (D <= 64)
+template <int QC>
+constexpr size_t dq_tf32_smem_bytes() {
+  return 1024 +
+         sizeof(float) * ((size_t)(QC > 0 ? 4 * QC : 1) * kFChunk +
+                          (size_t)(kDqSlots + 1) * kFChunk + kBiasTiles * kTile) +
+         sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * (2 * kDqSlots + 1);
+}
+
+// SC: chunks of dq (1 at D <= 64, else 2). Two CTAs share an SM where q and
+// dO are streamed, one where they are resident: at D <= 64 two CTAs of
+// streamed q and dO ran faster than one with them resident, at 128 slower.
+template <int QC, int SC, bool DROP>
+__global__ void __launch_bounds__(kHopThreads, QC == 0 ? 2 : 1) dq_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  // QC > 0: q * scale (hi, then lo) and dO (hi, then lo), QC chunks each;
+  // QC = 0: the lo of the streamed q or dO chunk
+  float* res = reinterpret_cast<float*>(align1024(smem_raw));
+  float* q_hi = res;
+  float* q_lo = res + QC * kFChunk;
+  float* do_hi = res + 2 * QC * kFChunk;
+  float* do_lo = res + 3 * QC * kFChunk;
+  float* ring = res + (QC > 0 ? 4 * QC : 1) * kFChunk;  // kDqSlots chunks
+  float* b_lo = ring + kDqSlots * kFChunk;               // lo of the k or v chunk in use
+  float* bias_ring = b_lo + kFChunk;                     // kBiasTiles x 64
+  uint32_t* bits = reinterpret_cast<uint32_t*>(bias_ring + kBiasTiles * kTile);  // 2 x 128 words
+  uint64_t* full = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
+  uint64_t* empty = full + kDqSlots;
+  uint64_t* qbar = empty + kDqSlots;
+
+  const int tid = threadIdx.x;
+  const int n_ch = (p.D + 63) / 64;  // 64-column chunks of the head dim
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  const int score_fills = (QC > 0 ? 1 : 2) * n_ch;  // ring slots of one score product
+  if (tid == 0) {
+    for (int s = 0; s < kDqSlots; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Per key tile the producer fills the slots of dP's operands (v chunk c,
+  // or dO chunk c and v chunk c), then of S's (k, or q and k), then the k
+  // chunks again, raw, for dq += dS K: at least three slots, so when it
+  // fills tile t's first slot the consumers have released a slot of tile
+  // t - 1 and are done with tile t - 2's key bias (tile t overwrites tile
+  // t - 4's).
+  if (tid >= kConsumers) {
+    const int lane = tid - kConsumers;
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    if (QC > 0 && lane == 0) {
+      mbar_arrive_tx(qbar, 2 * QC * kFChunkBytes);
+      for (int c = 0; c < QC; ++c) {
+        tma_chunk(q_hi + c * kFChunk, &tm_q, qbar, 64 * c, q0, h, b);
+        tma_chunk(do_hi + c * kFChunk, &tm_do, qbar, 64 * c, q0, h, b);
+      }
+    }
+    int n = 0;  // slots filled so far
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kTile;
+      for (int f = 0; f < 2 * score_fills + n_ch; ++f, ++n) {
+        const int s = n % kDqSlots;
+        if (n >= kDqSlots) mbar_wait(&empty[s], ((n / kDqSlots) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], kFChunkBytes);
+          float* slot = ring + s * kFChunk;
+          if (f < 2 * score_fills) {
+            const bool dp = f < score_fills;  // dP's operands
+            const int i = dp ? f : f - score_fills;
+            const bool is_a = QC == 0 && (i & 1) == 0;  // a streamed dO or q chunk
+            const int c = QC > 0 ? i : i >> 1;
+            const CUtensorMap* map = is_a ? (dp ? &tm_do : &tm_q) : (dp ? &tm_v : &tm_k);
+            tma_chunk(slot, map, &full[s], 64 * c, is_a ? q0 : k0, h, b);
+          } else {
+            tma_chunk(slot, &tm_k, &full[s], 64 * (f - 2 * score_fills), k0, h, b);
+          }
+        }
+        if (f == 0) fill_bias(bias_ring + (t % kBiasTiles) * kTile, p, mask, k0, lane);
+        mbar_arrive(&full[s]);  // each lane after its own writes
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: query rows r_lo and r_lo + 8 of the tile per thread
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int r_lo = (tid >> 5) * 16 + (lane >> 2);
+  const uint32_t seed = DROP ? (uint32_t)p.seed[bh] : 0u;
+  const float inv_keep = 1.f / p.keep;
+  const BOffsets bo = b_offsets(lane);
+  float lse_r[2], delta_r[2];
+  row_stats(p, bh, q0, r_lo, lse_r, delta_r);
+  if constexpr (QC > 0) {
+    // q * scale (rounded to float32 first, the plain version's rounding
+    // point) and dO split once for the whole sweep; the first chunk's fence
+    // and barrier below publish them to wgmma
+    mbar_wait(qbar, 0);
+    for (int c = 0; c < QC; ++c) {
+      split_chunk(q_hi + c * kFChunk, q_lo + c * kFChunk, p.scale, tid);
+      split_chunk(do_hi + c * kFChunk, do_lo + c * kFChunk, 1.f, tid);
+    }
+  }
+  float* a_lo_q = QC > 0 ? q_lo : res;  // QC = 0: one lo chunk for q and dO
+  float* a_lo_do = QC > 0 ? do_lo : res;
+
+  float acc[SC][32];  // dq, 64 columns per chunk
+#pragma unroll
+  for (int i = 0; i < SC; ++i) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  }
+
+  int n = 0;  // slots consumed so far
+  for (int t = 0; t < n_tiles; ++t) {
+    // the keep bits of this tile; double-buffered, and the barriers of dP's
+    // first chunk order the fill against every reader
+    uint32_t* tb = bits + (t & 1) * 2 * kTile;
+    if constexpr (DROP)
+      fill_keep_bits(tb, kTile, p.row0 + q0, p.col0 + t * kTile, seed, p.threshold, tid,
+                     kConsumers);
+
+    // dP = dO V^T, then S = (q * scale) K^T, over the head dim's chunks
+    float dpacc[32], sacc[32];
+    dq_score<QC>(dpacc, do_hi, a_lo_do, 1.f, ring, b_lo, full, empty, n, n_ch, tid, 1);
+    dq_score<QC>(sacc, q_hi, a_lo_q, p.scale, ring, b_lo, full, empty, n, n_ch, tid, 1);
+
+    // P = exp(S + bias - lse) (a fully masked row: lse = -1e9 = S + bias,
+    // P = 1), dP dropped (times 1 / (1 - rate) where kept), dS = P (dP -
+    // delta) in place of S
+    const float* bias = bias_ring + (t % kBiasTiles) * kTile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bias2 = reinterpret_cast<const float2*>(bias)[4 * j + t4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pj = exp_approx(sacc[4 * j + e] + ((e & 1) ? bias2.y : bias2.x) - lse_r[r]);
+        float dpj = dpacc[4 * j + e];
+        if constexpr (DROP) dpj *= keep_scale(tb, r_lo + 8 * r, 8 * j + 2 * t4 + (e & 1), inv_keep);
+        sacc[4 * j + e] = pj * (dpj - delta_r[r]);
+      }
+    }
+    dq_update<SC>(acc, sacc, ring, full, empty, n, n_ch, 0, p.D, bo);
+  }
+
+  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < SC; ++i)
+    store_rows_f32(dq, p.dq_st, q0, p.Tq, 64 * i, p.D, acc[i], p.scale, tid);
+}
+
+constexpr int kWideThreads = 2 * kHopThreads;  // two consumer warpgroups, two producer warps
+
+// per warpgroup a ring and the lo of its A and B chunks, then the shared
+// exchange of P and dS (32 floats a thread), the key bias and the keep bits
+constexpr size_t dq_tf32_wide_smem_bytes() {
+  return 1024 + sizeof(float) * ((size_t)(2 * (kDqSlots + 2) + 1) * kFChunk + kBiasTiles * kTile) +
+         sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * 2 * 2 * kDqSlots;
+}
+
+// Above head dim 128. Warpgroup 0 (threads 0-127) computes S = (q * scale)
+// K^T over the whole head dim and warpgroup 1 (128-255) dP = dO V^T, both
+// from chunks streamed with TMA by their own producer warp (256-287,
+// 288-319) through their own ring; warpgroup 0 writes P to shared memory,
+// warpgroup 1 turns it into dS there (a thread reads and writes the element
+// its namesake in the other warpgroup holds: the accumulator layout depends
+// on the thread's index in its warpgroup only), and each accumulates dq over
+// its slice of the pair from its producer's raw k chunks. So S and dP run
+// once per pair of slices, not once per slice.
+template <bool DROP>
+__global__ void __launch_bounds__(kWideThreads, 1) dq_tf32_wide_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  float* res = reinterpret_cast<float*>(align1024(smem_raw));
+  float* xch = res + 2 * (kDqSlots + 2) * kFChunk;  // P, then dS: element e of thread t at e 128 + t
+  float* bias_ring = xch + kFChunk;                  // kBiasTiles x 64
+  uint32_t* bits = reinterpret_cast<uint32_t*>(bias_ring + kBiasTiles * kTile);  // 2 x 128 words
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
+
+  const int tid = threadIdx.x;
+  const int w = tid < 2 * kConsumers ? tid >> 7 : (tid - 2 * kConsumers) >> 5;  // warpgroup
+  float* ring = res + w * (kDqSlots + 2) * kFChunk;  // kDqSlots chunks
+  float* a_lo = ring + kDqSlots * kFChunk;           // lo of the q or dO chunk in use
+  float* b_lo = a_lo + kFChunk;                      // lo of the k or v chunk in use
+  uint64_t* full = bars + w * 2 * kDqSlots;
+  uint64_t* empty = full + kDqSlots;
+
+  const int n_ch = (p.D + 63) / 64;
+  const int n_pairs = (n_slices(p.D) + 1) / 2;
+  const int q0 = (blockIdx.x / n_pairs) * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = (2 * (blockIdx.x % n_pairs) + w) * kSlice;  // the warpgroup's slice
+  const int sl_ch = max(0, min(2, n_ch - c0 / 64));             // its chunks that hold columns
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < 2 * kDqSlots; ++s) {
+      mbar_init(&bars[(s / kDqSlots) * 2 * kDqSlots + s % kDqSlots], 32);
+      mbar_init(&bars[(s / kDqSlots) * 2 * kDqSlots + kDqSlots + s % kDqSlots], kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Per key tile producer w fills n_ch (A chunk c, B chunk c) slot pairs, S's
+  // (q, k) for warpgroup 0 and dP's (dO, v) for 1, then its slice's raw k
+  // chunks: at least six slots, so when producer 0 fills tile t's first slot
+  // warpgroup 0 has released a slot of tile t - 1 and is done with tile t -
+  // 2's key bias (tile t overwrites tile t - 4's).
+  if (tid >= 2 * kConsumers) {
+    const int lane = tid & 31;
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    int n = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kTile;
+      for (int f = 0; f < 2 * n_ch + sl_ch; ++f, ++n) {
+        const int s = n % kDqSlots;
+        if (n >= kDqSlots) mbar_wait(&empty[s], ((n / kDqSlots) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], kFChunkBytes);
+          float* slot = ring + s * kFChunk;
+          if (f < 2 * n_ch) {
+            const bool is_a = (f & 1) == 0;
+            const CUtensorMap* map = is_a ? (w == 0 ? &tm_q : &tm_do) : (w == 0 ? &tm_k : &tm_v);
+            tma_chunk(slot, map, &full[s], 64 * (f >> 1), is_a ? q0 : k0, h, b);
+          } else {
+            tma_chunk(slot, &tm_k, &full[s], c0 + 64 * (f - 2 * n_ch), k0, h, b);
+          }
+        }
+        if (w == 0 && f == 0) fill_bias(bias_ring + (t % kBiasTiles) * kTile, p, mask, k0, lane);
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int ltid = tid & (kConsumers - 1);
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int r_lo = (ltid >> 5) * 16 + (lane >> 2);
+  const uint32_t seed = DROP ? (uint32_t)p.seed[bh] : 0u;
+  const float inv_keep = 1.f / p.keep;
+  const BOffsets bo = b_offsets(lane);
+  float lse_r[2], delta_r[2];
+  row_stats(p, bh, q0, r_lo, lse_r, delta_r);
+  float* x = xch + ltid;
+
+  float acc[2][32];  // the slice's columns of dq, 64 per chunk
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  }
+
+  int n = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    float sacc[32];
+    if (w == 0) {
+      // S, then P = exp(S + bias - lse) to the exchange (a fully masked row:
+      // lse = -1e9 = S + bias, P = 1)
+      dq_score<0>(sacc, nullptr, a_lo, p.scale, ring, b_lo, full, empty, n, n_ch, ltid, 1);
+      const float* bias = bias_ring + (t % kBiasTiles) * kTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bias2 = reinterpret_cast<const float2*>(bias)[4 * j + t4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[(4 * j + e) * kConsumers] =
+              exp_approx(sacc[4 * j + e] + ((e & 1) ? bias2.y : bias2.x) - lse_r[e >> 1]);
+      }
+      named_sync(3, 2 * kConsumers);  // P is written
+      named_sync(3, 2 * kConsumers);  // dS is written
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sacc[e] = x[e * kConsumers];
+    } else {
+      // the keep bits of this tile (double-buffered; dq_score's barriers
+      // order the fill against the readers), dP, then dS = P (dP - delta),
+      // dP dropped (times 1 / (1 - rate) where kept)
+      uint32_t* tb = bits + (t & 1) * 2 * kTile;
+      if constexpr (DROP)
+        fill_keep_bits(tb, kTile, p.row0 + q0, p.col0 + t * kTile, seed, p.threshold, ltid,
+                       kConsumers);
+      dq_score<0>(sacc, nullptr, a_lo, 1.f, ring, b_lo, full, empty, n, n_ch, ltid, 2);
+      named_sync(3, 2 * kConsumers);  // P is written
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float dpj = sacc[4 * j + e];
+          if constexpr (DROP) dpj *= keep_scale(tb, r_lo + 8 * r, 8 * j + 2 * t4 + (e & 1), inv_keep);
+          sacc[4 * j + e] = x[(4 * j + e) * kConsumers] * (dpj - delta_r[r]);
+          x[(4 * j + e) * kConsumers] = sacc[4 * j + e];
+        }
+      }
+      named_sync(3, 2 * kConsumers);  // dS is written
+    }
+    dq_update<2>(acc, sacc, ring, full, empty, n, sl_ch, c0, p.D, bo);
+  }
+
+  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    store_rows_f32(dq, p.dq_st, q0, p.Tq, c0 + 64 * i, p.D, acc[i], p.scale, ltid);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
 // bf16 launch (K2, K3, K4): tensor maps and dispatch
@@ -1889,11 +2062,11 @@ struct Maps {
 
 template <typename Kernel>
 int launch_hop(Kernel kernel, size_t smem, dim3 grid, const Maps& m, const BwdParams& p,
-               cudaStream_t stream) {
+               cudaStream_t stream, int threads = kHopThreads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kHopThreads, smem, stream>>>(m.q, m.k, m.v, m.dout, p);
+  kernel<<<grid, threads, smem, stream>>>(m.q, m.k, m.v, m.dout, p);
   return (int)cudaGetLastError();
 }
 
@@ -1978,11 +2151,30 @@ int run_dkv_tf32(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// float32: K3 on the FMA kernels; K2 and K4 on operands TMA can address in
-// place (-5 otherwise)
+// float32 K3 on the TF32 kernels: up to head dim 64 q and dO streamed, at
+// 65-128 resident, above 128 the two-warpgroup kernel
+int run_dq_tf32(const Maps& m, const BwdParams& p, cudaStream_t s) {
+  const bool drop = p.seed != nullptr;
+  const int n_qt = (p.Tq + kTile - 1) / kTile;
+  if (p.D <= 64) {
+    const size_t smem = dq_tf32_smem_bytes<0>();
+    return drop ? launch_hop(dq_tf32_kernel<0, 1, true>, smem, dim3(n_qt, p.H, p.B), m, p, s)
+                : launch_hop(dq_tf32_kernel<0, 1, false>, smem, dim3(n_qt, p.H, p.B), m, p, s);
+  }
+  if (p.D <= kSlice) {
+    const size_t smem = dq_tf32_smem_bytes<2>();
+    return drop ? launch_hop(dq_tf32_kernel<2, 2, true>, smem, dim3(n_qt, p.H, p.B), m, p, s)
+                : launch_hop(dq_tf32_kernel<2, 2, false>, smem, dim3(n_qt, p.H, p.B), m, p, s);
+  }
+  const dim3 grid(n_qt * ((n_slices(p.D) + 1) / 2), p.H, p.B);
+  return launch_hop(drop ? dq_tf32_wide_kernel<true> : dq_tf32_wide_kernel<false>,
+                    dq_tf32_wide_smem_bytes(), grid, m, p, s, kWideThreads);
+}
+
+// float32: K2, K3 and K4 on operands TMA can address in place (-5
+// otherwise)
 int run_float(const BwdParams& p, int which, cudaStream_t s) {
   if (which < 0 || which > 2) return -3;
-  if (which == 1) return p.seed != nullptr ? run_dq_f32<true>(p, s) : run_dq_f32<false>(p, s);
   if (!tma_legal(p.q, p.q_sb, p.q_sh, p.q_st, 4) || !tma_legal(p.k, p.k_sb, p.k_sh, p.k_st, 4) ||
       !tma_legal(p.v, p.v_sb, p.v_sh, p.v_st, 4) ||
       !tma_legal(p.dout, p.do_sb, p.do_sh, p.do_st, 4))
@@ -1994,6 +2186,7 @@ int run_float(const BwdParams& p, int which, cudaStream_t s) {
   if (rc == 0)
     rc = encode_map(&m.dout, p.dout, p.B, p.H, p.Tq, p.D, p.do_sb, p.do_sh, p.do_st, true);
   if (rc != 0) return rc;
+  if (which == 1) return run_dq_tf32(m, p, s);
   const bool drop = p.seed != nullptr;
   if (p.D <= 64) return drop ? run_dkv_tf32<1, true>(m, p, which, s) : run_dkv_tf32<1, false>(m, p, which, s);
   return drop ? run_dkv_tf32<2, true>(m, p, which, s) : run_dkv_tf32<2, false>(m, p, which, s);

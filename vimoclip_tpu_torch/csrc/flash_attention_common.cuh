@@ -30,13 +30,6 @@ constexpr float kMaskValue = -1e9f;  // ops/attention.py _MASK_VALUE
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
-// Score of key `key` after masking: left out past Tk, -1e9 added if masked.
-__device__ __forceinline__ float mask_score(float s, int key, int tk, const uint8_t* mask) {
-  if (key >= tk) return neg_inf();
-  if (mask != nullptr && mask[key]) return s + kMaskValue;
-  return s;
-}
-
 __device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t k0) {
   uint32_t c2 = 0u, c3 = 0u, k1 = 0u;
 #pragma unroll
@@ -82,10 +75,6 @@ __device__ __forceinline__ void fill_keep_bits(uint32_t* bits, int rows, int r0,
     }
     bits[w] = word;
   }
-}
-
-__device__ __forceinline__ bool kept(const uint32_t* bits, int r, int j) {
-  return (bits[2 * r + (j >> 5)] >> (j & 31)) & 1u;
 }
 
 }  // namespace vimo

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the float32 attention kernels
 // (flash_attention_fwd.cu: fwd_tf32_kernel; flash_attention_bwd.cu:
-// dkv_tf32_kernel): three-pass TF32 products on the tensor cores.
+// dkv_tf32_kernel, dq_tf32_kernel, dq_tf32_wide_kernel): three-pass TF32
+// products on the tensor cores.
 //
 // Three passes. Each float32 operand x is split into hi = rna_tf32(x) and
 // lo = rna_tf32(x - hi) (cvt.rna.tf32.f32: round to nearest, ties away, to
@@ -22,11 +23,12 @@
 // Two product routes (wgmma takes TF32 operands from shared memory only
 // K-major; the transpose bits exist for 16-bit types only):
 // - wgmma m64n64k8 with both operands K-major from shared memory (SS): the
-//   score products S = Qs.K^T, S^T = K.Qs^T and dP^T = V.dO^T read the raw
-//   q/k/v/dO chunks TMA wrote, each split in place into hi and into a lo
-//   copy beside it;
+//   score products S = Qs.K^T, S^T = K.Qs^T, dP = dO.V^T and dP^T = V.dO^T
+//   read the raw q/k/v/dO chunks TMA wrote, each split in place into hi and
+//   into a lo copy beside it;
 // - mma.sync m16n8k8 (per warp, 16 rows) where B would have to be
-//   MN-major (O += P.V, dV += P^T.dO, dK += dS^T.Q, K2's dQ share dS.K):
+//   MN-major (O += P.V, dV += P^T.dO, dK += dS^T.Q, K2's dQ share and K3's
+//   dQ, dS.K):
 //   A comes from registers (the accumulator of the score product, split in
 //   registers), B is gathered from the raw chunk by ld.shared and split in
 //   registers. Transposed hi/lo copies for wgmma would need 32 KB per chunk

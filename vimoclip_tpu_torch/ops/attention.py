@@ -70,23 +70,26 @@ IMPLEMENTATIONS = ("xla", "flash", "auto", "ring", "ring_inner")
 # quotes). Shorter keys were not measured; the TFAM pipelines pad to
 # multiples of 128. Those steps ran bf16; in float32 (phase 17, 8 heads, the
 # three-pass TF32 kernels) the kernels won every bucket from 128 to 2048
-# frames as well (train 22.8 against 49.1 ms at 128, 163.9 against 881.9 at
-# 2048; eval 3.05 against 3.96 at 128).
+# frames as well (train 20.0 against 61.1 ms at 128, 128.0 against 886.2 at
+# 2048; eval 3.75 against 5.39 at 128; same card and limit).
 AUTO_FLASH_MIN_T_NODROP = 128
-# Above head dim 128 (the wide kernels) the crossovers depend on the dtype.
-# chip_smoke.py phase 17 timed TFAM's steps (d512, 4 layers, batch 8) at 2
-# heads (head dim 256) and 1 (512) on an NVIDIA H100 80GB HBM3 (700 W). In
-# bf16 the kernels won every bucket from 128 to 2048 frames, with dropout
-# and without, but the 1-head eval step at 2048 (9.22 against 8.60 ms
-# eager). In float32, the stage-2 trainer's default, on the three-pass TF32
-# kernels: with dropout 0.1 the kernels' train step won up to the 512-frame
-# bucket at both head counts (28.4 against 56.4 ms eager at 2 heads) and
-# lost from 1024 at 1 head (134.4 against 72.7), where the float32 dq sweep
-# (K3, still on the FMA units) runs; at 2 heads they stayed within 5% of
-# eager from 1024 on; without dropout the eval step won up to 512 frames
-# (5.11 against 5.45 ms at 2 heads) and lost from 1024 (11.89 against
-# 11.65).
-AUTO_WIDE_FLASH_MAX_T_DROP = 1024
+# Above head dim 128 (the wide kernels) the crossover depends on the dtype
+# and on dropout. chip_smoke.py phase 17 timed TFAM's steps (d512, 4 layers,
+# batch 8) at 2 heads (head dim 256) and 1 (512), eager against the kernels,
+# on an NVIDIA H100 80GB HBM3 (700.00 W). In bf16 the kernels won every
+# bucket from 128 to 2048 frames, with dropout and without, but the 1-head
+# eval step at 2048 (9.12 against 8.49 ms eager). In float32, the stage-2
+# trainer's default, on the three-pass TF32 kernels (K3 among them since
+# the float32 dq sweep left the FMA units): with dropout 0.1 the kernels'
+# train step won every bucket at 2 heads (57.5 against 103.5 ms eager at
+# 1024, 148.3 against 296.8 at 2048) and every bucket but 2048 at 1 head
+# (67.1 against 73.3 at 1024; 202.4 against 196.8 at 2048), so a train
+# step takes the kernels at every length: a cut at 2048 keys would have
+# doubled the 2-head step there to save 3% of the 1-head one. Without
+# dropout the eval step (K1 alone) won up to 512 frames at 2 heads (5.96
+# against 7.70 ms), tied at 1024 (12.12 against 12.28) and lost at 2048
+# (32.65 against 29.79); at 1 head it lost from 512 (5.86 against 5.39) and
+# by 40% at 1024 (14.72 against 10.50).
 AUTO_WIDE_FLASH_MAX_T_NODROP = 1024
 
 
@@ -95,18 +98,16 @@ def _auto_impl(is_cuda: bool, dropping: bool, tk: int, head_dim: int,
     """``auto``'s route on CUDA tensors, by the crossovers measured for
     each head dim and dtype: up to ``WIDE_ABOVE_HEAD_DIM`` the kernels
     ("flash") when dropout is active or the keys reach
-    ``AUTO_FLASH_MIN_T_NODROP``; above it in bf16 the kernels, and in
-    float32 the kernels while the keys stay below
-    ``AUTO_WIDE_FLASH_MAX_T_DROP`` with dropout,
-    ``AUTO_WIDE_FLASH_MAX_T_NODROP`` without. Eager attention ("xla")
+    ``AUTO_FLASH_MIN_T_NODROP``; above it the kernels in bf16 and, in
+    float32, with dropout, and without dropout in float32 while the keys
+    stay below ``AUTO_WIDE_FLASH_MAX_T_NODROP``. Eager attention ("xla")
     otherwise, and on the CPU."""
     if not is_cuda:
         return "xla"
     if head_dim > WIDE_ABOVE_HEAD_DIM:
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 or dropping:
             return "flash"
-        max_t = AUTO_WIDE_FLASH_MAX_T_DROP if dropping else AUTO_WIDE_FLASH_MAX_T_NODROP
-        return "flash" if tk < max_t else "xla"
+        return "flash" if tk < AUTO_WIDE_FLASH_MAX_T_NODROP else "xla"
     return "flash" if dropping or tk >= AUTO_FLASH_MIN_T_NODROP else "xla"
 
 

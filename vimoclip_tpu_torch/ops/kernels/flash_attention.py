@@ -22,11 +22,11 @@ copies into shared memory; with dropout K3 also writes the keep bits of each
 64x64 tile to a uint32 buffer that K4 reads instead of drawing them again
 (K1' and K2 draw their own). In float32 K1, K1', K2 and K4 run on the
 tensor cores too, each product as three TF32 passes (hi.hi + hi.lo + lo.hi
-of operands split in two, ``csrc/tf32.cuh``), from tiles TMA copies; K3
-does its products with FMAs. TMA needs a 16-byte aligned start and strides
-of 16-byte multiples: ``_launch_fwd`` and ``backward_kernels`` hand the
-kernels a padded copy of any operand that lacks them (``tma_legal``,
-``tma_operand``).
+of operands split in two, ``csrc/tf32.cuh``), from tiles TMA copies, and so
+does K3, which keeps no keep-bit buffer in float32. TMA needs a 16-byte
+aligned start and strides of 16-byte multiples: ``_launch_fwd`` and
+``backward_kernels`` hand the kernels a padded copy of any operand that
+lacks them (``tma_legal``, ``tma_operand``).
 
 The sources' headers say what bounds each kernel on the H100 and what the
 design does about it.
@@ -600,33 +600,52 @@ def reset_launch_counts() -> None:
 
 
 def kernel_keep_bits(kind: str, seed: torch.Tensor, rows: int, cols: int, dropout_rate: float,
-                     row0: int = 0, col0: int = 0, head_dim: int = 64) -> torch.Tensor:
-    """The keep bits a bf16 kernel draws for (``row0`` + r, ``col0`` + c),
-    r < ``rows``, c < ``cols``, read back from the card: (B, H, rows, cols)
-    bool, for holding the kernels' bits to ``dropout_keep_mask`` bit for
-    bit. ``seed``: (B, H) int32 on the card; ``head_dim``: which kernel
-    draws them (above 128 the wide ones; the probes below sit in its first
-    64 columns, zeros past them).
+                     row0: int = 0, col0: int = 0, head_dim: int = 64,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The keep bits a kernel of ``dtype`` draws for (``row0`` + r,
+    ``col0`` + c), r < ``rows``, c < ``cols``, read back from the card:
+    (B, H, rows, cols) bool, for holding the kernels' bits to
+    ``dropout_keep_mask`` bit for bit. ``seed``: (B, H) int32 on the card;
+    ``head_dim``: which kernel draws them (above 128 the wide ones; the
+    probes below sit in its first 64 columns, zeros past them).
 
     - ``fwd_lse`` (K1'): q = k = 0 and v = I over 64-key windows, so
       o[r, c] = keep[r, c] / (64 (1 - p)); ``cols`` a multiple of 64;
     - ``bwd_dqkv`` (K2, ``cols`` <= 512): q = k = v = 0, lse = delta = 0 and
       dO = I over 64-row windows, so dv[c, r] = keep[r, c] / (1 - p);
       ``rows`` a multiple of 64;
-    - ``bwd_dq`` (K3, ``cols`` > 512): the keep-bit buffer it fills for K4.
+    - ``bwd_dq`` (K3): in bf16 (``cols`` > 512) the keep-bit buffer it
+      fills for K4; in float32, which keeps no buffer, q = 0 and lse =
+      delta = 0 (P = 1), dO = v = e_0 (dP = 1) and k = I over 64-key
+      windows, so dq[r, c] = scale keep[r, c] / (1 - p); ``cols`` a
+      multiple of 64.
     Each launch counts as any other."""
     b, h = seed.shape
-    dev, bf, d = seed.device, torch.bfloat16, head_dim
-    eye = torch.zeros(b, h, 64, d, dtype=bf, device=dev)
-    eye[..., :64] = torch.eye(64, dtype=bf, device=dev)
+    dev, dt, d = seed.device, dtype, head_dim
+    eye = torch.zeros(b, h, 64, d, dtype=dt, device=dev)
+    eye[..., :64] = torch.eye(64, dtype=dt, device=dev)
+    if kind == "bwd_dq" and dtype == torch.float32:
+        q = torch.zeros(b, h, rows, d, dtype=dt, device=dev)
+        zero = torch.zeros(b, h, rows, dtype=torch.float32, device=dev)
+        grad = q.clone()
+        grad[..., 0] = 1.0
+        v = torch.zeros(b, h, 64, d, dtype=dt, device=dev)
+        v[..., 0] = 1.0
+        outs = []
+        for c in range(0, cols, 64):
+            dq = _heads_major(b, rows, h, d, dt, dev)
+            _launch_bwd("bwd_dq", q, eye, v, None, seed, dropout_rate, zero, zero, grad, dq,
+                        None, None, row0=row0, col0=col0 + c)
+            outs.append(dq[..., :64])
+        return torch.cat(outs, dim=-1) != 0
     if kind == "fwd_lse":
-        q, k = (torch.zeros(b, h, n, d, dtype=bf, device=dev) for n in (rows, 64))
+        q, k = (torch.zeros(b, h, n, d, dtype=dt, device=dev) for n in (rows, 64))
         outs = [forward_lse(q, k, eye, None, seed, dropout_rate, row0, col0 + c)[0][..., :64]
                 for c in range(0, cols, 64)]
         return torch.cat(outs, dim=-1) != 0
     if kind == "bwd_dqkv":
-        q = torch.zeros(b, h, 64, d, dtype=bf, device=dev)
-        k = torch.zeros(b, h, cols, d, dtype=bf, device=dev)
+        q = torch.zeros(b, h, 64, d, dtype=dt, device=dev)
+        k = torch.zeros(b, h, cols, d, dtype=dt, device=dev)
         zero = torch.zeros(b, h, 64, dtype=torch.float32, device=dev)
         outs = [backward_kernels(q, k, k, None, seed, dropout_rate, None, zero, eye,
                                  row0 + r, col0, delta=zero)[2][..., :64].transpose(-1, -2)
@@ -634,12 +653,12 @@ def kernel_keep_bits(kind: str, seed: torch.Tensor, rows: int, cols: int, dropou
         return torch.cat(outs, dim=-2) != 0
     if kind != "bwd_dq":
         raise ValueError(f"no keep-bit probe for {kind!r}")
-    q = torch.zeros(b, h, rows, d, dtype=bf, device=dev)
-    k = torch.zeros(b, h, cols, d, dtype=bf, device=dev)
+    q = torch.zeros(b, h, rows, d, dtype=dt, device=dev)
+    k = torch.zeros(b, h, cols, d, dtype=dt, device=dev)
     zero = torch.zeros(b, h, rows, dtype=torch.float32, device=dev)
     nk, tq_pad = -(-cols // 64), -(-rows // 64) * 64
     bits = torch.zeros(b, h, nk, tq_pad, 2, dtype=torch.int32, device=dev)
-    dq = _heads_major(b, rows, h, d, bf, dev)
+    dq = _heads_major(b, rows, h, d, dt, dev)
     _launch_bwd("bwd_dq", q, k, k, None, seed, dropout_rate, zero, zero, q, dq, None, None,
                 bits, row0=row0, col0=col0)
     shifts = torch.arange(32, device=dev, dtype=torch.int64)
