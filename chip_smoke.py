@@ -176,7 +176,12 @@ NVIDIA card:
     the wide launches of every step, ``validate`` (K1), 15 steps on one
     batch that lower the loss, a dropout-0 step against ``xla`` (loss 1e-4,
     gradients 5e-3 rel. L2), warm step time and idle share beside eager
-    attention's and phase 6's 8-head step; then ``auto``'s measurement:
+    attention's and phase 6's 8-head step; the recipe in bf16
+    (``half_precision``, the paired kernels) at 2 and 1 heads on ``flash``,
+    launches counted from 0 over a train step at the 512-frame bucket (K1',
+    K2), one at 1024 frames (K1', K3 + K4), an eval step (K1) and 15 steps
+    that lower the loss, then its warm step time and idle share at both
+    buckets; then ``auto``'s measurement:
     train steps with dropout 0.1 and eval steps without, eager against the
     kernels, at the 128- to 2048-frame buckets, 2 and 1 heads, float32 and
     bf16; (c) the ring on 2 in-process shards at (8, 2, 2048, 2048, 256)
@@ -246,7 +251,7 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (float32 K1, K1', K2 and K4: one three-pass TF32 template each at every
 # head dim; K3 one up to head dim 128 and one above)
 _FWD_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_wgmma_kernel",)}
-_FWD_WIDE_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_wide_wgmma_kernel",)}
+_FWD_WIDE_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_pair_wgmma_kernel",)}
 _DQKV_F32 = ("dkv_tf32_kernel", "dq_reduce_kernel<float")
 KERNEL_NAMES = {
     "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
@@ -254,23 +259,27 @@ KERNEL_NAMES = {
                  "bfloat16": ("dqkv_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
     "bwd_dq": {"float32": ("dq_tf32_kernel",), "bfloat16": ("dq_wgmma_kernel",)},
     "bwd_dkv": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_wgmma_kernel",)},
-    # above head dim 128 (one template serves wide K2 and K4)
+    # above head dim 128 (one template serves wide K2 and K4; in bf16 the
+    # paired kernels take two 128-column slices per CTA)
     "fwd_wide": _FWD_WIDE_NAMES, "fwd_lse_wide": _FWD_WIDE_NAMES,
     "bwd_dqkv_wide": {"float32": _DQKV_F32,
-                      "bfloat16": ("dkv_wide_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
+                      "bfloat16": ("dkv_pair_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16",
+                                   "keep_bits_kernel")},
     "bwd_dq_wide": {"float32": ("dq_tf32_wide_kernel",), "bfloat16": ("dq_wide_wgmma_kernel",)},
-    "bwd_dkv_wide": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_wide_wgmma_kernel",)},
+    "bwd_dkv_wide": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_pair_wgmma_kernel",)},
 }
+# launched only with dropout (the wide bf16 K2's keep bits)
+DROPOUT_ONLY_KERNELS = ("keep_bits_kernel",)
 # each named kernel launches once per call
 KERNEL_PER_CALL = {kind: {dt: len(names) for dt, names in by_dtype.items()}
                    for kind, by_dtype in KERNEL_NAMES.items()}
 # the kernels whose SASS must hold HGMMA and UTMALDG, by library: every
 # bf16 one and the float32 TF32 ones
-WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_wide_wgmma_kernel",
+WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_pair_wgmma_kernel",
                                          "fwd_tf32_kernel"),
                  "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
                                          "dkv_wgmma_kernel", "dq_wide_wgmma_kernel",
-                                         "dkv_wide_wgmma_kernel", "dkv_tf32_kernel",
+                                         "dkv_pair_wgmma_kernel", "dkv_tf32_kernel",
                                          "dq_tf32_kernel", "dq_tf32_wide_kernel")}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
@@ -397,6 +406,8 @@ WIDE_MAIN_SHAPES = {"fwd_lse": (8, 2, 512, 512, 256), "bwd_dqkv": (8, 2, 512, 51
                     "bwd_dq": (8, 2, 768, 768, 256), "bwd_dkv": (8, 2, 768, 768, 256)}
 WIDE_SEQ_SHAPE = (8, 2, 2048, 2048, 256)
 WIDE_CROSSOVER_BUCKETS = (128, 256, 512, 1024, 2048)
+# the bf16 wide training path: K1' and K2 at 512 frames, K1', K3 and K4 at 1024
+WIDE_HALF_BUCKETS = (512, 1024)
 # (b) The memory-route corpus on the card against the CPU, four videos, the
 # tiny teacher in float32 on both: float32 sums in other orders; rel. L2 1e-4.
 CORPUS_CHECK_VIDEOS = 4
@@ -781,7 +792,8 @@ def phase_training_kernels(torch, seed: int, smi: str, main_shapes: dict,
                 # device event). K3 and K4 run in one backward; the
                 # profiler's kernel names split their times.
                 calls = [("fwd_lse", fwd)] + [(kind, bwd) for kind in kinds]
-                names = {kind: KERNEL_NAMES[fa.launch_kind(kind, d)][dtype_name]
+                names = {kind: tuple(n for n in KERNEL_NAMES[fa.launch_kind(kind, d)][dtype_name]
+                                     if rate or n not in DROPOUT_ONLY_KERNELS)
                          for kind, _ in calls}
                 kernel_ms = {kind: device_ms(torch, call, iters=10, names=names[kind],
                                              per_call=len(names[kind]))
@@ -3085,6 +3097,73 @@ def _wide_training(torch, setup: dict, heads: int, smi: str, base_step_ms: float
     }
 
 
+def _wide_training_half(torch, setup: dict, heads: int, smi: str) -> dict:
+    """Phase 17(b) in bf16 at ``heads`` heads: the AK recipe with
+    ``half_precision`` on ``flash``, the slice's main path. Launches are
+    counted from 0 over a train step at the 512-frame bucket (K1', K2), one
+    at the 1024-frame bucket (K1', K3 + K4), an eval step (K1) and 15 steps
+    on the 512-frame batch, which must lower the loss; then the warm step
+    time and idle share at both buckets."""
+    import tempfile
+
+    import numpy as np
+
+    from vimoclip_tpu_torch.data.pipeline import to_device
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = setup["cfg"]
+    layers, d = cfg.model.num_layers, cfg.model.d_model // heads
+    run = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    trainer = _wide_trainer(torch, setup, heads, run / "bf16", half=True)
+    check(trainer.dtype == torch.bfloat16, f"the half-precision trainer runs {trainer.dtype}")
+    rng = np.random.default_rng(heads)
+    batches = {}
+    for bucket in WIDE_HALF_BUCKETS:
+        items = _clips(rng, rng.integers(bucket - 27, bucket + 1, 8), cfg.model.d_model,
+                       cfg.data.num_classes, f"h{bucket}-")
+        batches[bucket] = to_device(trainer.collate(items), trainer.device)
+        got = tuple(batches[bucket]["embeddings"].shape[1:2])
+        check(got == (bucket,), f"bf16 bucket {bucket}: frames {got}")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    step_losses, per_step = {}, {}
+    for bucket, batch in batches.items():
+        before = dict(fa.flash_attention.launches)
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        got = {k: fa.flash_attention.launches[k] - before[k] for k in fa.LAUNCH_KINDS}
+        want = dict.fromkeys(fa.LAUNCH_KINDS, 0)
+        for (kind, _), n in _step_launches(batch, layers, heads, fa.SINGLE_PASS_MAX_TK).items():
+            want[fa.launch_kind(kind, d)] += n
+        check(got == want, f"bf16 {heads} heads, bucket {bucket}: launches {got}, expected {want}")
+        step_losses[bucket] = float(loss)
+        per_step[bucket] = {k: n for k, n in got.items() if n}
+    before = dict(fa.flash_attention.launches)
+    eval_loss = float(trainer.eval_step(batches[WIDE_HALF_BUCKETS[0]])[0])
+    got = {k: fa.flash_attention.launches[k] - before[k] for k in fa.LAUNCH_KINDS}
+    want = {**dict.fromkeys(fa.LAUNCH_KINDS, 0), fa.launch_kind("fwd", d): 2 * layers}
+    check(got == want, f"bf16 {heads} heads: eval step launched {got}, expected {want}")
+    fixed = batches[WIDE_HALF_BUCKETS[0]]
+    fit = [float(trainer.train_step(fixed)[0]) for _ in range(15)]
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_attention.launches)
+    check(all(np.isfinite(list(step_losses.values()) + fit + [eval_loss])),
+          f"bf16 {heads} heads: non-finite loss {step_losses} {fit} {eval_loss}")
+    check(np.mean(fit[-3:]) < fit[0],
+          f"bf16 {heads} heads: 15 steps on one batch did not lower the loss: {fit}")
+    for kind in ("fwd", "fwd_lse", "bwd_dqkv", "bwd_dq", "bwd_dkv"):
+        check(launches[fa.launch_kind(kind, d)] > 0, f"bf16 {heads} heads: {kind} never launched")
+    step_ms, idle = {}, {}
+    for bucket, batch in batches.items():
+        step_ms[bucket] = cuda_ms(torch, lambda: trainer.train_step(batch), iters=5, warmup=2)
+        idle[bucket] = profile_request(torch, lambda: trainer.train_step(batch), smi,
+                                       label=f"wide-bf16-profile-h{heads}-{bucket}"
+                                       )["device_idle_share"]
+    return {"heads": heads, "head_dim": d, "dtype": "bfloat16", "step_losses": step_losses,
+            "eval_loss": eval_loss, "fit_losses": fit, "launches": launches,
+            "launches_per_step": per_step, "warm_step_ms": step_ms, "device_idle_share": idle}
+
+
 def _wide_crossover(torch, setup: dict, smi: str) -> list[dict]:
     """Phase 17(b): ``auto``'s measurement. The trainer's step with dropout
     0.1 (``train_step``) and its eval step without (``eval_step``) at each
@@ -3180,9 +3259,10 @@ def phase_wide(torch, seed: int, smi: str, setup: dict, base_step_ms: float) -> 
     K2, K3 and K4 against their plain versions at the wide shapes, in both
     dtypes, with and without dropout, timed beside SDPA (and its backend),
     and their keep bits against the plain mask; (b) stage-2 training at 2
-    and 1 heads on ``flash`` and ``auto``'s eager-against-kernels
-    measurement; (c) the ring at seq 2 and head dim 256 against one call,
-    and a gloo seq-2 step at 2 heads."""
+    and 1 heads on ``flash``, in float32 and in bf16 (the paired kernels'
+    path), and ``auto``'s eager-against-kernels measurement; (c) the ring at
+    seq 2 and head dim 256 against one call, and a gloo seq-2 step at 2
+    heads."""
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
 
     out = {"k1": phase_kernels(torch, seed, smi, shapes=[WIDE_K1_SHAPE],
@@ -3217,6 +3297,14 @@ def phase_wide(torch, seed: int, smi: str, setup: dict, base_step_ms: float) -> 
         row = _wide_training(torch, setup, heads, smi, base_step_ms)
         print("[wide-train] " + json.dumps(row) + f" [{smi}]")
         out["training"][heads] = row
+        for k in fa.LAUNCH_KINDS:
+            launches[k] += row["launches"][k]
+        torch.cuda.empty_cache()
+    out["training_bf16"] = {}
+    for heads in WIDE_HEADS:
+        row = _wide_training_half(torch, setup, heads, smi)
+        print("[wide-train-bf16] " + json.dumps(row) + f" [{smi}]")
+        out["training_bf16"][heads] = row
         for k in fa.LAUNCH_KINDS:
             launches[k] += row["launches"][k]
         torch.cuda.empty_cache()

@@ -446,12 +446,14 @@ def test_auto_at_wide_head_dims_follows_the_measured_rule(cuda):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [130, 192, 256, 512])
+@pytest.mark.parametrize("d", [130, 160, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("tk", [300, 600], ids=["dqkv", "dq+dkv"])
 def test_wide_kernels_match_plain(cuda, tk, d, dtype, rate):
     """K1, K1' and K2 (or K3 + K4) above head dim 128 against their plain
     versions, at global dropout offsets; 130 is a head dim whose bf16 rows
-    TMA reads from the wrapper's padded copy."""
+    TMA reads from the wrapper's padded copy; 160, 320 and 384 leave a last
+    chunk partly filled or a pair of 128-column slices with one slice (or
+    none of the second's columns)."""
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
 
     b, h, tq = 2, 2, 130
@@ -514,11 +516,12 @@ def test_wide_backward_fully_masked_rows(cuda, tk, rate, dtype):
         assert a[0].float().abs().max().item() > 0 and a[2].float().abs().max().item() > 0
 
 
+@pytest.mark.parametrize("d", [256, 384])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("tk", [384, 1024], ids=["dqkv", "dq+dkv"])
-def test_wide_backward_is_deterministic(cuda, tk, dtype):
-    q, k, v, mask = _inputs(4, 2, 384, tk, 256, dtype, cuda)
-    g = torch.randn(4, 2, 384, 256, device=cuda).to(dtype)
+def test_wide_backward_is_deterministic(cuda, tk, dtype, d):
+    q, k, v, mask = _inputs(4, 2, 384, tk, d, dtype, cuda)
+    g = torch.randn(4, 2, 384, d, device=cuda).to(dtype)
     first, _ = _train_call(q, k, v, mask, 0.1, 9, g)
     second, _ = _train_call(q, k, v, mask, 0.1, 9, g)
     for a, b in zip(first, second):
@@ -527,13 +530,30 @@ def test_wide_backward_is_deterministic(cuda, tk, dtype):
 
 @pytest.mark.parametrize("kind, rows, cols", [("fwd_lse", 128, 256), ("bwd_dqkv", 128, 320),
                                               ("bwd_dq", 128, 640)])
-@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("d", [256, 384, 512])
 def test_wide_kernels_draw_the_plain_bits(cuda, d, kind, rows, cols):
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
 
     seed = _seeds(cuda, 2, 2)
     got = fa.kernel_keep_bits(kind, seed, rows, cols, 0.1, 64, 128, head_dim=d)
     assert torch.equal(got, fa.dropout_keep_mask(seed, rows, cols, 0.1, 64, 128))
+
+
+@pytest.mark.parametrize("entry", ["vimo_flash_attention_fwd_occupancy",
+                                   "vimo_flash_attention_bwd_dqkv_occupancy"])
+@pytest.mark.parametrize("drop", [0, 1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_kernels_fit_an_sm(cuda, d, drop, entry):
+    """The bf16 K1/K1' and K2 above head dim 128 (the paired kernels) launch
+    at least one CTA per SM, with their shared memory at that head dim."""
+    import ctypes
+
+    from vimoclip_tpu_torch.ops.kernels import _build
+
+    lib = "flash_attention_fwd" if "fwd" in entry else "flash_attention_bwd"
+    fn = getattr(_build.load_library(lib), entry)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    assert fn(d, drop) >= 1, fn(d, drop)
 
 
 # ---------------------------------------------------------------------------

@@ -12,19 +12,23 @@ the results are held against the plain versions.
 
     python3 tools/time_bwd_variants.py NAME[,NAME...] [B,H,TQ,TK,D[;...]] \
         [--kernels KIND] [--dtype bfloat16|float32]
-    python3 tools/time_bwd_variants.py NAME[,NAME...] --steps
+    python3 tools/time_bwd_variants.py NAME[,NAME...] --steps [--dtype bfloat16]
     python3 tools/time_bwd_variants.py --prepare NAME=REV[,NAME=REV...]
 
 KIND picks the kernels timed (and the default shape):
 - ``k3k4``: the backward past 512 keys, K3 and K4, at (8, 8, 768, 768, 64);
 - ``k2``: the single-pass backward, K2 (with ``dq_reduce`` where a variant
   adds its dq shares through scratch), at (8, 8, 512, 512, 64);
-- ``fwd``: the forward, K1 (no lse, no dropout) and K1' (lse and dropout),
-  at (3, 8, 384, 384, 64);
+- ``fwd``: the forward, K1 (no lse, no dropout) and K1' (lse, at p = 0
+  and 0.1), at (3, 8, 384, 384, 64);
 - ``auto``: at each shape the forward, then K2 where the keys fit one
   512-key tile and K3 + K4 past it (as the wrappers launch them).
-The kernels are told apart by name: in bf16 the wgmma kernels (and the
-FMA or ``mma_kernel`` names of earlier trees), in float32 the three-pass
+The kernels are told apart by name: in bf16 the wgmma kernels, above head
+dim 128 both the paired ones (``fwd_pair_wgmma_kernel``,
+``dkv_pair_wgmma_kernel``) and the per-slice ones of earlier trees
+(``fwd_wide_wgmma_kernel``, ``dkv_wide_wgmma_kernel``; K3's
+``dq_wide_wgmma_kernel``), and the FMA or ``mma_kernel`` names of earlier
+trees; in float32 the three-pass
 TF32 ``fwd_tf32``, ``dkv_tf32`` and ``dq_tf32`` (``dq_tf32_kernel`` and
 ``dq_tf32_wide_kernel``; and the FMA ``dq_kernel``,
 ``dq_wide_kernel``, ``fma_kernel``, ``fma_wide_kernel``, ``dkv_kernel`` and
@@ -42,13 +46,15 @@ the run's dtype) closes each shape.
 
 Prints one JSON line per (shape, variant, dropout rate, turn).
 
-``--steps`` times whole float32 train steps instead, with each variant's
-libraries in turns (the variants in order, then in reverse; CUDA events
-around ``TFAMTrainer.train_step``, the host's launches included):
+``--steps`` times whole train steps instead, with each variant's libraries
+in turns (the variants in order, then in reverse; CUDA events around
+``TFAMTrainer.train_step``, the host's launches included). In float32:
 ``chip_smoke.py`` phase 6's recipe under ``auto`` on its long batch (K1',
 K3 and K4 at head dim 64), and the recipe at 2 and 1 heads (head dims 256
 and 512) on ``flash`` at the 1024-frame bucket, where phase 17 measures
-``auto``'s float32 turn. One JSON line per step.
+``auto``'s float32 turn. With ``--dtype bfloat16``: the recipe with
+``half_precision`` at 2 and 1 heads on ``flash`` at the 512-frame (K1',
+K2) and 1024-frame (K1', K3, K4) buckets. One JSON line per step.
 """
 
 from __future__ import annotations
@@ -65,9 +71,11 @@ VARIANTS = ROOT / "build" / "variants"
 # kernel names by kind and dtype (this tree's and earlier trees'), and the
 # default shape
 NAMES = {
-    "bfloat16": {"k3k4": ("dq_wgmma", "dkv_wgmma"),
-                 "k2": ("dqkv_wgmma", "dkv_wide_wgmma", "dq_reduce", "dkv_kernel"),
-                 "fwd": ("fwd_wgmma", "fwd_wide_wgmma", "mma_kernel")},
+    "bfloat16": {"k3k4": ("dq_wgmma", "dkv_wgmma", "dq_wide_wgmma", "dkv_wide_wgmma",
+                          "dkv_pair_wgmma"),
+                 "k2": ("dqkv_wgmma", "dkv_wide_wgmma", "dkv_pair_wgmma", "dq_reduce",
+                        "keep_bits_kernel", "dkv_kernel"),
+                 "fwd": ("fwd_wgmma", "fwd_wide_wgmma", "fwd_pair_wgmma", "mma_kernel")},
     "float32": {"k3k4": ("dq_tf32", "dq_kernel", "dq_wide_kernel", "dkv_tf32", "dkv_kernel",
                          "dkv_wide_kernel"),
                 "k2": ("dkv_tf32", "dq_reduce", "dkv_kernel", "dkv_wide_kernel"),
@@ -199,9 +207,9 @@ def _sdpa_ms(torch, F, q, k, v, mask, grad, backward: bool) -> float:
     return start.elapsed_time(end) / 10
 
 
-def time_steps(torch, libs: dict, names: list[str], smi: str) -> None:
-    """``--steps``: the train steps of the module docstring, each variant's
-    libraries swapped in by turns."""
+def time_steps(torch, libs: dict, names: list[str], smi: str, half: bool) -> None:
+    """``--steps``: the train steps of the module docstring (bf16 ones with
+    ``half``), each variant's libraries swapped in by turns."""
     import tempfile
 
     import numpy as np
@@ -216,15 +224,21 @@ def time_steps(torch, libs: dict, names: list[str], smi: str) -> None:
     data = {"cfg": setup["cfg"], "train_items": setup["trainer"].train_loader.dataset,
             "val_items": setup["trainer"].val_loader.dataset}
     run = Path(tempfile.mkdtemp(dir=ROOT / "build"))
-    trainer = cs._wide_trainer(torch, data, 8, run / "h8", impl="auto")
-    jobs = [("float32 auto, 8 heads, long batch", trainer,
-             to_device(setup["batches"][-1], trainer.device))]
+    jobs = []
+    if not half:
+        trainer = cs._wide_trainer(torch, data, 8, run / "h8", impl="auto")
+        jobs.append(("float32 auto, 8 heads, long batch", trainer,
+                     to_device(setup["batches"][-1], trainer.device)))
+    dtype = "bfloat16" if half else "float32"
     for heads in (2, 1):
-        trainer = cs._wide_trainer(torch, data, heads, run / f"h{heads}", impl="flash")
-        rng = np.random.default_rng(1)
-        items = cs._clips(rng, rng.integers(1024 - 27, 1025, 8), 512, 140, "w1024-")
-        jobs.append((f"float32 flash, {heads} heads", trainer,
-                     to_device(trainer.collate(items), trainer.device)))
+        trainer = cs._wide_trainer(torch, data, heads, run / f"h{heads}", impl="flash",
+                                   half=half)
+        for bucket in (512, 1024) if half else (1024,):
+            rng = np.random.default_rng(1)
+            items = cs._clips(rng, rng.integers(bucket - 27, bucket + 1, 8), 512, 140,
+                              f"w{bucket}-")
+            jobs.append((f"{dtype} flash, {heads} heads", trainer,
+                         to_device(trainer.collate(items), trainer.device)))
     for job, trainer, batch in jobs:
         row = {"job": job, "bucket": int(batch["embeddings"].shape[1]), "step_ms": {}}
         for n in names + names[::-1]:
@@ -243,11 +257,15 @@ def main() -> int:
     ap.add_argument("names", nargs="?", help="comma-separated variant directories under build/variants")
     ap.add_argument("shape", nargs="?", default=None, help="B,H,TQ,TK,D[;B,H,TQ,TK,D...]")
     ap.add_argument("--kernels", choices=sorted(SHAPES), default="k3k4")
-    ap.add_argument("--dtype", choices=sorted(NAMES), default="bfloat16")
+    ap.add_argument("--dtype", choices=sorted(NAMES), default=None,
+                    help="bfloat16 (the default for kernels) or float32 (the default for --steps)")
     ap.add_argument("--prepare", help="NAME=REV[,NAME=REV...]: write variants from git and stop")
     ap.add_argument("--steps", action="store_true",
-                    help="time float32 train steps per variant instead of kernels")
+                    help="time train steps per variant instead of kernels (float32, or bf16 "
+                         "with --dtype bfloat16)")
     args = ap.parse_intermixed_args()
+    if args.dtype is None:
+        args.dtype = "float32" if args.steps else "bfloat16"
     if args.prepare:
         prepare(args.prepare)
         return 0
@@ -273,7 +291,7 @@ def main() -> int:
     names = args.names.split(",")
     libs = build(names)
     if args.steps:
-        time_steps(torch, libs, names, smi)
+        time_steps(torch, libs, names, smi, args.dtype == "bfloat16")
         return 0
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     for spec in (args.shape or SHAPES[args.kernels]).split(";"):
@@ -294,13 +312,15 @@ def main() -> int:
                 for n in names:
                     for src in SOURCES:
                         _build._loaded[src] = ctypes.CDLL(str(libs[n][src].resolve()))
-                    for rate in (0.0, 0.1):
+                    # the forward: K1 at p = 0 (serving), K1' with lse at p = 0 and 0.1
+                    runs = ([("k1", 0.0), ("k1_lse", 0.0), ("k1_lse", 0.1)] if kind == "fwd"
+                            else [(kind, 0.0), (kind, 0.1)])
+                    for what, rate in runs:
                         seeds = fa.expand_seed(7, b, h, "cuda") if rate else None
                         row = {"variant": n, "turn": turn, "rate": rate, "kernels": kind,
-                               "dtype": args.dtype, "shape": [b, h, tq, tk, d]}
+                               "call": what, "dtype": args.dtype, "shape": [b, h, tq, tk, d]}
                         if kind == "fwd":
-                            # K1 at p = 0 (serving), K1' with lse at the rate
-                            if rate:
+                            if what == "k1_lse":
                                 call = lambda: fa.forward_lse(q, k, v, mask, seeds, rate)
                                 got = call()[0]
                             else:

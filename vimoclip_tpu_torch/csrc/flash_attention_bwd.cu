@@ -166,26 +166,30 @@
 //   multiple of 16 bytes) are copied by the Python wrapper first; the entry
 //   refuses them (-5).
 //
-// Head dims above 128 (dq_wide_wgmma_kernel for K3, dkv_wide_wgmma_kernel for
-// K4 and, with its dq share, K2; float32 dkv_tf32_kernel with its 128-column
-// slices; the float32 K3's own scheme is above):
-// any head dim, with registers and shared memory flat in D. A grid axis over
-// output slices of 128 columns: each CTA accumulates only its slice of dQ
-// (K3) or of dK and dV (K4, K2; and K2's dq share of the slice), while S and
-// dP run over the whole head dim in 64-column chunks, recomputed by every
-// slice's CTA in the same order (bit for bit the same P and dS). In bf16 a
-// two-stage ring of four-chunk slots carries per swept tile the n_ch chunks
-// of the S and dP operands (K3: q, k, dO, v; K4 and K2: k, q, v, dO), each
-// q chunk rounded to round(q * scale) in its slot, then one slot with the
-// slice's chunks of the update's B operands (K3: k; K4 and K2: q and dO).
-// K4 takes K3's keep bits as before; K2 draws its own into shared memory and
-// gathers each thread's 32 into one word; only slice 0 of K3 stores them.
-// The extra S and dP products cost 1.5x K2's FLOPs at D 256 and 2.5x at 512.
-// At D 256 and 512 alike (ptxas -v, sm_90a; p = 0 / 0.1): K3 194 / 203
-// registers, 68,128 bytes of shared memory; K4 250 / 250, 68,904 bytes; K2
-// 252 / 255, 101,672 bytes, one CTA per SM; none spills, because K2 reads
-// its key bias from shared memory where it is used and draws the next
-// tile's keep bits under the dV/dK products (as K2 at D <= 128).
+// Head dims above 128 (bf16: dq_wide_wgmma_kernel for K3,
+// dkv_pair_wgmma_kernel for K4 and, with its dq share, K2; float32:
+// dkv_tf32_kernel with its 128-column slices, and the float32 K3's own
+// scheme above): any head dim. K3 (bf16) keeps one CTA per (64-row q tile,
+// 128-column output slice), S and dP over the whole head dim recomputed by
+// each slice's CTA in the same order; a two-stage ring of four-chunk slots
+// carries per key tile the n_ch (q, k, dO, v) chunks, each q chunk rounded
+// in its slot, then the slice's k chunks; only slice 0 stores the keep bits.
+// 194 / 203 registers, 68,128 bytes of shared memory. K4 and K2 (bf16):
+// one CTA per (64-key tile, pair of 128-column slices, head, batch row),
+// two consumer warpgroups and a producer warpgroup (384 threads; setmaxnreg
+// gives the producers 24 registers and the consumers 240). Per q tile
+// warpgroup 0 computes S^T and warpgroup 1 dP^T, each over the whole head
+// dim once for the pair, their chunk products back to back; P^T (float32)
+// and dS^T (bf16, swizzled) cross through shared memory; each warpgroup
+// updates its slice's dk and dv, and for K2 adds dS K over its slice to the
+// dq scratch. The CTA's k and v are loaded once and stay resident up to D
+// 384; above, they stream once per q tile with the chunks outside the
+// pair. q and dO are loaded once per q tile, into two buffers where they
+// fit (dkv_pair_config: up to D 256, and K4 where k and v stream), else one. With dropout both read the keep bits of each
+// (key tile, q tile) with one bulk copy: K4 from K3's buffer, K2 from the
+// same layout filled first by keep_bits_kernel. ptxas -v (sm_90a): 168
+// registers at launch for all four instantiations (240 after setmaxnreg),
+// no spills; at D 256 224,664 bytes of shared memory, one CTA per SM.
 
 #include <type_traits>
 
@@ -225,6 +229,7 @@ struct BwdParams {
   float scale;
   uint32_t threshold;
   float keep;           // 1 - rate
+  float inv_keep;       // 1 / (1 - rate)
 };
 
 template <typename T>
@@ -867,13 +872,13 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kerne
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128: one CTA per (output tile, output slice of up to 128
-// columns, head, batch row). The S and dP products run over the whole head
-// dim in 64-column chunks; only the slice's columns of dq (K3), of dk and dv
-// (K4, K2) and of K2's dq share are accumulated, so registers and shared
-// memory do not grow with D. Every slice's CTA recomputes the same S and dP
-// in the same order, so they agree bit for bit; the keep bits are drawn (or,
-// for bf16 K4, read) by each CTA, and only slice 0 writes K3's keep bits.
+// head dims above 128, bf16 K3: one CTA per (q tile, output slice of up to
+// 128 columns, head, batch row). The S and dP products run over the whole
+// head dim in 64-column chunks; only the slice's columns of dq are
+// accumulated, so registers and shared memory do not grow with D. Every
+// slice's CTA recomputes the same S and dP in the same order, so they agree
+// bit for bit; only slice 0 writes the keep bits. (K4 and K2 take a pair of
+// slices per CTA: dkv_pair_wgmma_kernel below.)
 // ---------------------------------------------------------------------------
 
 constexpr int kSlice = 128;  // output columns of one CTA
@@ -889,26 +894,17 @@ __device__ __forceinline__ float ld_shared_f1(const float* ptr) {
   return v;
 }
 
-// bf16 above 128: a ring of slots of four 64x64 chunks. Per swept tile the
-// producer fills n_ch slots with chunk c of the S and dP operands (K3: q, k,
-// dO, v; K4 and K2: k, q, v, dO), then one with the slice's chunks of the
-// update's B operands (K3: k; K4 and K2: q and dO). A tile takes
-// n_ch + 1 >= 4 slots, more than the ring holds, so the producer writes tile
-// t + 2's row data (key bias; lse, delta and K3's keep bits) only after the
-// consumers released a slot of tile t + 1, when they are done with tile t's
-// in the same buffer.
+// bf16 K3 above 128: a ring of slots of four 64x64 chunks. Per key tile the
+// producer fills n_ch slots with chunk c of q, k, dO and v, then one with
+// the slice's k chunks for the update. A tile takes n_ch + 1 >= 4 slots,
+// more than the ring holds, so the producer writes tile t + 2's key bias
+// only after the consumers released a slot of tile t + 1, when they are
+// done with tile t's in the same buffer.
 constexpr int kWideStages = 2;
 
 constexpr size_t dq_wide_hop_smem_bytes() {
   return 1024 + (size_t)kWideStages * 4 * kChunk * sizeof(bf16) + sizeof(float) * 2 * kTile +
          sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * 2 * kWideStages;
-}
-
-template <bool DQ>
-constexpr size_t dkv_wide_hop_smem_bytes() {
-  return 1024 + (size_t)(kWideStages * 4 + (DQ ? 4 : 0)) * kChunk * sizeof(bf16) +
-         sizeof(float) * 2 * 2 * kTile + sizeof(uint32_t) * 2 * 2 * kTile + sizeof(float) * kTile +
-         sizeof(uint64_t) * (2 * kWideStages + 1);
 }
 
 // K3 (bf16): dq over the slice, one CTA per (64-row q tile, slice, head,
@@ -1067,250 +1063,372 @@ __global__ void __launch_bounds__(kHopThreads, 1) dq_wide_wgmma_kernel(
   store_rows<2>(dq, p.dq_st, q0, p.Tq, p.D - c0, acc, p.scale, tid);
 }
 
-// K4 (bf16), and K2 with DQ: dk, dv over the slice, one CTA per (64-key
-// tile, slice, head, batch row); K4 reads K3's keep bits, K2 draws its own
-// and adds its share of dq's slice columns to scratch
-template <bool DROP, bool DQ>
-__global__ void __launch_bounds__(kHopThreads, 1) dkv_wide_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const BwdParams p) {
-  constexpr uint32_t kChunkBytes = kChunk * sizeof(bf16);
-  constexpr bool kReadBits = DROP && !DQ;  // K4: K3's keep bits, one bulk copy per tile
-  extern __shared__ uint8_t smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(align1024(smem_raw));  // kWideStages x 4 chunks
-  bf16* Ksl = ring + kWideStages * 4 * kChunk;  // DQ: the slice's k chunks
-  bf16* dSt = Ksl + (DQ ? 2 * kChunk : 0);      // DQ: 2 tiles of round(dS)^T (keys x rows)
-  float* lse_buf = reinterpret_cast<float*>(dSt + (DQ ? 2 * kChunk : 0));  // 2 x 64
-  float* delta_buf = lse_buf + 2 * kTile;                                    // 2 x 64
-  uint32_t* bits_buf = reinterpret_cast<uint32_t*>(delta_buf + 2 * kTile);  // 2 x 128 words
-  float* kbias_s = reinterpret_cast<float*>(bits_buf + 2 * 2 * kTile);        // the keys' bias
-  uint64_t* full = reinterpret_cast<uint64_t*>(kbias_s + kTile);
-  uint64_t* empty = full + kWideStages;
-  uint64_t* kbar = empty + kWideStages;
+// ---------------------------------------------------------------------------
+// K4 (bf16) above head dim 128, and K2 with DQ: one CTA per (64-key tile,
+// pair of 128-column output slices, head, batch row). S^T and dP^T run once
+// per q tile for the pair, one on each consumer warpgroup; each warpgroup
+// accumulates its slice of dk and dv (and K2's dq share of it).
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const int n_ch = (p.D + 63) / 64;
-  const int n_sl = n_slices(p.D);
-  const int sl = blockIdx.x % n_sl;
-  const int kt = blockIdx.x / n_sl, n_kt = (p.Tk + kTile - 1) / kTile;
-  const int k0 = kt * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = sl * kSlice;
-  const int sl_ch = min(2, n_ch - 2 * sl);
-  const size_t bh = (size_t)b * p.H + h;
-  const int n_tiles = (p.Tq + kTile - 1) / kTile;
-  if (tid == 0) {
-    for (int s = 0; s < kWideStages; ++s) {
-      mbar_init(&full[s], 32);
-      mbar_init(&empty[s], kConsumers);
-    }
-    mbar_init(kbar, 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
+// two consumer warpgroups and a producer warpgroup, one warp of which
+// loads: 168 registers a thread at launch (a pool of 384 x 168), the
+// producers' 24 and the consumers' 240 after setmaxnreg, the most the pool
+// allows (dk and dv of a 128-column slice hold 128 of them)
+constexpr int kPairThreads = 3 * kConsumers;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory an H100 block may take
+constexpr uint32_t kPairChunkBytes = kChunk * sizeof(bf16);
+// one q tile's buffer of the pair's columns: q (4 chunks), dO (4), the rows'
+// lse and delta, K3's keep bits
+constexpr int kUBytes = 8 * kPairChunkBytes + 2 * kTile * sizeof(float) + kBitsBytes;
 
-  if (tid >= kConsumers) {
-    const int lane = tid - kConsumers;
-    if (DQ && lane == 0) {
-      mbar_arrive_tx(kbar, sl_ch * kChunkBytes);
-      for (int i = 0; i < sl_ch; ++i) tma_load(Ksl + i * kChunk, &tm_k, kbar, c0 + 64 * i, k0, h, b);
-    }
-    int n = 0;  // slots filled so far
-    for (int t = 0; t < n_tiles; ++t) {
-      const int q0 = t * kTile;
-      for (int c = 0; c <= n_ch; ++c, ++n) {
-        const int s = n % kWideStages;
-        if (n >= kWideStages) mbar_wait(&empty[s], ((n / kWideStages) - 1) & 1);
-        bf16* slot = ring + s * 4 * kChunk;
-        if (lane == 0) {
-          if (c < n_ch) {
-            const bool bits_here = kReadBits && c == 0;
-            mbar_expect_tx(&full[s], 4 * kChunkBytes + (bits_here ? kBitsBytes : 0));
-            tma_load(slot, &tm_k, &full[s], 64 * c, k0, h, b);
-            tma_load(slot + kChunk, &tm_q, &full[s], 64 * c, q0, h, b);
-            tma_load(slot + 2 * kChunk, &tm_v, &full[s], 64 * c, k0, h, b);
-            tma_load(slot + 3 * kChunk, &tm_do, &full[s], 64 * c, q0, h, b);
-            if (bits_here)  // K3's keep bits of this (key tile, q tile): 512 bytes
-              bulk_load(bits_buf + (t & 1) * 2 * kTile,
-                        p.keep_bits + ((bh * n_kt + kt) * p.tq_pad + q0) * 2, kBitsBytes, &full[s]);
-          } else {
-            mbar_expect_tx(&full[s], 2 * sl_ch * kChunkBytes);
-            for (int i = 0; i < sl_ch; ++i) {
-              tma_load(slot + i * kChunk, &tm_q, &full[s], c0 + 64 * i, q0, h, b);
-              tma_load(slot + (2 + i) * kChunk, &tm_do, &full[s], c0 + 64 * i, q0, h, b);
-            }
-          }
-        }
-        if (c == 0) {
-          for (int r = lane; r < kTile; r += 32) {
-            const bool in = q0 + r < p.Tq;
-            lse_buf[(t & 1) * kTile + r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();
-            delta_buf[(t & 1) * kTile + r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
-          }
-        }
-        mbar_arrive(&full[s]);  // each lane after its own writes
-      }
-    }
-    return;
-  }
+// How a CTA holds its operands, chosen per head dim (dkv_pair_config): the
+// CTA's own k and v loaded once and resident, or streamed with each q tile
+// where shared memory forbids; one or two q-tile buffers of the pair's
+// columns; the slots of each warpgroup's ring (the chunks outside the pair,
+// streamed k and v, and warpgroup 0's rounded q); whether the scale is a
+// power of two (S^T from unscaled q, scaled in registers: bit for bit the
+// product of round(q * scale)).
+struct DkvPair {
+  int kv_res, nu, rs, pow2;
+};
 
-  // consumer warpgroup: keys kl_lo and kl_lo + 8 of the tile per thread
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kl_lo = warp * 16 + g;
-  // the tile's key bias (-1e9 masked, -inf past Tk) in shared memory, read
-  // where it is used: registers are what this kernel runs short of
-  {
-    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      kbias_s[tid] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+// byte offsets from the 1024-aligned base; `total` counts the alignment slack
+struct DkvPairSmem {
+  int kres, vres, ksl, u, ring0, ring1, ds, xp, kbias, bars, total;
+};
+
+__host__ __device__ inline DkvPairSmem dkv_pair_smem(int n_ch, const DkvPair& g, bool dq) {
+  const int slot = (g.kv_res ? 1 : 2) * (int)kPairChunkBytes;
+  const bool many = n_ch > 4;  // chunks outside a pair exist
+  const bool r0 = !g.kv_res || many || !g.pow2, r1 = !g.kv_res || many;
+  DkvPairSmem s;
+  s.kres = 0;
+  s.vres = s.kres + (g.kv_res ? n_ch * (int)kPairChunkBytes : 0);
+  s.ksl = s.vres + (g.kv_res ? n_ch * (int)kPairChunkBytes : 0);
+  s.u = s.ksl + (dq && !g.kv_res ? 4 * (int)kPairChunkBytes : 0);
+  s.ring0 = s.u + g.nu * kUBytes;
+  s.ring1 = s.ring0 + (r0 ? g.rs * slot : 0);
+  s.ds = s.ring1 + (r1 ? g.rs * slot : 0);
+  s.xp = s.ds + (int)kPairChunkBytes;
+  s.kbias = s.xp + 32 * kConsumers * (int)sizeof(float);
+  s.bars = s.kbias + kTile * (int)sizeof(float);
+  s.total = 1024 + s.bars + (3 * g.nu + 4 * g.rs + 1) * (int)sizeof(uint64_t);
+  return s;
+}
+
+// resident k and v first; then, where the rings stream k and v (each chunk
+// waits out a TMA load unless slots - 1 chunks' products are in flight),
+// the deeper ring before a second q-tile buffer, else the other way round
+inline DkvPair dkv_pair_config(int d, float scale, bool dq) {
+  int exponent = 0;
+  const int pow2 = frexpf(scale, &exponent) == 0.5f;
+  const int n_ch = (d + 63) / 64;
+  for (int kv = 1; kv >= 0; --kv)
+    for (int i = 0; i < 6; ++i) {
+      const int nu = kv ? 2 - i / 3 : 2 - i % 2, rs = kv ? 4 - i % 3 : 4 - i / 2;
+      const DkvPair g{kv, nu, rs, pow2};
+      if (dkv_pair_smem(n_ch, g, dq).total <= kMaxSmem) return g;
     }
-    consumer_sync();
+  return DkvPair{0, 1, 2, pow2};  // flat in D: always fits
+}
+
+// store_swizzled's layout at the 32-bit shared address `tile` (an opaque
+// one: the eight swizzled offsets are recomputed where used), and its
+// inverse: the A operand read back by the thread of the same index in the
+// other warpgroup (the layout depends on that index only)
+__device__ __forceinline__ uint32_t swizzled_word(uint32_t tile, int c, int i, int r_lo, int t4) {
+  const int row = r_lo + 8 * (i & 1), chunk = 2 * c + (i >> 1);
+  return tile + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * t4;
+}
+
+__device__ __forceinline__ void store_swizzled_u32(uint32_t tile, const uint32_t (&a)[4][4],
+                                                   int r_lo, int t4) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(swizzled_word(tile, c, i, r_lo, t4)),
+                   "r"(a[c][i]) : "memory");
   }
-  if constexpr (DQ) mbar_wait(kbar, 0);
-  // this thread's 32 keep bits of the tile (gather_keep): K4 gathers K3's
-  // with the first chunk, K2 draws each tile's under the previous tile's
-  // dV/dK products (as K2 at D <= 128), the first one's here
-  uint32_t keep_word = 0u;
-  const uint32_t seed_at = blockIdx.z * p.H + blockIdx.y;  // K2's seed: p.seed[seed_at]
-  if constexpr (DROP && DQ) {
-    fill_keep_bits<2>(bits_buf, kTile, p.row0, p.col0 + k0, (uint32_t)p.seed[seed_at],
-                      p.threshold, tid, kConsumers);
-    consumer_sync();
-    keep_word = gather_keep(bits_buf, kl_lo, t4);
+}
+
+__device__ __forceinline__ void load_swizzled_u32(uint32_t tile, uint32_t (&a)[4][4], int r_lo,
+                                                  int t4) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[c][i])
+                   : "r"(swizzled_word(tile, c, i, r_lo, t4)) : "memory");
   }
+}
+
+// what a consumer warpgroup of dkv_pair_wgmma_kernel reads: shared memory
+// (its own ring and barriers), the CTA's tile and the sweep's shape
+struct DkvPairCtx {
+  bf16 *kres, *vres, *ksl, *ring, *ds_tile;
+  uint8_t* ubase;
+  uint64_t *full, *empty, *uq_full, *udo_full, *u_empty, *kvbar;
+  float *xp, *kbias_s;
+  int n_ch, ch0, pc, start, slot_ch, k0, kt, n_kt, b, n_tiles;
+  size_t bh;
+};
+
+// One consumer warpgroup of dkv_pair_wgmma_kernel, its role (W) fixed at
+// compile time, so that each role's loop holds only its own values
+template <int W, bool DROP, bool DQ>
+__device__ __forceinline__ void dkv_pair_consumer(const BwdParams& p, const DkvPair& g,
+                                                  const DkvPairCtx& C) {
+  bf16* kres = C.kres;
+  bf16* vres = C.vres;
+  bf16* ksl = C.ksl;
+  uint8_t* ubase = C.ubase;
+  bf16* ring = C.ring;
+  uint64_t* full = C.full;
+  uint64_t* empty = C.empty;
+  bf16* ds_tile = C.ds_tile;
+  float* xp = C.xp;
+  float* kbias_s = C.kbias_s;
+  uint64_t* uq_full = C.uq_full;
+  uint64_t* udo_full = C.udo_full;
+  uint64_t* u_empty = C.u_empty;
+  uint64_t* kvbar = C.kvbar;
+  const int n_ch = C.n_ch, ch0 = C.ch0, pc = C.pc, start = C.start, slot_ch = C.slot_ch;
+  const int k0 = C.k0, kt = C.kt, n_kt = C.n_kt, b = C.b, h = blockIdx.y, n_tiles = C.n_tiles;
+  const size_t bh = C.bh;
+  // keys kl_lo and kl_lo + 8 of the tile per thread
+  constexpr int w = W;
+  const int ltid = threadIdx.x & (kConsumers - 1);
+  const int lane = ltid & 31;
+  const int t4 = lane & 3;
+  const int kl_lo = (ltid >> 5) * 16 + (lane >> 2);
+  const int cw = ch0 + 2 * w;                   // the warpgroup's first chunk
+  const int sl_ch = max(0, min(2, n_ch - cw));  // its chunks that hold columns
+  const float inv_keep = p.inv_keep;
+  // chunk c of the sweep comes through this warpgroup's ring (the producer's
+  // rule): streamed k or v, a chunk outside the pair, or warpgroup 0's
+  // rounded copy of a pair chunk
+  const auto uses_slot = [&](int c) {
+    return !g.kv_res || c < ch0 || c >= ch0 + pc || (w == 0 && !g.pow2);
+  };
+  if (w == 0) {
+    // the keys' bias (-1e9 masked, -inf past Tk), read where it is used
+    if (ltid < kTile) {
+      const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+      const int key = k0 + ltid;
+      kbias_s[ltid] = key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+    }
+    named_sync(1, kConsumers);
+  }
+  if (g.kv_res || DQ) mbar_wait(kvbar, 0);
 
   float dk[64], dv[64];  // the slice's 128 columns
 #pragma unroll
   for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
-  int n = 0;  // slots consumed so far
+  int n = 0;  // ring slots consumed so far
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * kTile;
-    const uint32_t* bits_t = bits_buf + (t & 1) * 2 * kTile;  // K4: K3's bits of this tile
-    float sacc[32], dpacc[32];  // S^T and dP^T: keys x query rows
-    for (int c = 0; c < n_ch; ++c, ++n) {
-      const int s = n % kWideStages;
-      bf16* slot = ring + s * 4 * kChunk;
-      mbar_wait(&full[s], (n / kWideStages) & 1);
-      scale_tile<1>(slot + kChunk, slot + kChunk, p.scale, tid);  // round(q * scale) in place
-      fence_proxy_async();
-      consumer_sync();
-      // K4: K3's bits came with the first slot, and S^T and dP^T hold no
-      // registers yet
-      if constexpr (DROP && !DQ) {
-        if (c == 0) keep_word = gather_keep(bits_t, kl_lo, t4);
+    const int u = t % g.nu;
+    const uint32_t upar = (t / g.nu) & 1;
+    bf16* uq = opaque(reinterpret_cast<bf16*>(ubase + u * kUBytes));
+    bf16* udo = uq + 4 * kChunk;
+    const float* ulse = reinterpret_cast<const float*>(udo + 4 * kChunk);
+    const float* udelta = ulse + kTile;
+    const uint32_t* ubits = reinterpret_cast<const uint32_t*>(udelta + kTile);
+    const bf16* res = w == 0 ? kres : vres;
+    const bf16* ubuf = w == 0 ? uq : udo;
+
+    // S^T (warpgroup 0) or dP^T (1) over the head dim's chunks, issued back
+    // to back (warpgroup 0 rounds each q chunk first unless pow2) and waited
+    // for once
+    float sacc[32];
+    int rel = n;  // the first ring slot not yet released
+    bool u_ready = false;
+    for (int i = 0; i < n_ch; ++i) {
+      const int c = (start + i) % n_ch;
+      const bool in_pair = c >= ch0 && c < ch0 + pc;
+      if (in_pair && !u_ready) {  // before the pair's slots: the producer fills them after it
+        mbar_wait(w == 0 ? &uq_full[u] : &udo_full[u], upar);
+        u_ready = true;
+      }
+      bf16* slot = nullptr;
+      if (uses_slot(c)) {
+        const int s = n % g.rs;
+        slot = ring + s * slot_ch * kChunk;
+        mbar_wait(&full[s], (n / g.rs) & 1);
+        ++n;
+      }
+      const bf16* a_op = g.kv_res ? res + c * kChunk : slot;
+      const bf16* b_op = in_pair ? ubuf + (c - ch0) * kChunk : slot + (slot_ch - 1) * kChunk;
+      if (w == 0 && !g.pow2) {  // round(q * scale) into the slot (in place for a streamed chunk)
+        bf16* qs = slot + (slot_ch - 1) * kChunk;
+        scale_tile<1>(qs, b_op, p.scale, ltid);
+        fence_proxy_async();
+        named_sync(1, kConsumers);
+        b_op = qs;
       }
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64(sacc, kmajor_desc(slot, kk), kmajor_desc(slot + kChunk, kk), c == 0 && kk == 0);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64(dpacc, kmajor_desc(slot + 2 * kChunk, kk), kmajor_desc(slot + 3 * kChunk, kk),
-                     c == 0 && kk == 0);
+        wgmma_ss_n64(sacc, kmajor_desc(a_op, kk), kmajor_desc(b_op, kk), i == 0 && kk == 0);
       wg_commit();
-      wg_wait_all();
-      fence_regs(sacc);
-      fence_regs(dpacc);
-      mbar_arrive(&empty[s]);
+      // a ring smaller than the tile's chunks: release each slot once its
+      // products are done, rs - 1 chunks still in flight
+      if (i >= g.rs - 1 && uses_slot((start + i - (g.rs - 1)) % n_ch)) {
+        if (g.rs == 4) {
+          wg_wait<3>();
+        } else if (g.rs == 3) {
+          wg_wait<2>();
+        } else {
+          wg_wait<1>();
+        }
+        mbar_arrive(&empty[rel++ % g.rs]);
+      }
     }
+    wg_wait_all();
+    fence_regs(sacc);
+    for (; rel < n; ++rel) mbar_arrive(&empty[rel % g.rs]);
 
-    // P^T (dropped) and dS^T, packed to bf16 A operands 16 query rows at a
-    // time, so that the float32 tiles die as they go (as in K2 at D <= 128)
-    const float* lse_t = lse_buf + (t & 1) * kTile;
-    const float* delta_t = delta_buf + (t & 1) * kTile;
-    const float inv_keep = 1.f / p.keep;
-    // this thread's two keys' bias, loaded where it is used
-    const float kb0 = ld_shared_f1(kbias_s + kl_lo), kb1 = ld_shared_f1(kbias_s + kl_lo + 8);
     uint32_t pa[4][4], dsa[4][4];
+    uint32_t keep_word = 0u;  // this thread's 32 keep bits of the tile (gather_keep)
+    if (w == 0) {
+      // P^T = exp(S^T + key bias - lse) (a fully masked row: lse = -1e9 =
+      // S + bias, P = 1) to warpgroup 1, then the dropped P^T's A operand
+      const float kb0 = ld_shared_f1(kbias_s + kl_lo), kb1 = ld_shared_f1(kbias_s + kl_lo + 8);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-#pragma unroll
-      for (int j = 2 * c; j < 2 * c + 2; ++j) {
-        // query rows 8j + 2 t4 and the next: one 8-byte load each of lse,
-        // delta, where they are used
-        const float2 lse2 = ld_shared_f2(lse_t + 8 * j + 2 * t4);
-        const float2 delta2 = ld_shared_f2(delta_t + 8 * j + 2 * t4);
+      for (int j = 0; j < 8; ++j) {
+        const float2 lse2 = ld_shared_f2(ulse + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float pj = exp_approx(sacc[4 * j + e] + (r ? kb1 : kb0) - ((e & 1) ? lse2.y : lse2.x));
-          float pd = pj, dpj = dpacc[4 * j + e];
-          if constexpr (DROP) {  // 1 / (1 - rate) where kept, else 0
-            const float m =
-                __uint2float_rn((keep_word >> (2 * (2 * j + (e & 1)) + r)) & 1u) * inv_keep;
-            pd *= m;
-            dpj *= m;
-          }
-          sacc[4 * j + e] = pd;                                             // P^T, dropped
-          dpacc[4 * j + e] = pj * (dpj - ((e & 1) ? delta2.y : delta2.x));  // dS^T
+          const float sv = g.pow2 ? sacc[4 * j + e] * p.scale : sacc[4 * j + e];
+          const float pj = exp_approx(sv + ((e >> 1) ? kb1 : kb0) - ((e & 1) ? lse2.y : lse2.x));
+          sacc[4 * j + e] = pj;
+          xp[(4 * j + e) * kConsumers + ltid] = pj;
         }
       }
-      pa[c][0] = pack_bf16(sacc[8 * c + 0], sacc[8 * c + 1]);
-      pa[c][1] = pack_bf16(sacc[8 * c + 2], sacc[8 * c + 3]);
-      pa[c][2] = pack_bf16(sacc[8 * c + 4], sacc[8 * c + 5]);
-      pa[c][3] = pack_bf16(sacc[8 * c + 6], sacc[8 * c + 7]);
-      dsa[c][0] = pack_bf16(dpacc[8 * c + 0], dpacc[8 * c + 1]);
-      dsa[c][1] = pack_bf16(dpacc[8 * c + 2], dpacc[8 * c + 3]);
-      dsa[c][2] = pack_bf16(dpacc[8 * c + 4], dpacc[8 * c + 5]);
-      dsa[c][3] = pack_bf16(dpacc[8 * c + 6], dpacc[8 * c + 7]);
+      named_arrive(2, 2 * kConsumers);
+      mbar_wait(&udo_full[u], upar);  // dO (and K4's keep bits)
+      if constexpr (DROP) keep_word = gather_keep(ubits, kl_lo, t4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float pd[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int j = 2 * c + (k >> 2), e = k & 3;
+          pd[k] = sacc[8 * c + k];
+          if constexpr (DROP)  // 1 / (1 - rate) where kept, else 0
+            pd[k] *= __uint2float_rn((keep_word >> (2 * (2 * j + (e & 1)) + (e >> 1))) & 1u) *
+                     inv_keep;
+        }
+        pa[c][0] = pack_bf16(pd[0], pd[1]);
+        pa[c][1] = pack_bf16(pd[2], pd[3]);
+        pa[c][2] = pack_bf16(pd[4], pd[5]);
+        pa[c][3] = pack_bf16(pd[6], pd[7]);
+      }
+      named_sync(3, 2 * kConsumers);  // dS^T is in its tile
+      load_swizzled_u32(opaque_u32(ds_tile), dsa, kl_lo, t4);
+      mbar_wait(&uq_full[u], upar);
+    } else {
+      // dS^T = P^T (dP^T dropped - delta) and the dropped P^T, packed to bf16
+      // A operands 16 query rows at a time, so that dP^T dies as it goes
+      if constexpr (DROP) keep_word = gather_keep(ubits, kl_lo, t4);
+      named_sync(2, 2 * kConsumers);  // P^T is in xp
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float pd[8], ds[8];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * c + jj;
+          const float2 delta2 = ld_shared_f2(udelta + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pj = ld_shared_f1(xp + (4 * j + e) * kConsumers + ltid);
+            float pdj = pj, dpj = sacc[4 * j + e];
+            if constexpr (DROP) {  // 1 / (1 - rate) where kept, else 0
+              const float m =
+                  __uint2float_rn((keep_word >> (2 * (2 * j + (e & 1)) + (e >> 1))) & 1u) * inv_keep;
+              pdj *= m;
+              dpj *= m;
+            }
+            pd[4 * jj + e] = pdj;
+            ds[4 * jj + e] = pj * (dpj - ((e & 1) ? delta2.y : delta2.x));
+          }
+        }
+        // the dropped P^T's A operand waits in this thread's words of the
+        // exchange, already read (word 4c + i after elements 8c .. 8c + 7),
+        // so that it holds no registers while dS^T forms
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(smem_u32(xp + (4 * c + i) * kConsumers + ltid)),
+                       "r"(pack_bf16(pd[2 * i], pd[2 * i + 1])) : "memory");
+        dsa[c][0] = pack_bf16(ds[0], ds[1]);
+        dsa[c][1] = pack_bf16(ds[2], ds[3]);
+        dsa[c][2] = pack_bf16(ds[4], ds[5]);
+        dsa[c][3] = pack_bf16(ds[6], ds[7]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(pa[c][i])
+                       : "r"(smem_u32(xp + (4 * c + i) * kConsumers + ltid)) : "memory");
+      }
+      store_swizzled_u32(opaque_u32(ds_tile), dsa, kl_lo, t4);
+      fence_proxy_async();  // K2's dq products read the tile
+      named_arrive(3, 2 * kConsumers);
+      if constexpr (DQ) named_sync(4, kConsumers);  // every thread's dS^T is in place
+      mbar_wait(&uq_full[u], upar);
     }
-    const int s = n % kWideStages;
-    const bf16* uslot = ring + s * 4 * kChunk;  // q's slice chunks, then dO's
-    mbar_wait(&full[s], (n / kWideStages) & 1);
+
+    // the slice's dv += P^T dO and dk += dS^T q, B read MN-major from the buffer
     wg_fence();
     fence_regs(dv);
     fence_regs(dk);
+    if (sl_ch > 0) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      wgmma_rs<2>(dv, pa[c], uslot + 2 * kChunk, c);
-      wgmma_rs<2>(dk, dsa[c], uslot, c);
+      for (int c = 0; c < 4; ++c) {
+        wgmma_rs<2>(dv, pa[c], udo + 2 * w * kChunk, c);
+        wgmma_rs<2>(dk, dsa[c], uq + 2 * w * kChunk, c);
+      }
     }
     wg_commit();
-    uint32_t* next_bits = bits_buf + ((t + 1) & 1) * 2 * kTile;
-    if constexpr (DROP && DQ) {
-      if (t + 1 < n_tiles)
-        fill_keep_bits<2>(next_bits, kTile, p.row0 + q0 + kTile, p.col0 + k0,
-                          (uint32_t)p.seed[seed_at], p.threshold, tid, kConsumers);
-    }
-    bf16* ds_tile = dSt + (t & 1) * kChunk;  // rewritten two tiles later
     if constexpr (DQ) {
-      store_swizzled(ds_tile, dsa, kl_lo, t4);
-      fence_proxy_async();
-      consumer_sync();  // every warp's dS^T is in place
-    }
-    if constexpr (DROP && DQ) keep_word = gather_keep(next_bits, kl_lo, t4);
-    wg_wait_all();
-    fence_regs(dv);
-    fence_regs(dk);
-    mbar_arrive(&empty[s]);
-    ++n;
-
-    if constexpr (DQ) {
+      wg_wait_all();  // P^T's and dS^T's registers free before dq's take theirs
+      fence_regs(dv);
+      fence_regs(dk);
       // this tile's share of dq's slice columns: round(dS) K over the CTA's
       // 64 keys, dS^T read MN-major as the A operand and K's slice chunks
       // MN-major as B, one 64-column half at a time, into the scratch
       // (B, H, nk, Tq, D) that dq_reduce_kernel adds up
-      float* part = p.dq_part + ((size_t)(blockIdx.z * p.H + blockIdx.y) * n_kt +
-                                 blockIdx.x / n_slices(p.D)) * p.Tq * p.D;
+      const bf16* kslice = opaque(g.kv_res ? kres + cw * kChunk : ksl + 2 * w * kChunk);
+      const uint32_t dst = opaque_u32(ds_tile);
+      // the thread's two rows of the share, from the slice's first column
+      float* rows[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        rows[r] = p.dq_part + ((bh * n_kt + kt) * p.Tq + q0 + kl_lo + 8 * r) * p.D + 64 * cw +
+                  2 * t4;
+#pragma unroll 1
       for (int hh = 0; hh < sl_ch; ++hh) {
         float dq[32];
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64_tt(dq, mnmajor_desc(ds_tile, kk), mnmajor_desc(Ksl + hh * kChunk, kk), kk == 0);
+          wgmma_ss_n64_tt(dq, sw128_desc_u32(dst + kk * 16 * 64 * 2, kChunk * 2, 1024),
+                          mnmajor_desc(kslice + hh * kChunk, kk), kk == 0);
         wg_commit();
         wg_wait_all();
         fence_regs(dq);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int r = 0; r < 2; ++r) {
+          if (q0 + kl_lo + 8 * r >= p.Tq) continue;
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = q0 + kl_lo + 8 * r, c = c0 + 64 * hh + 8 * j + 2 * t4;
-            if (row >= p.Tq || c >= p.D) continue;
-            float* out = part + (long long)row * p.D + c;
+          for (int j = 0; j < 8; ++j) {
+            const int c = 64 * (cw + hh) + 8 * j + 2 * t4;
+            if (c >= p.D) continue;
+            float* out = rows[r] + 64 * hh + 8 * j;
             const float x = dq[4 * j + 2 * r] * p.scale, y = dq[4 * j + 2 * r + 1] * p.scale;
             if (p.D % 2 == 0) {
               *reinterpret_cast<float2*>(out) = make_float2(x, y);
@@ -1322,12 +1440,188 @@ __global__ void __launch_bounds__(kHopThreads, 1) dkv_wide_wgmma_kernel(
         }
       }
     }
+    wg_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&u_empty[u]);
   }
 
-  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh + c0;
-  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh + c0;
-  store_rows<2>(dkp, p.dk_st, k0, p.Tk, p.D - c0, dk, p.scale, tid);
-  store_rows<2>(dvp, p.dv_st, k0, p.Tk, p.D - c0, dv, 1.f, tid);
+  if (sl_ch > 0) {
+    bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh + 64 * cw;
+    bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh + 64 * cw;
+    store_rows<2>(dkp, p.dk_st, k0, p.Tk, p.D - 64 * cw, dk, p.scale, ltid);
+    store_rows<2>(dvp, p.dv_st, k0, p.Tk, p.D - 64 * cw, dv, 1.f, ltid);
+  }}
+
+// The producer warp loads the CTA's k and v once (kv_res; K2 otherwise its
+// pair's k chunks), then per q tile the ring slots of the head dim's chunks
+// in the consumers' order (from the chunk after the pair, wrapping to the
+// pair's last) and a buffer of the pair's q and dO chunks with the rows' lse
+// (+inf past Tq: P = 0) and delta, and for K4 K3's keep bits of the tile.
+// Warpgroup 0 computes S^T = K round(q * scale)^T, warpgroup 1 dP^T = V dO^T,
+// over the whole head dim, each issuing its chunk products back to back and
+// waiting once. Warpgroup 0 hands P^T (float32) to warpgroup 1 (named
+// barrier 2), which forms dS^T, keeps its bf16 A operand in a swizzled tile
+// and hands it back (barrier 3); both drop P^T with the same keep bits. Then
+// each updates its slice's dv += P^T dO and dk += dS^T q from the buffer, and
+// for K2 adds dS K over the slice to the dq scratch from the dS^T tile. The
+// keep bits come with each q tile's buffer, one bulk copy from the buffer K3
+// fills for K4 (keep_bits_kernel fills it for K2).
+// Barriers 1 and 4 are warpgroup 0's and 1's own. Every exchange buffer is
+// single: each side passes the other's barrier of the next tile only after
+// it is done with this tile's.
+template <bool DROP, bool DQ>
+__global__ void __launch_bounds__(kPairThreads, 1) dkv_pair_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p, const DkvPair g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const int tid = threadIdx.x;
+  const int n_ch = (p.D + 63) / 64;
+  const DkvPairSmem L = dkv_pair_smem(n_ch, g, DQ);
+  bf16* kres = reinterpret_cast<bf16*>(base + L.kres);
+  bf16* vres = reinterpret_cast<bf16*>(base + L.vres);
+  bf16* ksl = reinterpret_cast<bf16*>(base + L.ksl);
+  uint8_t* ubase = base + L.u;
+  bf16* ring0 = reinterpret_cast<bf16*>(base + L.ring0);
+  bf16* ring1 = reinterpret_cast<bf16*>(base + L.ring1);
+  bf16* ds_tile = reinterpret_cast<bf16*>(base + L.ds);  // round(dS)^T, keys x query rows
+  float* xp = reinterpret_cast<float*>(base + L.xp);     // P^T: element e of thread i at e 128 + i
+  float* kbias_s = reinterpret_cast<float*>(base + L.kbias);
+  uint64_t* uq_full = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* udo_full = uq_full + g.nu;
+  uint64_t* u_empty = udo_full + g.nu;
+  uint64_t* r0full = u_empty + g.nu;
+  uint64_t* r0empty = r0full + g.rs;
+  uint64_t* r1full = r0empty + g.rs;
+  uint64_t* r1empty = r1full + g.rs;
+  uint64_t* kvbar = r1empty + g.rs;
+
+  const int n_pairs = (n_ch + 3) / 4;
+  const int pr = blockIdx.x % n_pairs;
+  const int kt = blockIdx.x / n_pairs, n_kt = (p.Tk + kTile - 1) / kTile;
+  const int k0 = kt * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ch0 = 4 * pr, pc = min(4, n_ch - ch0);  // the pair's chunks
+  const int start = (ch0 + pc) % n_ch;               // the sweep's first chunk
+  const int slot_ch = g.kv_res ? 1 : 2;              // chunks of a ring slot: [k or v,] q or dO
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int i = 0; i < g.nu; ++i) {
+      mbar_init(&uq_full[i], 32);
+      mbar_init(&udo_full[i], 32);
+      mbar_init(&u_empty[i], 2 * kConsumers);
+    }
+    for (int i = 0; i < g.rs; ++i) {
+      mbar_init(&r0full[i], 1);
+      mbar_init(&r0empty[i], kConsumers);
+      mbar_init(&r1full[i], 1);
+      mbar_init(&r1empty[i], kConsumers);
+    }
+    mbar_init(kvbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 2 * kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (tid >= 2 * kConsumers + 32) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      if (g.kv_res) {
+        mbar_arrive_tx(kvbar, 2 * n_ch * kPairChunkBytes);
+        for (int c = 0; c < n_ch; ++c) {
+          tma_load(kres + c * kChunk, &tm_k, kvbar, 64 * c, k0, h, b);
+          tma_load(vres + c * kChunk, &tm_v, kvbar, 64 * c, k0, h, b);
+        }
+      } else if (DQ) {
+        mbar_arrive_tx(kvbar, pc * kPairChunkBytes);
+        for (int i = 0; i < pc; ++i) tma_load(ksl + i * kChunk, &tm_k, kvbar, 64 * (ch0 + i), k0, h, b);
+      }
+    }
+    int n0 = 0, n1 = 0;  // ring slots filled so far
+    // ring slots of sweep positions [i0, i1) of q tile t (chunks in the
+    // consumers' order)
+    const auto fill_slots = [&](int t, int i0, int i1) {
+      const int q0 = t * kTile;
+      for (int i = i0; i < i1; ++i) {
+        const int c = (start + i) % n_ch;
+        const bool in_pair = c >= ch0 && c < ch0 + pc;
+        if (!g.kv_res || !in_pair || !g.pow2) {  // warpgroup 0's slot: k chunk, q chunk
+          const int s = n0 % g.rs;
+          if (n0 >= g.rs) mbar_wait(&r0empty[s], ((n0 / g.rs) - 1) & 1);
+          bf16* slot = ring0 + s * slot_ch * kChunk;
+          const uint32_t bytes = ((g.kv_res ? 0 : 1) + (in_pair ? 0 : 1)) * kPairChunkBytes;
+          if (bytes) {
+            mbar_arrive_tx(&r0full[s], bytes);
+            if (!g.kv_res) tma_load(slot, &tm_k, &r0full[s], 64 * c, k0, h, b);
+            if (!in_pair) tma_load(slot + (slot_ch - 1) * kChunk, &tm_q, &r0full[s], 64 * c, q0, h, b);
+          } else {
+            mbar_arrive(&r0full[s]);  // a slot for the rounded copy of the pair's q chunk
+          }
+          ++n0;
+        }
+        if (!g.kv_res || !in_pair) {  // warpgroup 1's slot: v chunk, dO chunk
+          const int s = n1 % g.rs;
+          if (n1 >= g.rs) mbar_wait(&r1empty[s], ((n1 / g.rs) - 1) & 1);
+          bf16* slot = ring1 + s * slot_ch * kChunk;
+          mbar_arrive_tx(&r1full[s], ((g.kv_res ? 0 : 1) + (in_pair ? 0 : 1)) * kPairChunkBytes);
+          if (!g.kv_res) tma_load(slot, &tm_v, &r1full[s], 64 * c, k0, h, b);
+          if (!in_pair) tma_load(slot + (slot_ch - 1) * kChunk, &tm_do, &r1full[s], 64 * c, q0, h, b);
+          ++n1;
+        }
+      }
+    };
+    // per q tile: the slots of the chunks outside the pair (they run first
+    // and prefetch while the previous tile's updates hold the buffer), the
+    // buffer, then the slots of the pair's chunks
+    for (int t = 0; t < n_tiles; ++t) {
+      const int q0 = t * kTile;
+      if (lane == 0) fill_slots(t, 0, n_ch - pc);
+      __syncwarp();
+      const int u = t % g.nu;
+      if (t >= g.nu) mbar_wait(&u_empty[u], ((t / g.nu) - 1) & 1);
+      bf16* uq = reinterpret_cast<bf16*>(ubase + u * kUBytes);
+      bf16* udo = uq + 4 * kChunk;
+      float* ulse = reinterpret_cast<float*>(udo + 4 * kChunk);
+      float* udelta = ulse + kTile;
+      uint32_t* ubits = reinterpret_cast<uint32_t*>(udelta + kTile);
+      if (lane == 0) {  // the copies first, so they fly while the rows' data loads
+        mbar_expect_tx(&uq_full[u], pc * kPairChunkBytes);
+        for (int i = 0; i < pc; ++i)
+          tma_load(uq + i * kChunk, &tm_q, &uq_full[u], 64 * (ch0 + i), q0, h, b);
+        mbar_expect_tx(&udo_full[u], pc * kPairChunkBytes + (DROP ? kBitsBytes : 0));
+        for (int i = 0; i < pc; ++i)
+          tma_load(udo + i * kChunk, &tm_do, &udo_full[u], 64 * (ch0 + i), q0, h, b);
+        if constexpr (DROP)  // the keep bits of this (key tile, q tile): 512 bytes
+          bulk_load(ubits, p.keep_bits + ((bh * n_kt + kt) * p.tq_pad + q0) * 2, kBitsBytes,
+                    &udo_full[u]);
+      }
+      for (int r = lane; r < kTile; r += 32) {
+        const bool in = q0 + r < p.Tq;
+        ulse[r] = in ? p.lse[bh * p.Tq + q0 + r] : pos_inf();
+        udelta[r] = in ? p.delta[bh * p.Tq + q0 + r] : 0.f;
+      }
+      mbar_arrive(&uq_full[u]);  // each lane after its own writes
+      mbar_arrive(&udo_full[u]);
+      if (lane == 0) fill_slots(t, n_ch - pc, n_ch);
+      __syncwarp();
+    }
+    return;
+  }
+
+  reg_alloc<kConsumerRegs>();
+  const bool w0 = tid < kConsumers;
+  const DkvPairCtx C{kres, vres, ksl, w0 ? ring0 : ring1, ds_tile, ubase,
+                     w0 ? r0full : r1full, w0 ? r0empty : r1empty, uq_full, udo_full, u_empty,
+                     kvbar, xp, kbias_s, n_ch, ch0, pc, start, slot_ch, k0, kt, n_kt, b, n_tiles,
+                     bh};
+  if (w0) {
+    dkv_pair_consumer<0, DROP, DQ>(p, g, C);
+  } else {
+    dkv_pair_consumer<1, DROP, DQ>(p, g, C);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1641,11 +1935,6 @@ __global__ void __launch_bounds__(kHopThreads, 1) dkv_tf32_kernel(
 
 constexpr int kDqSlots = 3;    // ring of one-chunk slots
 constexpr int kBiasTiles = 4;  // key bias of the tiles in flight
-
-// bar.sync on barrier `id` for `threads` threads (warpgroup-local: 128)
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // acc = A . B^T over the head dim's n_ch chunks, three TF32 passes (SS).
 // A: QC > 0, resident and split (hi chunks at a_hi, lo at a_lo); QC = 0,
@@ -2112,22 +2401,48 @@ int run_hop(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
               : launch_hop(dkv_wgmma_kernel<NC, false, false>, smem, grid, m, p, s);
 }
 
-// bf16 above 128: K3, K4, or K2 and its dq sum, on the wide kernels
+// bf16 K2 above 128 with dropout: the keep bits of every 64x64 (key tile, q
+// tile) in the layout dq_wide_wgmma_kernel writes for K4, one word a thread,
+// so that the paired kernel reads them as K4 does (no K3 runs before K2)
+__global__ void keep_bits_kernel(const BwdParams p, int n_kt) {
+  const long long n = (long long)p.B * p.H * n_kt * p.tq_pad * 2;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const long long word = idx >> 1;  // (bh, key tile, row) of the word pair
+  const int row = (int)(word % p.tq_pad);
+  const int kt = (int)((word / p.tq_pad) % n_kt);
+  const long long bh = word / ((long long)p.tq_pad * n_kt);
+  fill_keep_bits(p.keep_bits + word * 2, 1, p.row0 + row, p.col0 + kt * kTile,
+                 (uint32_t)p.seed[bh], p.threshold, (int)(idx & 1), 2);
+}
+
+// bf16 above 128: K3 on dq_wide_wgmma_kernel; K4, or K2 and its dq sum, on
+// the paired kernel
 template <bool DROP>
 int run_hop_wide(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
-  const int n_sl = n_slices(p.D);
+  const int n_ch = (p.D + 63) / 64;
   const int n_qt = (p.Tq + kTile - 1) / kTile, n_kt = (p.Tk + kTile - 1) / kTile;
   if (which == 1)
     return launch_hop(dq_wide_wgmma_kernel<DROP>, dq_wide_hop_smem_bytes(),
-                      dim3(n_qt * n_sl, p.H, p.B), m, p, s);
-  const dim3 grid(n_kt * n_sl, p.H, p.B);
-  if (which == 2)
-    return launch_hop(dkv_wide_wgmma_kernel<DROP, false>, dkv_wide_hop_smem_bytes<false>(), grid,
-                      m, p, s);
-  if (p.dq_part == nullptr) return -7;
-  const int rc = launch_hop(dkv_wide_wgmma_kernel<DROP, true>, dkv_wide_hop_smem_bytes<true>(),
-                            grid, m, p, s);
-  if (rc != 0) return rc;
+                      dim3(n_qt * n_slices(p.D), p.H, p.B), m, p, s);
+  const bool dq = which == 0;
+  if (dq && p.dq_part == nullptr) return -7;
+  if (dq && DROP) {
+    if (p.keep_bits == nullptr) return -6;
+    const long long n = (long long)p.B * p.H * n_kt * p.tq_pad * 2;
+    keep_bits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const DkvPair g = dkv_pair_config(p.D, p.scale, dq);
+  const int smem = dkv_pair_smem(n_ch, g, dq).total;
+  const auto kernel = dq ? dkv_pair_wgmma_kernel<DROP, true> : dkv_pair_wgmma_kernel<DROP, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n_kt * ((n_ch + 3) / 4), p.H, p.B), kPairThreads, smem, s>>>(m.q, m.k, m.v,
+                                                                               m.dout, p, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !dq) return (int)err;
   const long long n = (long long)p.B * p.H * p.Tq * p.D;
   dq_reduce_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(p, n_kt);
   return (int)cudaGetLastError();
@@ -2258,6 +2573,7 @@ extern "C" int vimo_flash_attention_bwd(
   p.scale = scale;
   p.threshold = seed != nullptr ? threshold : 0u;
   p.keep = seed != nullptr ? keep : 1.0f;
+  p.inv_keep = 1.0f / p.keep;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return run_float(p, which, s);
   if (dtype == 1) return run_hopper(p, which, s);
@@ -2269,10 +2585,10 @@ extern "C" int vimo_flash_attention_bwd(
 // kernel at D <= 64, the wide kernel above 128); a negative cudaError_t code
 // on failure
 template <typename Kernel>
-int occupancy(Kernel kernel, size_t smem) {
+int occupancy(Kernel kernel, size_t smem, int threads = kHopThreads) {
   int n = 0;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kHopThreads, smem);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -2283,8 +2599,11 @@ extern "C" int vimo_flash_attention_bwd_dqkv_occupancy(int D, int drop) {
   if (D <= kSlice)
     return drop ? occupancy(dqkv_wgmma_kernel<2, true, false>, dqkv_hop_smem_bytes<2, false>())
                 : occupancy(dqkv_wgmma_kernel<2, false, false>, dqkv_hop_smem_bytes<2, false>());
-  return drop ? occupancy(dkv_wide_wgmma_kernel<true, true>, dkv_wide_hop_smem_bytes<true>())
-              : occupancy(dkv_wide_wgmma_kernel<false, true>, dkv_wide_hop_smem_bytes<true>());
+  // the model's scale, 1 / sqrt(D), which decides the paired kernel's layout
+  const DkvPair g = dkv_pair_config(D, 1.f / sqrtf((float)D), true);
+  const size_t smem = dkv_pair_smem((D + 63) / 64, g, true).total;
+  return drop ? occupancy(dkv_pair_wgmma_kernel<true, true>, smem, kPairThreads)
+              : occupancy(dkv_pair_wgmma_kernel<false, true>, smem, kPairThreads);
 }
 
 extern "C" const char* vimo_cuda_error_string(int code) {

@@ -105,6 +105,18 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
+// bar.sync on named barrier `id` for `threads` threads (warpgroup-local: 128)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` without waiting: the other side's bar.sync
+// returns once `threads` threads arrived, with this side's earlier shared-
+// memory writes visible to it
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // generic-proxy writes to shared memory become visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -121,6 +133,22 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the warpgroup's registers per thread lowered or raised to N (a multiple of
+// 8): a producer warpgroup hands its registers to the consumers
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // keeps the compiler from reading or moving accumulators across an
 // asynchronous wgmma (its issue and its wait)
@@ -130,10 +158,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(ptr) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+// shared-memory matrix descriptor, 128-byte swizzle, from a 32-bit
+// shared-memory address or a pointer
+__device__ __forceinline__ uint64_t sw128_desc_u32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
+  return sw128_desc_u32(smem_u32(ptr), lbo, sbo);
 }
 
 // K-major operand (rows of a tile, contracted over its columns), k-step kk
@@ -292,6 +325,22 @@ __device__ __forceinline__ float2 ld_shared_f2(const float* ptr) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(smem_u32(ptr)));
   return v;
+}
+
+// the pointer, opaque to the compiler at this point: the shared-memory
+// descriptors built from it are computed here, not hoisted out of the loop
+// around it to hold registers for its whole length
+template <typename T>
+__device__ __forceinline__ T* opaque(T* ptr) {
+  asm volatile("" : "+l"(ptr));
+  return ptr;
+}
+
+// the shared-memory address of `ptr`, opaque as above, in 32 bits
+__device__ __forceinline__ uint32_t opaque_u32(const void* ptr) {
+  uint32_t a = smem_u32(ptr);
+  asm volatile("" : "+r"(a));
+  return a;
 }
 
 // 1024-byte aligned start of dynamic shared memory (the swizzle atom)

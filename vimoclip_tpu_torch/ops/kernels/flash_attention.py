@@ -12,15 +12,17 @@ flash_attention`` (wrapper :751) and its kernels:
   ``csrc/flash_attention_bwd.cu``.
 
 Every head dim runs on the kernels, as on the TPU. Above
-``WIDE_ABOVE_HEAD_DIM`` (128) each kernel has a wide variant: one CTA per
-slice of up to 128 output columns, the score products streamed over the
-whole head dim, so registers and shared memory stay flat in D; its launches
-count under the kind's ``_wide`` name.
+``WIDE_ABOVE_HEAD_DIM`` (128) each kernel has a wide variant, its launches
+counted under the kind's ``_wide`` name: in bf16 K1/K1', K2 and K4 take a
+pair of 128-column output slices per CTA, the scores once for the pair; K3
+and the float32 kernels one slice per CTA (the float32 K3 a pair), the
+score products streamed over the whole head dim.
 
 In bf16 every kernel runs on the tensor cores (wgmma) from tiles that TMA
 copies into shared memory; with dropout K3 also writes the keep bits of each
 64x64 tile to a uint32 buffer that K4 reads instead of drawing them again
-(K1' and K2 draw their own). In float32 K1, K1', K2 and K4 run on the
+(K1' and K2 draw their own; above head dim 128 a small kernel fills the
+same buffer for K2 first). In float32 K1, K1', K2 and K4 run on the
 tensor cores too, each product as three TF32 passes (hi.hi + hi.lo + lo.hi
 of operands split in two, ``csrc/tf32.cuh``), from tiles TMA copies, and so
 does K3, which keeps no keep-bit buffer in float32. TMA needs a 16-byte
@@ -438,6 +440,12 @@ def _launch_bwd(kind, q, k, v, key_padding_mask, seed, dropout_rate, lse, delta,
     if kind == "bwd_dqkv":  # K2's dq shares, one per 64-key tile
         n_kt = -(-tk // _BWD_TILE)
         scratch = torch.empty((b, h, n_kt, tq, d), dtype=torch.float32, device=q.device)
+        if (keep_bits is None and seed_ptr is not None and q.dtype == torch.bfloat16
+                and d > WIDE_ABOVE_HEAD_DIM):
+            # the wide bf16 K2 reads its keep bits as K4 does, from the buffer a
+            # small kernel fills first (K3's layout)
+            keep_bits = torch.empty((b, h, n_kt, -(-tq // 64) * 64, 2), dtype=torch.int32,
+                                    device=q.device)
     null3 = (0, 0, 0)
     lib, fn = _bind("flash_attention_bwd", "vimo_flash_attention_bwd", _BWD_ARGS)
     with torch.cuda.device(q.device):
