@@ -8,8 +8,9 @@ NVIDIA card:
 2. Build: every CUDA kernel from ``vimoclip_tpu_torch/csrc`` with nvcc for
    sm_90a (seconds and the ``-Xptxas -v`` report); the SASS of every bf16
    attention kernel (K1/K1', K2, K3, K4, and their wide kernels above head
-   dim 128) must hold wgmma products (HGMMA) and TMA loads (UTMALDG); the
-   bf16 K1 and K2 CTAs that fit one SM at head dims 64, 128, 256 and 512.
+   dim 128) must hold wgmma products (HGMMA) and TMA loads (UTMALDG); their
+   registers and spill bytes, none in the paired kernels; the bf16 K1, K2
+   and K3 CTAs that fit one SM at head dims 64, 128, 256 and 512.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the bound.
@@ -167,10 +168,11 @@ NVIDIA card:
     accumulated peak below the dense one.
 17. Head dims above 128 (TFAM d 512 at 2 and 1 heads): (a) K1 at (3, 2,
     384, 384, 256), K1' and K2 at (8, 2, 512, 512, 256) and (8, 1, 512,
-    512, 512), K3 and K4 at (8, 2, 768, 768, 256) on the wide kernels
-    against their plain versions, float32 and bf16, dropout 0.1 and 0, timed
-    as in phase 5 beside SDPA and the backend it ran; their keep bits at
-    head dims 256 and 512 equal to the plain mask; (b) ``TFAMTrainer`` on
+    512, 512), K3 and K4 at (8, 2, 768, 768, 256) and (8, 1, 768, 768, 512)
+    on the wide kernels against their plain versions, float32 and bf16,
+    dropout 0.1 and 0, timed as in phase 5 beside SDPA and the backend it
+    ran; their keep bits at head dims 256, 384 and 512 equal to the plain
+    mask; (b) ``TFAMTrainer`` on
     phase 6's recipe in float32 (the trainer's default) at 2 and 1 heads on
     ``flash``: one epoch of phase 6's batches with the long one (K3 + K4),
     the wide launches of every step, ``validate`` (K1), 15 steps on one
@@ -265,7 +267,7 @@ KERNEL_NAMES = {
     "bwd_dqkv_wide": {"float32": _DQKV_F32,
                       "bfloat16": ("dkv_pair_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16",
                                    "keep_bits_kernel")},
-    "bwd_dq_wide": {"float32": ("dq_tf32_wide_kernel",), "bfloat16": ("dq_wide_wgmma_kernel",)},
+    "bwd_dq_wide": {"float32": ("dq_tf32_wide_kernel",), "bfloat16": ("dq_pair_wgmma_kernel",)},
     "bwd_dkv_wide": {"float32": ("dkv_tf32_kernel",), "bfloat16": ("dkv_pair_wgmma_kernel",)},
 }
 # launched only with dropout (the wide bf16 K2's keep bits)
@@ -278,9 +280,12 @@ KERNEL_PER_CALL = {kind: {dt: len(names) for dt, names in by_dtype.items()}
 WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_pair_wgmma_kernel",
                                          "fwd_tf32_kernel"),
                  "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
-                                         "dkv_wgmma_kernel", "dq_wide_wgmma_kernel",
+                                         "dkv_wgmma_kernel", "dq_pair_wgmma_kernel",
                                          "dkv_pair_wgmma_kernel", "dkv_tf32_kernel",
                                          "dq_tf32_kernel", "dq_tf32_wide_kernel")}
+# the kernels that must build without spills (the bf16 paired kernels above
+# head dim 128)
+NO_SPILL_KERNELS = ("fwd_pair_wgmma_kernel", "dkv_pair_wgmma_kernel", "dq_pair_wgmma_kernel")
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -401,7 +406,8 @@ AUTO_LOSS_TOL = 1e-6
 # serving's (3, 384) batch; the ring at seq 2 over 2048 frames.
 WIDE_HEADS = (2, 1)
 WIDE_K1_SHAPE = (3, 2, 384, 384, 256)
-WIDE_TRAIN_SHAPES = [(8, 2, 512, 512, 256), (8, 1, 512, 512, 512), (8, 2, 768, 768, 256)]
+WIDE_TRAIN_SHAPES = [(8, 2, 512, 512, 256), (8, 1, 512, 512, 512), (8, 2, 768, 768, 256),
+                     (8, 1, 768, 768, 512)]
 WIDE_MAIN_SHAPES = {"fwd_lse": (8, 2, 512, 512, 256), "bwd_dqkv": (8, 2, 512, 512, 256),
                     "bwd_dq": (8, 2, 768, 768, 256), "bwd_dkv": (8, 2, 768, 768, 256)}
 WIDE_SEQ_SHAPE = (8, 2, 2048, 2048, 256)
@@ -545,14 +551,26 @@ def phase_build() -> None:
     for b in built.values():
         print(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.relative_to(HERE)}")
         print(b.log.strip())
+    sys.path.insert(0, str(HERE / "tools"))
+    from time_bwd_variants import ptxas_report
+
     for lib, kernels in WGMMA_KERNELS.items():
         sass_check(built[lib].path, kernels)
-    # CTAs per SM of the bf16 K1/K1' and K2 at D = 64 and 128, and of their
-    # wide kernels at 256 and 512
+        regs = ptxas_report(built[lib].log)
+        print("[ptxas] " + json.dumps(regs))
+        for k in NO_SPILL_KERNELS:
+            if k in kernels:
+                found = {name: v for name, v in regs.items() if k in name}
+                check(bool(found) and all(spill == 0 for _, spill in found.values()),
+                      f"{k}: no ptxas report, or spill stores in some instantiation: {found}")
+    # CTAs per SM of the bf16 K1/K1', K2 and K3 at D = 64 and 128, and of
+    # their wide kernels at 256 and 512
     occupancy = {}
     for lib, entry, kind in (("flash_attention_fwd", "vimo_flash_attention_fwd_occupancy", "fwd"),
                              ("flash_attention_bwd", "vimo_flash_attention_bwd_dqkv_occupancy",
-                              "bwd_dqkv")):
+                              "bwd_dqkv"),
+                             ("flash_attention_bwd", "vimo_flash_attention_bwd_dq_occupancy",
+                              "bwd_dq")):
         fn = getattr(ctypes.CDLL(str(built[lib].path)), entry)
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
         for d in (64, 128, 256, 512):
@@ -3271,7 +3289,7 @@ def phase_wide(torch, seed: int, smi: str, setup: dict, base_step_ms: float) -> 
                                                   shapes=WIDE_TRAIN_SHAPES)
     seeds = fa.expand_seed(seed + 17, 2, 2, "cuda")
     bits = {}
-    for d in (256, 512):
+    for d in (256, 384, 512):
         for kind, rows, cols in (("fwd_lse", 128, 256), ("bwd_dqkv", 128, 320),
                                  ("bwd_dq", 128, 640)):
             got = fa.kernel_keep_bits(kind, seeds, rows, cols, 0.1, 64, 128, head_dim=d)

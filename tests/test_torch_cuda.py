@@ -540,12 +540,14 @@ def test_wide_kernels_draw_the_plain_bits(cuda, d, kind, rows, cols):
 
 
 @pytest.mark.parametrize("entry", ["vimo_flash_attention_fwd_occupancy",
-                                   "vimo_flash_attention_bwd_dqkv_occupancy"])
+                                   "vimo_flash_attention_bwd_dqkv_occupancy",
+                                   "vimo_flash_attention_bwd_dq_occupancy"])
 @pytest.mark.parametrize("drop", [0, 1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("d", [256, 512])
 def test_wide_kernels_fit_an_sm(cuda, d, drop, entry):
-    """The bf16 K1/K1' and K2 above head dim 128 (the paired kernels) launch
-    at least one CTA per SM, with their shared memory at that head dim."""
+    """The bf16 K1/K1', K2 and K3 above head dim 128 (the paired kernels)
+    launch at least one CTA per SM, with their shared memory at that head
+    dim."""
     import ctypes
 
     from vimoclip_tpu_torch.ops.kernels import _build
@@ -557,13 +559,15 @@ def test_wide_kernels_fit_an_sm(cuda, d, drop, entry):
 
 
 # ---------------------------------------------------------------------------
-# the float32 K3 alone (three-pass TF32: dq_tf32_kernel, dq_tf32_wide_kernel)
+# K3 alone: float32 (three-pass TF32: dq_tf32_kernel, dq_tf32_wide_kernel)
+# and bf16 above head dim 128 (dq_pair_wgmma_kernel)
 # ---------------------------------------------------------------------------
 
 
-def _dq_alone(q, k, v, mask, seeds, rate, grad, **at):
+def _dq_alone(q, k, v, mask, seeds, rate, grad, keep_bits=None, **at):
     """K3 alone, launched as ``backward_kernels`` launches it past 512
-    keys, from K1''s lse: its dq and the plain version's."""
+    keys, from K1''s lse: its dq and the plain version's. ``keep_bits``:
+    the buffer a bf16 K3 with dropout fills for K4."""
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
 
     b, h, tq, d = q.shape
@@ -572,7 +576,7 @@ def _dq_alone(q, k, v, mask, seeds, rate, grad, **at):
     ops = [fa.tma_operand(fa._rows(t)) for t in (q, k, v, grad)]
     dq = fa._heads_major(b, tq, h, d, q.dtype, q.device)
     fa._launch_bwd("bwd_dq", *ops[:3], mask, seeds, rate, lse, delta, ops[3], dq, None, None,
-                   **at)
+                   keep_bits, **at)
     want = flash_attention_backward_reference(q, k, v, mask, out, lse, grad, rate, seed=seeds,
                                               **at)[0]
     return dq, want
@@ -604,6 +608,47 @@ def test_float32_dq_kernel_matches_plain(cuda, shape, rate):
     assert _rel(got, want) <= GRAD_TOL[torch.float32], _rel(got, want)
     assert torch.equal(got, again)
     assert got[0].abs().max().item() > 0  # the fully masked row
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("shape", [
+    *((2, 2, 130, 600, d) for d in (130, 160, 256, 320, 384, 512, 640)),
+    # Tq below one tile, ragged keys
+    (2, 2, 40, 777, 256), (2, 2, 40, 777, 640),
+], ids=lambda s: "x".join(map(str, s)))
+def test_bf16_wide_dq_kernel_matches_plain(cuda, shape, rate):
+    """The bf16 K3 above head dim 128 (the paired kernel) alone within
+    ``GRAD_TOL`` of its plain version, with user-masked keys and a fully
+    masked batch row, at global dropout offsets: 130 is read from the
+    wrapper's padded copy, 160, 320, 384 and 640 leave a pair with one
+    slice or a partial one, 640 streams q and dO; two calls bitwise equal;
+    with dropout the keep bits it stores for K4 are the plain mask's."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, h, tq, tk, d = shape
+    q, k, v, mask = _inputs(*shape, torch.bfloat16, cuda, seed=tq + tk + d)
+    g = torch.randn(b, tq, h, d, device=cuda).to(torch.bfloat16).transpose(1, 2)
+    seeds = expand_seed(23, b, h, cuda) if rate else None
+    at = dict(row0=64, col0=4 * tk)
+    nk, tq_pad = -(-tk // 64), -(-tq // 64) * 64
+    bits = [torch.zeros(b, h, nk, tq_pad, 2, dtype=torch.int32, device=cuda) if rate else None
+            for _ in range(2)]
+    before = dict(flash_attention.launches)
+    got, want = _dq_alone(q, k, v, mask, seeds, rate, g, bits[0], **at)
+    again, _ = _dq_alone(q, k, v, mask, seeds, rate, g, bits[1], **at)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["bwd_dq_wide"] == before["bwd_dq_wide"] + 2
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= GRAD_TOL[torch.bfloat16], _rel(got, want)
+    assert torch.equal(got, again)
+    assert got[0].float().abs().max().item() > 0  # the fully masked row
+    if rate:
+        words = bits[0].to(torch.int64) & 0xFFFFFFFF
+        kept = (words[..., None] >> torch.arange(32, device=cuda)) & 1
+        kept = kept.reshape(b, h, nk, tq_pad, 64).permute(0, 1, 3, 2, 4).reshape(b, h, tq_pad, -1)
+        plain = fa.dropout_keep_mask(seeds, tq, tk, rate, at["row0"], at["col0"])
+        assert torch.equal(kept[:, :, :tq, :tk].bool(), plain)
+        assert torch.equal(bits[0], bits[1])
 
 
 @pytest.mark.parametrize("d", [64, 256])

@@ -124,6 +124,41 @@ def test_chip_smoke_names_no_fma_kernel_among_the_float32_kinds():
     assert smoke.KERNEL_NAMES["bwd_dq_wide"]["float32"] == ("dq_tf32_wide_kernel",)
 
 
+def test_chip_smoke_names_the_paired_bf16_dq_kernel_above_head_dim_128():
+    """Above head dim 128 the bf16 K3 is the paired kernel, whose SASS phase
+    2 holds to HGMMA and UTMALDG and whose build must show no spills."""
+    smoke = _chip_smoke()
+    assert smoke.KERNEL_NAMES["bwd_dq_wide"]["bfloat16"] == ("dq_pair_wgmma_kernel",)
+    assert "dq_pair_wgmma_kernel" in smoke.WGMMA_KERNELS["flash_attention_bwd"]
+    assert "dq_pair_wgmma_kernel" in smoke.NO_SPILL_KERNELS
+
+
+def _global_kernels() -> set[str]:
+    """The names of the ``__global__`` functions in the port's CUDA sources."""
+    import re
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?"
+                         r"(\w+)\s*\(")
+    return {m.group(1) for src in sorted((PORT / "csrc").glob("*.cu"))
+            for m in pattern.finditer(src.read_text())}
+
+
+def test_chip_smoke_names_only_kernels_the_sources_define():
+    """Every kernel name ``chip_smoke.py`` times, counts or checks the SASS
+    of is a ``__global__`` function of ``csrc/`` (a template's
+    instantiation, ``dq_reduce_kernel<...``, by its stem), so that a
+    retired kernel's name cannot linger there."""
+    smoke = _chip_smoke()
+    defined = _global_kernels()
+    assert {"dq_pair_wgmma_kernel", "dkv_pair_wgmma_kernel", "dq_reduce_kernel"} <= defined
+    named = {n for by_dtype in smoke.KERNEL_NAMES.values() for names in by_dtype.values()
+             for n in names}
+    named |= {n for names in smoke.WGMMA_KERNELS.values() for n in names}
+    named |= set(smoke.NO_SPILL_KERNELS)
+    for name in sorted(named):
+        assert name.split("<")[0] in defined, name
+
+
 @pytest.mark.parametrize("kind, want_ms", [("fwd_lse", 0.0586), ("bwd_dqkv", 0.1464),
                                            ("bwd_dq", 0.0879), ("bwd_dkv", 0.117)])
 def test_chip_smoke_bounds_every_float32_kind_at_the_tf32_rate(kind, want_ms):

@@ -25,10 +25,10 @@ KIND picks the kernels timed (and the default shape):
   512-key tile and K3 + K4 past it (as the wrappers launch them).
 The kernels are told apart by name: in bf16 the wgmma kernels, above head
 dim 128 both the paired ones (``fwd_pair_wgmma_kernel``,
-``dkv_pair_wgmma_kernel``) and the per-slice ones of earlier trees
-(``fwd_wide_wgmma_kernel``, ``dkv_wide_wgmma_kernel``; K3's
-``dq_wide_wgmma_kernel``), and the FMA or ``mma_kernel`` names of earlier
-trees; in float32 the three-pass
+``dkv_pair_wgmma_kernel``, ``dq_pair_wgmma_kernel``) and the per-slice
+ones of earlier trees (``fwd_wide_wgmma_kernel``,
+``dkv_wide_wgmma_kernel``, ``dq_wide_wgmma_kernel``), and the FMA or
+``mma_kernel`` names of earlier trees; in float32 the three-pass
 TF32 ``fwd_tf32``, ``dkv_tf32`` and ``dq_tf32`` (``dq_tf32_kernel`` and
 ``dq_tf32_wide_kernel``; and the FMA ``dq_kernel``,
 ``dq_wide_kernel``, ``fma_kernel``, ``fma_wide_kernel``, ``dkv_kernel`` and
@@ -71,8 +71,8 @@ VARIANTS = ROOT / "build" / "variants"
 # kernel names by kind and dtype (this tree's and earlier trees'), and the
 # default shape
 NAMES = {
-    "bfloat16": {"k3k4": ("dq_wgmma", "dkv_wgmma", "dq_wide_wgmma", "dkv_wide_wgmma",
-                          "dkv_pair_wgmma"),
+    "bfloat16": {"k3k4": ("dq_wgmma", "dkv_wgmma", "dq_wide_wgmma", "dq_pair_wgmma",
+                          "dkv_wide_wgmma", "dkv_pair_wgmma"),
                  "k2": ("dqkv_wgmma", "dkv_wide_wgmma", "dkv_pair_wgmma", "dq_reduce",
                         "keep_bits_kernel", "dkv_kernel"),
                  "fwd": ("fwd_wgmma", "fwd_wide_wgmma", "fwd_pair_wgmma", "mma_kernel")},

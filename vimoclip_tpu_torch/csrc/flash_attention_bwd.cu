@@ -166,30 +166,47 @@
 //   multiple of 16 bytes) are copied by the Python wrapper first; the entry
 //   refuses them (-5).
 //
-// Head dims above 128 (bf16: dq_wide_wgmma_kernel for K3,
+// Head dims above 128 (bf16: dq_pair_wgmma_kernel for K3,
 // dkv_pair_wgmma_kernel for K4 and, with its dq share, K2; float32:
 // dkv_tf32_kernel with its 128-column slices, and the float32 K3's own
-// scheme above): any head dim. K3 (bf16) keeps one CTA per (64-row q tile,
-// 128-column output slice), S and dP over the whole head dim recomputed by
-// each slice's CTA in the same order; a two-stage ring of four-chunk slots
-// carries per key tile the n_ch (q, k, dO, v) chunks, each q chunk rounded
-// in its slot, then the slice's k chunks; only slice 0 stores the keep bits.
-// 194 / 203 registers, 68,128 bytes of shared memory. K4 and K2 (bf16):
-// one CTA per (64-key tile, pair of 128-column slices, head, batch row),
-// two consumer warpgroups and a producer warpgroup (384 threads; setmaxnreg
-// gives the producers 24 registers and the consumers 240). Per q tile
-// warpgroup 0 computes S^T and warpgroup 1 dP^T, each over the whole head
-// dim once for the pair, their chunk products back to back; P^T (float32)
-// and dS^T (bf16, swizzled) cross through shared memory; each warpgroup
+// scheme above): any head dim. Both bf16 kernels take a pair of 128-column
+// output slices per CTA on two consumer warpgroups and a producer
+// warpgroup (384 threads; setmaxnreg moves registers from the producers to
+// the consumers: 24 / 240 for K4 and K2, 40 / 232 for K3), and compute the
+// score products over the whole head dim once for the pair, their chunk
+// products back to back.
+// K3 (bf16): one CTA per (64-row q tile, pair, head, batch row). Per key
+// tile warpgroup 0 computes S and warpgroup 1 dP, and warpgroup 1 draws the
+// keep bits (pair 0's CTA stores them for K4); P (float32) crosses to
+// warpgroup 1 through shared memory, and dS's bf16 A operand comes back in
+// its place; each warpgroup adds dS K over its slice, from the key tile's
+// pair k chunks that S read too (no second load of k). q (rounded once) and
+// dO stay resident up to D 576 and stream with each key tile above; one or
+// two buffers of the pair's k chunks, and rings of v chunks (and of the k
+// chunks outside the pair), each filled by its own producer warp, sized per
+// head dim (dq_pair_config). So S and dP run once per pair, 6 T^2 D of
+// products per (batch row, head) at D 256 where a CTA per slice runs 10 (10
+// against 18 at D 512), and q and dO are read once per CTA, not once per
+// key tile. ptxas -v (sm_90a): 168 registers at launch, no spills (at 24 /
+// 240 the producers spilled 48-64 bytes); 199,304 bytes of shared memory
+// at D 256, 231,800 at D 512, one CTA per SM. What bounds it (PERF.md,
+// tools/time_bwd_variants.py): no one step of a key tile's chain (the
+// loads, S and dP, the exchange, the update) but their sum; issuing the
+// next tile's products before this tile's exchange, 16-byte exchange
+// accesses and both warpgroups drawing the keep bits were each slower.
+// K4 and K2 (bf16): one CTA per (64-key tile, pair, head, batch row). Per q
+// tile warpgroup 0 computes S^T and warpgroup 1 dP^T; P^T (float32) and
+// dS^T (bf16, swizzled) cross through shared memory; each warpgroup
 // updates its slice's dk and dv, and for K2 adds dS K over its slice to the
 // dq scratch. The CTA's k and v are loaded once and stay resident up to D
 // 384; above, they stream once per q tile with the chunks outside the
 // pair. q and dO are loaded once per q tile, into two buffers where they
-// fit (dkv_pair_config: up to D 256, and K4 where k and v stream), else one. With dropout both read the keep bits of each
-// (key tile, q tile) with one bulk copy: K4 from K3's buffer, K2 from the
-// same layout filled first by keep_bits_kernel. ptxas -v (sm_90a): 168
-// registers at launch for all four instantiations (240 after setmaxnreg),
-// no spills; at D 256 224,664 bytes of shared memory, one CTA per SM.
+// fit (dkv_pair_config: up to D 256, and K4 where k and v stream), else one.
+// With dropout both read the keep bits of each (key tile, q tile) with one
+// bulk copy: K4 from K3's buffer, K2 from the same layout filled first by
+// keep_bits_kernel. ptxas -v (sm_90a): 168 registers at launch for all four
+// instantiations (240 after setmaxnreg), no spills; at D 256 224,664 bytes
+// of shared memory, one CTA per SM.
 
 #include <type_traits>
 
@@ -872,16 +889,13 @@ __global__ void __launch_bounds__(kHopThreads, NC == 1 ? 2 : 1) dqkv_wgmma_kerne
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 128, bf16 K3: one CTA per (q tile, output slice of up to
-// 128 columns, head, batch row). The S and dP products run over the whole
-// head dim in 64-column chunks; only the slice's columns of dq are
-// accumulated, so registers and shared memory do not grow with D. Every
-// slice's CTA recomputes the same S and dP in the same order, so they agree
-// bit for bit; only slice 0 writes the keep bits. (K4 and K2 take a pair of
-// slices per CTA: dkv_pair_wgmma_kernel below.)
+// head dims above 128 (bf16): dq, dk and dv cut into 128-column output
+// slices, and one CTA per pair of them on two consumer warpgroups, the score
+// products over the whole head dim once for the pair (dkv_pair_wgmma_kernel
+// for K4 and K2, dq_pair_wgmma_kernel for K3, below)
 // ---------------------------------------------------------------------------
 
-constexpr int kSlice = 128;  // output columns of one CTA
+constexpr int kSlice = 128;  // output columns of one consumer warpgroup
 
 __host__ __device__ constexpr int n_slices(int d) { return (d + kSlice - 1) / kSlice; }
 
@@ -894,175 +908,6 @@ __device__ __forceinline__ float ld_shared_f1(const float* ptr) {
   return v;
 }
 
-// bf16 K3 above 128: a ring of slots of four 64x64 chunks. Per key tile the
-// producer fills n_ch slots with chunk c of q, k, dO and v, then one with
-// the slice's k chunks for the update. A tile takes n_ch + 1 >= 4 slots,
-// more than the ring holds, so the producer writes tile t + 2's key bias
-// only after the consumers released a slot of tile t + 1, when they are
-// done with tile t's in the same buffer.
-constexpr int kWideStages = 2;
-
-constexpr size_t dq_wide_hop_smem_bytes() {
-  return 1024 + (size_t)kWideStages * 4 * kChunk * sizeof(bf16) + sizeof(float) * 2 * kTile +
-         sizeof(uint32_t) * 2 * 2 * kTile + sizeof(uint64_t) * 2 * kWideStages;
-}
-
-// K3 (bf16): dq over the slice, one CTA per (64-row q tile, slice, head,
-// batch row)
-template <bool DROP>
-__global__ void __launch_bounds__(kHopThreads, 1) dq_wide_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const BwdParams p) {
-  constexpr uint32_t kChunkBytes = kChunk * sizeof(bf16);
-  extern __shared__ uint8_t smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(align1024(smem_raw));  // kWideStages x 4 chunks
-  float* bias_buf = reinterpret_cast<float*>(ring + kWideStages * 4 * kChunk);  // 2 x 64
-  uint32_t* bits = reinterpret_cast<uint32_t*>(bias_buf + 2 * kTile);          // 2 x 128 words
-  uint64_t* full = reinterpret_cast<uint64_t*>(bits + 2 * 2 * kTile);
-  uint64_t* empty = full + kWideStages;
-
-  const int tid = threadIdx.x;
-  const int n_ch = (p.D + 63) / 64;
-  const int n_sl = n_slices(p.D);
-  const int sl = blockIdx.x % n_sl;
-  const int q0 = (blockIdx.x / n_sl) * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = sl * kSlice;
-  const int sl_ch = min(2, n_ch - 2 * sl);  // chunks of the slice that hold columns
-  const size_t bh = (size_t)b * p.H + h;
-  const int n_tiles = (p.Tk + kTile - 1) / kTile;
-  if (tid == 0) {
-    for (int s = 0; s < kWideStages; ++s) {
-      mbar_init(&full[s], 32);
-      mbar_init(&empty[s], kConsumers);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    const int lane = tid - kConsumers;
-    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
-    int n = 0;  // slots filled so far
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kTile;
-      for (int c = 0; c <= n_ch; ++c, ++n) {
-        const int s = n % kWideStages;
-        if (n >= kWideStages) mbar_wait(&empty[s], ((n / kWideStages) - 1) & 1);
-        bf16* slot = ring + s * 4 * kChunk;
-        if (lane == 0) {
-          if (c < n_ch) {
-            mbar_expect_tx(&full[s], 4 * kChunkBytes);
-            tma_load(slot, &tm_q, &full[s], 64 * c, q0, h, b);
-            tma_load(slot + kChunk, &tm_k, &full[s], 64 * c, k0, h, b);
-            tma_load(slot + 2 * kChunk, &tm_do, &full[s], 64 * c, q0, h, b);
-            tma_load(slot + 3 * kChunk, &tm_v, &full[s], 64 * c, k0, h, b);
-          } else {
-            mbar_expect_tx(&full[s], sl_ch * kChunkBytes);
-            for (int i = 0; i < sl_ch; ++i)
-              tma_load(slot + i * kChunk, &tm_k, &full[s], c0 + 64 * i, k0, h, b);
-          }
-        }
-        if (c == 0) {
-          for (int j = lane; j < kTile; j += 32) {
-            const int key = k0 + j;
-            bias_buf[(t & 1) * kTile + j] =
-                key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
-          }
-        }
-        mbar_arrive(&full[s]);  // each lane after its own writes
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup: rows r_lo and r_lo + 8 of the tile per thread
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r_lo = warp * 16 + g;
-  float lse_r[2], delta_r[2];
-  bool row_in[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r_lo + 8 * r;
-    row_in[r] = row < p.Tq;
-    lse_r[r] = row_in[r] ? p.lse[bh * p.Tq + row] : 0.f;
-    delta_r[r] = row_in[r] ? p.delta[bh * p.Tq + row] : 0.f;
-  }
-  const uint32_t seed = DROP ? (uint32_t)p.seed[bh] : 0u;
-  const float inv_keep = 1.f / p.keep;
-
-  float acc[64];  // the slice's 128 columns
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
-  int n = 0;  // slots consumed so far
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    // this tile's keep bits, double-buffered; the barrier of the first chunk
-    // below orders the fill against every reader. Slice 0 stores them for K4.
-    uint32_t* tb = bits + (t & 1) * 2 * kTile;
-    if constexpr (DROP) {
-      fill_keep_bits(tb, kTile, p.row0 + q0, p.col0 + k0, seed, p.threshold, tid, kConsumers);
-      if (sl == 0) p.keep_bits[((bh * n_tiles + t) * p.tq_pad + q0) * 2 + tid] = tb[tid];
-    }
-
-    float sacc[32], dpacc[32];
-    for (int c = 0; c < n_ch; ++c, ++n) {
-      const int s = n % kWideStages;
-      bf16* slot = ring + s * 4 * kChunk;
-      mbar_wait(&full[s], (n / kWideStages) & 1);
-      scale_tile<1>(slot, slot, p.scale, tid);  // round(q * scale) in place
-      fence_proxy_async();
-      consumer_sync();
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64(sacc, kmajor_desc(slot, kk), kmajor_desc(slot + kChunk, kk), c == 0 && kk == 0);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64(dpacc, kmajor_desc(slot + 2 * kChunk, kk), kmajor_desc(slot + 3 * kChunk, kk),
-                     c == 0 && kk == 0);
-      wg_commit();
-      wg_wait_all();
-      fence_regs(sacc);
-      fence_regs(dpacc);
-      mbar_arrive(&empty[s]);
-    }
-
-    const float* bias = bias_buf + (t & 1) * kTile;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 bias2 = reinterpret_cast<const float2*>(bias)[4 * j + t4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = 8 * j + 2 * t4 + (e & 1);
-        const float pj = exp_approx(sacc[4 * j + e] + ((e & 1) ? bias2.y : bias2.x) - lse_r[r]);
-        float dpj = dpacc[4 * j + e];
-        if constexpr (DROP) dpj *= keep_scale(tb, r_lo + 8 * r, col, inv_keep);
-        sacc[4 * j + e] = row_in[r] ? pj * (dpj - delta_r[r]) : 0.f;  // dS
-      }
-    }
-    uint32_t a[4][4];
-    to_a_operand(sacc, a);
-    const int s = n % kWideStages;
-    const bf16* kslot = ring + s * 4 * kChunk;
-    mbar_wait(&full[s], (n / kWideStages) & 1);
-    wg_fence();
-    fence_regs(acc);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) wgmma_rs<2>(acc, a[c], kslot, c);
-    wg_commit();
-    wg_wait_all();
-    fence_regs(acc);
-    mbar_arrive(&empty[s]);
-    ++n;
-  }
-
-  bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + c0;
-  store_rows<2>(dq, p.dq_st, q0, p.Tq, p.D - c0, acc, p.scale, tid);
-}
-
 // ---------------------------------------------------------------------------
 // K4 (bf16) above head dim 128, and K2 with DQ: one CTA per (64-key tile,
 // pair of 128-column output slices, head, batch row). S^T and dP^T run once
@@ -1070,8 +915,8 @@ __global__ void __launch_bounds__(kHopThreads, 1) dq_wide_wgmma_kernel(
 // accumulates its slice of dk and dv (and K2's dq share of it).
 // ---------------------------------------------------------------------------
 
-// two consumer warpgroups and a producer warpgroup, one warp of which
-// loads: 168 registers a thread at launch (a pool of 384 x 168), the
+// two consumer warpgroups and a producer warpgroup, one or two warps of
+// which load: 168 registers a thread at launch (a pool of 384 x 168), the
 // producers' 24 and the consumers' 240 after setmaxnreg, the most the pool
 // allows (dk and dv of a 128-column slice hold 128 of them)
 constexpr int kPairThreads = 3 * kConsumers;
@@ -1621,6 +1466,427 @@ __global__ void __launch_bounds__(kPairThreads, 1) dkv_pair_wgmma_kernel(
     dkv_pair_consumer<0, DROP, DQ>(p, g, C);
   } else {
     dkv_pair_consumer<1, DROP, DQ>(p, g, C);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 (bf16) above head dim 128: one CTA per (64-row q tile, pair of
+// 128-column dq slices, head, batch row). S and dP run once per key tile
+// for the pair, one on each consumer warpgroup; each warpgroup accumulates
+// its slice of dq.
+// ---------------------------------------------------------------------------
+
+// How a CTA holds its operands, chosen per head dim (dq_pair_config): q
+// (rounded once) and dO resident for the whole key sweep, or streamed with
+// each key tile where shared memory forbids; one or two buffers of a key
+// tile's pair k chunks and the keys' bias; the slots of each warpgroup's
+// ring (warpgroup 0: the k chunks outside the pair, and q where it streams;
+// warpgroup 1: every v chunk, and dO where it streams).
+struct DqPair {
+  int res, nkp, rs;
+};
+
+// byte offsets from the 1024-aligned base; `total` counts the alignment slack
+struct DqPairSmem {
+  int q, dout, kp, ring0, ring1, xp, kbias, bits, bars, total;
+};
+
+// warpgroup 0's ring has no slot when q is resident and every chunk is the
+// pair's
+__host__ __device__ inline int dq_pair_r0(int n_ch, const DqPair& g) {
+  return g.res && n_ch <= 4 ? 0 : g.rs;
+}
+
+__host__ __device__ inline DqPairSmem dq_pair_smem(int n_ch, const DqPair& g) {
+  const int chunk = (int)kPairChunkBytes;
+  const int slot = (g.res ? 1 : 2) * chunk;
+  DqPairSmem s;
+  s.q = 0;
+  s.dout = s.q + (g.res ? n_ch * chunk : 0);
+  s.kp = s.dout + (g.res ? n_ch * chunk : 0);
+  s.ring0 = s.kp + g.nkp * 4 * chunk;
+  s.ring1 = s.ring0 + dq_pair_r0(n_ch, g) * slot;
+  s.xp = s.ring1 + g.rs * slot;
+  s.kbias = s.xp + 32 * kConsumers * (int)sizeof(float);
+  s.bits = s.kbias + g.nkp * kTile * (int)sizeof(float);
+  s.bars = s.bits + 2 * 2 * kTile * (int)sizeof(uint32_t);
+  s.total = 1024 + s.bars +
+            (1 + 2 * dq_pair_r0(n_ch, g) + 2 * g.rs + 2 * g.nkp) * (int)sizeof(uint64_t);
+  return s;
+}
+
+// resident q and dO first; then rings of at least three slots (two chunks'
+// products in flight while the third loads), two k-pair buffers (the next
+// tile's loading while this tile's are in use) before one, the deepest
+// ring that fits
+inline DqPair dq_pair_config(int d) {
+  const int n_ch = (d + 63) / 64;
+  for (int res = 1; res >= 0; --res)
+    for (int lo = 3; lo >= 2; --lo)
+      for (int nkp = 2; nkp >= 1; --nkp)
+        for (int rs = 6; rs >= lo; --rs) {
+          const DqPair g{res, nkp, rs};
+          if (dq_pair_smem(n_ch, g).total <= kMaxSmem) return g;
+        }
+  return DqPair{0, 1, 2};  // flat in D: always fits
+}
+
+// the register split of dq_pair_wgmma_kernel's pool (384 x 168): its two
+// producer warps' loops need 40 (at 24 they spilled 48-64 bytes), which
+// leaves the consumers 232
+constexpr int kDqProducerRegs = 40, kDqConsumerRegs = 232;
+
+// wait until at most n (< 6) committed wgmma groups are pending
+__device__ __forceinline__ void wg_wait_upto(int n) {
+  switch (n) {
+    case 0: wg_wait<0>(); break;
+    case 1: wg_wait<1>(); break;
+    case 2: wg_wait<2>(); break;
+    case 3: wg_wait<3>(); break;
+    case 4: wg_wait<4>(); break;
+    default: wg_wait<5>(); break;
+  }
+}
+
+// what a consumer warpgroup of dq_pair_wgmma_kernel reads: shared memory
+// (its resident operand, its own ring and barriers) and the CTA's tile
+struct DqPairCtx {
+  bf16 *res, *kp, *ring;
+  float *xp, *kbias;
+  uint32_t* bits;
+  uint64_t *full, *empty, *kp_full, *kp_empty, *qbar;
+  int n_ch, ch0, pc, start, rs, q0, pr, b;
+  size_t bh;
+};
+
+// One consumer warpgroup of dq_pair_wgmma_kernel, its role (W) fixed at
+// compile time, so that each role's loop holds only its own values.
+// Warpgroup 0 computes S = round(q * scale) K^T and P = exp(S + bias - lse)
+// into the exchange xp (element e of thread i at e 128 + i); warpgroup 1
+// computes dP = dO V^T, draws the tile's keep bits, reads P back (the
+// element its namesake in warpgroup 0 holds: the accumulator layout depends
+// on the thread's index in its warpgroup only), forms dS = P (dP dropped -
+// delta) and leaves dS's bf16 A operand in the words of xp it has read,
+// where warpgroup 0 picks it up. Then each adds dS K over its slice's k
+// columns, which are the tile's pair chunks.
+template <int W, bool DROP>
+__device__ __forceinline__ void dq_pair_consumer(const BwdParams& p, const DqPair& g,
+                                                 const DqPairCtx& C) {
+  const int n_ch = C.n_ch, ch0 = C.ch0, pc = C.pc, start = C.start, rs = C.rs, q0 = C.q0;
+  const int b = C.b, h = blockIdx.y;
+  const size_t bh = C.bh;
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  const int slot_ch = g.res ? 1 : 2;  // chunks of a ring slot: [q or dO,] k or v
+  // rows r_lo and r_lo + 8 of the tile per thread
+  const int ltid = threadIdx.x & (kConsumers - 1);
+  const int lane = ltid & 31;
+  const int t4 = lane & 3;
+  const int r_lo = (ltid >> 5) * 16 + (lane >> 2);
+  const int cw = ch0 + 2 * W;                   // the warpgroup's first chunk of dq
+  const int sl_ch = max(0, min(2, n_ch - cw));  // its chunks that hold columns
+  // the rows' lse (warpgroup 0) or delta (1); 0 past Tq
+  float row_v[2];
+  bool row_in[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r_lo + 8 * r;
+    row_in[r] = row < p.Tq;
+    row_v[r] = row_in[r] ? (W == 0 ? p.lse : p.delta)[bh * p.Tq + row] : 0.f;
+  }
+  // chunk c of the sweep comes through this warpgroup's ring (the
+  // producers' rule): every v chunk; a k chunk outside the pair, or a
+  // streamed q chunk
+  const auto uses_slot = [&](int c) {
+    return W == 1 || !g.res || c < ch0 || c >= ch0 + pc;
+  };
+  if (g.res) {
+    mbar_wait(C.qbar, 0);
+    if (W == 0) {  // round(q * scale) once for the whole sweep
+      for (int c = 0; c < n_ch; ++c) scale_tile<1>(C.res + c * kChunk, C.res + c * kChunk, p.scale, ltid);
+      fence_proxy_async();
+      named_sync(1, kConsumers);
+    }
+  }
+
+  float acc[64];  // the slice's 128 columns
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  int n = 0;  // ring slots consumed so far
+  for (int t = 0; t < n_tiles; ++t) {
+    const int u = t % g.nkp;
+    const uint32_t upar = (t / g.nkp) & 1;
+    const bf16* kpu = opaque(C.kp + u * 4 * kChunk);
+
+    // S (warpgroup 0) or dP (1) over the head dim's chunks, from the chunk
+    // after the pair on (wrapping to the pair's last), issued back to back
+    // (a streamed q chunk rounded in its slot first) and waited for once; a
+    // ring smaller than the tile's chunks releases each slot once its
+    // products are done, rs - 1 chunks still in flight
+    float sacc[32];
+    int rel = n;  // the first ring slot not yet released
+    bool kp_ready = false;
+    for (int i = 0; i < n_ch; ++i) {
+      const int c = (start + i) % n_ch;
+      const bool in_pair = c >= ch0 && c < ch0 + pc;
+      if (W == 0 && in_pair && !kp_ready) {
+        mbar_wait(&C.kp_full[u], upar);
+        kp_ready = true;
+      }
+      bf16* slot = nullptr;
+      if (uses_slot(c)) {
+        const int s = n % rs;
+        slot = C.ring + s * slot_ch * kChunk;
+        mbar_wait(&C.full[s], (n / rs) & 1);
+        ++n;
+      }
+      const bf16* a_op = g.res ? C.res + c * kChunk : slot;
+      if (W == 0 && !g.res) {
+        scale_tile<1>(slot, slot, p.scale, ltid);
+        fence_proxy_async();
+        named_sync(1, kConsumers);
+      }
+      const bf16* b_op =
+          W == 0 && in_pair ? kpu + (c - ch0) * kChunk : slot + (slot_ch - 1) * kChunk;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64(sacc, kmajor_desc(a_op, kk), kmajor_desc(b_op, kk), i == 0 && kk == 0);
+      wg_commit();
+      if (rs > 0 && i >= rs - 1 && uses_slot((start + i - (rs - 1)) % n_ch)) {
+        wg_wait_upto(rs - 1);
+        mbar_arrive(&C.empty[rel++ % rs]);
+      }
+    }
+    // the keep bits of this tile while dP's last products run, double-
+    // buffered: one barrier per tile orders the fill against every reader;
+    // pair 0's CTA stores them for K4, each thread its own word
+    uint32_t* tb = C.bits + (t & 1) * 2 * kTile;
+    if constexpr (W == 1 && DROP) {
+      fill_keep_bits(tb, kTile, p.row0 + q0, p.col0 + t * kTile, (uint32_t)p.seed[bh],
+                     p.threshold, ltid, kConsumers);
+      if (C.pr == 0) p.keep_bits[((bh * n_tiles + t) * p.tq_pad + q0) * 2 + ltid] = tb[ltid];
+      named_sync(4, kConsumers);
+    }
+    wg_wait_all();
+    fence_regs(sacc);
+    for (; rel < n; ++rel) mbar_arrive(&C.empty[rel % rs]);
+
+    uint32_t dsa[4][4];  // round(dS) as the A operand of dq += dS K
+    if constexpr (W == 0) {
+      // P = exp(S + key bias - lse) (a fully masked row: lse = -1e9 = S +
+      // bias, P = 1) to warpgroup 1, then dS's A operand back
+      const float* kb = C.kbias + u * kTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bias2 = ld_shared_f2(kb + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pj =
+              exp_approx(sacc[4 * j + e] + ((e & 1) ? bias2.y : bias2.x) - row_v[e >> 1]);
+          C.xp[(4 * j + e) * kConsumers + ltid] = pj;
+        }
+      }
+      named_arrive(2, 2 * kConsumers);
+      named_sync(3, 2 * kConsumers);  // dS is in xp
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(dsa[c][i])
+                       : "r"(smem_u32(C.xp + (4 * c + i) * kConsumers + ltid)) : "memory");
+      }
+    } else {
+      // dS = P (dP dropped - delta), zero past Tq, packed to bf16 16
+      // columns at a time; word 4c + i of the A operand goes where P's
+      // elements 8c .. 8c + 7 were, already read
+      named_sync(2, 2 * kConsumers);  // P is in xp
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float ds[8];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * c + jj;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float pj = ld_shared_f1(C.xp + (4 * j + e) * kConsumers + ltid);
+            float dpj = sacc[4 * j + e];
+            if constexpr (DROP) dpj *= keep_scale(tb, r_lo + 8 * r, 8 * j + 2 * t4 + (e & 1), p.inv_keep);
+            ds[4 * jj + e] = row_in[r] ? pj * (dpj - row_v[r]) : 0.f;
+          }
+        }
+        dsa[c][0] = pack_bf16(ds[0], ds[1]);
+        dsa[c][1] = pack_bf16(ds[2], ds[3]);
+        dsa[c][2] = pack_bf16(ds[4], ds[5]);
+        dsa[c][3] = pack_bf16(ds[6], ds[7]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(smem_u32(C.xp + (4 * c + i) * kConsumers + ltid)),
+                       "r"(dsa[c][i]) : "memory");
+      }
+      named_arrive(3, 2 * kConsumers);
+      mbar_wait(&C.kp_full[u], upar);
+    }
+
+    // the slice's dq += round(dS) K, B the pair buffer's chunks read MN-major
+    wg_fence();
+    fence_regs(acc);
+    if (sl_ch > 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wgmma_rs<2>(acc, dsa[c], kpu + 2 * W * kChunk, c);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&C.kp_empty[u]);
+  }
+
+  if (sl_ch > 0) {
+    bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + 64 * cw;
+    store_rows<2>(dq, p.dq_st, q0, p.Tq, p.D - 64 * cw, acc, p.scale, ltid);
+  }
+}
+
+// Producer warp 0 loads q and dO once where they stay resident, then per
+// key tile warpgroup 0's ring slots in its order (from the chunk after the
+// pair on, wrapping to the pair's last) with the buffer of the pair's k
+// chunks and the keys' bias (-1e9 masked, -inf past Tk) before the pair's
+// own; producer warp 1 fills warpgroup 1's ring, every chunk's v (and dO).
+// Barriers 1 and 4 are warpgroup 0's and 1's own, 2 hands P over, 3 dS
+// back. The exchange is single: each side passes the other's barrier of the
+// next tile only after it is done with this tile's. Only pair 0's CTA
+// stores the keep bits, in the layout K4 reads.
+template <bool DROP>
+__global__ void __launch_bounds__(kPairThreads, 1) dq_pair_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const BwdParams p, const DqPair g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const int tid = threadIdx.x;
+  const int n_ch = (p.D + 63) / 64;
+  const DqPairSmem L = dq_pair_smem(n_ch, g);
+  const int r0 = dq_pair_r0(n_ch, g);
+  bf16* qres = reinterpret_cast<bf16*>(base + L.q);     // round(q * scale), resident
+  bf16* dores = reinterpret_cast<bf16*>(base + L.dout);  // dO, resident
+  bf16* kp = reinterpret_cast<bf16*>(base + L.kp);      // nkp x the pair's 4 k chunks
+  bf16* ring0 = reinterpret_cast<bf16*>(base + L.ring0);
+  bf16* ring1 = reinterpret_cast<bf16*>(base + L.ring1);
+  float* xp = reinterpret_cast<float*>(base + L.xp);     // P, then dS's A operand
+  float* kbias = reinterpret_cast<float*>(base + L.kbias);  // nkp x 64
+  uint32_t* bits = reinterpret_cast<uint32_t*>(base + L.bits);  // 2 x 128 words
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* full0 = qbar + 1;
+  uint64_t* empty0 = full0 + r0;
+  uint64_t* full1 = empty0 + r0;
+  uint64_t* empty1 = full1 + g.rs;
+  uint64_t* kp_full = empty1 + g.rs;
+  uint64_t* kp_empty = kp_full + g.nkp;
+
+  const int n_pairs = (n_ch + 3) / 4;
+  const int pr = blockIdx.x % n_pairs;
+  const int q0 = (blockIdx.x / n_pairs) * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ch0 = 4 * pr, pc = min(4, n_ch - ch0);  // the pair's chunks
+  const int start = (ch0 + pc) % n_ch;               // the sweep's first chunk
+  const int slot_ch = g.res ? 1 : 2;
+  const size_t bh = (size_t)b * p.H + h;
+  const int n_tiles = (p.Tk + kTile - 1) / kTile;
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < r0; ++i) {
+      mbar_init(&full0[i], 1);
+      mbar_init(&empty0[i], kConsumers);
+    }
+    for (int i = 0; i < g.rs; ++i) {
+      mbar_init(&full1[i], 1);
+      mbar_init(&empty1[i], kConsumers);
+    }
+    for (int i = 0; i < g.nkp; ++i) {
+      mbar_init(&kp_full[i], 32);
+      mbar_init(&kp_empty[i], 2 * kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 2 * kConsumers) {
+    reg_dealloc<kDqProducerRegs>();
+    if (tid >= 2 * kConsumers + 64) return;
+    const int lane = tid & 31;
+    if (tid >= 2 * kConsumers + 32) {  // producer warp 1: warpgroup 1's ring
+      if (lane == 0) {
+        int n1 = 0;
+        for (int t = 0; t < n_tiles; ++t) {
+          for (int i = 0; i < n_ch; ++i, ++n1) {
+            const int c = (start + i) % n_ch;
+            const int s = n1 % g.rs;
+            if (n1 >= g.rs) mbar_wait(&empty1[s], ((n1 / g.rs) - 1) & 1);
+            bf16* slot = ring1 + s * slot_ch * kChunk;
+            mbar_arrive_tx(&full1[s], slot_ch * kPairChunkBytes);
+            if (!g.res) tma_load(slot, &tm_do, &full1[s], 64 * c, q0, h, b);
+            tma_load(slot + (slot_ch - 1) * kChunk, &tm_v, &full1[s], 64 * c, t * kTile, h, b);
+          }
+        }
+      }
+      return;
+    }
+    if (lane == 0 && g.res) {
+      mbar_arrive_tx(qbar, 2 * n_ch * kPairChunkBytes);
+      for (int c = 0; c < n_ch; ++c) {
+        tma_load(qres + c * kChunk, &tm_q, qbar, 64 * c, q0, h, b);
+        tma_load(dores + c * kChunk, &tm_do, qbar, 64 * c, q0, h, b);
+      }
+    }
+    const uint8_t* mask = p.mask ? p.mask + b * p.m_sb : nullptr;
+    int n0 = 0;  // ring 0 slots filled so far
+    // ring 0 slots of sweep positions [i0, i1) of key tile t
+    const auto fill_slots = [&](int t, int i0, int i1) {
+      for (int i = i0; i < i1; ++i) {
+        const int c = (start + i) % n_ch;
+        const bool in_pair = c >= ch0 && c < ch0 + pc;
+        if (g.res && in_pair) continue;
+        const int s = n0 % r0;
+        if (n0 >= r0) mbar_wait(&empty0[s], ((n0 / r0) - 1) & 1);
+        bf16* slot = ring0 + s * slot_ch * kChunk;
+        mbar_arrive_tx(&full0[s], ((g.res ? 0 : 1) + (in_pair ? 0 : 1)) * kPairChunkBytes);
+        if (!g.res) tma_load(slot, &tm_q, &full0[s], 64 * c, q0, h, b);
+        if (!in_pair) tma_load(slot + (slot_ch - 1) * kChunk, &tm_k, &full0[s], 64 * c, t * kTile, h, b);
+        ++n0;
+      }
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kTile;
+      if (lane == 0) fill_slots(t, 0, n_ch - pc);
+      __syncwarp();
+      const int u = t % g.nkp;
+      if (t >= g.nkp) mbar_wait(&kp_empty[u], ((t / g.nkp) - 1) & 1);
+      if (lane == 0) {  // the copies first, so they fly while the bias loads
+        mbar_expect_tx(&kp_full[u], pc * kPairChunkBytes);
+        for (int i = 0; i < pc; ++i)
+          tma_load(kp + (u * 4 + i) * kChunk, &tm_k, &kp_full[u], 64 * (ch0 + i), k0, h, b);
+      }
+      for (int j = lane; j < kTile; j += 32) {
+        const int key = k0 + j;
+        kbias[u * kTile + j] =
+            key >= p.Tk ? neg_inf() : (mask != nullptr && mask[key] ? kMaskValue : 0.f);
+      }
+      mbar_arrive(&kp_full[u]);  // each lane after its own writes
+      if (lane == 0) fill_slots(t, n_ch - pc, n_ch);
+      __syncwarp();
+    }
+    return;
+  }
+
+  reg_alloc<kDqConsumerRegs>();
+  const bool w0 = tid < kConsumers;
+  const DqPairCtx C{w0 ? qres : dores, kp, w0 ? ring0 : ring1, xp, kbias, bits,
+                    w0 ? full0 : full1, w0 ? empty0 : empty1, kp_full, kp_empty, qbar,
+                    n_ch, ch0, pc, start, w0 ? r0 : g.rs, q0, pr, b, bh};
+  if (w0) {
+    dq_pair_consumer<0, DROP>(p, g, C);
+  } else {
+    dq_pair_consumer<1, DROP>(p, g, C);
   }
 }
 
@@ -2402,7 +2668,7 @@ int run_hop(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
 }
 
 // bf16 K2 above 128 with dropout: the keep bits of every 64x64 (key tile, q
-// tile) in the layout dq_wide_wgmma_kernel writes for K4, one word a thread,
+// tile) in the layout dq_pair_wgmma_kernel writes for K4, one word a thread,
 // so that the paired kernel reads them as K4 does (no K3 runs before K2)
 __global__ void keep_bits_kernel(const BwdParams p, int n_kt) {
   const long long n = (long long)p.B * p.H * n_kt * p.tq_pad * 2;
@@ -2416,15 +2682,23 @@ __global__ void keep_bits_kernel(const BwdParams p, int n_kt) {
                  (uint32_t)p.seed[bh], p.threshold, (int)(idx & 1), 2);
 }
 
-// bf16 above 128: K3 on dq_wide_wgmma_kernel; K4, or K2 and its dq sum, on
-// the paired kernel
+// bf16 above 128, on the paired kernels: K3 on dq_pair_wgmma_kernel; K4,
+// or K2 and its dq sum, on dkv_pair_wgmma_kernel
 template <bool DROP>
 int run_hop_wide(const Maps& m, const BwdParams& p, int which, cudaStream_t s) {
   const int n_ch = (p.D + 63) / 64;
   const int n_qt = (p.Tq + kTile - 1) / kTile, n_kt = (p.Tk + kTile - 1) / kTile;
-  if (which == 1)
-    return launch_hop(dq_wide_wgmma_kernel<DROP>, dq_wide_hop_smem_bytes(),
-                      dim3(n_qt * n_slices(p.D), p.H, p.B), m, p, s);
+  if (which == 1) {
+    const DqPair g = dq_pair_config(p.D);
+    const int smem = dq_pair_smem(n_ch, g).total;
+    const auto kernel = dq_pair_wgmma_kernel<DROP>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(n_qt * ((n_ch + 3) / 4), p.H, p.B), kPairThreads, smem, s>>>(m.q, m.k, m.v,
+                                                                                m.dout, p, g);
+    return (int)cudaGetLastError();
+  }
   const bool dq = which == 0;
   if (dq && p.dq_part == nullptr) return -7;
   if (dq && DROP) {
@@ -2604,6 +2878,21 @@ extern "C" int vimo_flash_attention_bwd_dqkv_occupancy(int D, int drop) {
   const size_t smem = dkv_pair_smem((D + 63) / 64, g, true).total;
   return drop ? occupancy(dkv_pair_wgmma_kernel<true, true>, smem, kPairThreads)
               : occupancy(dkv_pair_wgmma_kernel<false, true>, smem, kPairThreads);
+}
+
+// CTAs of bf16 K3 that fit one SM at head dim D, with or without dropout
+// (the paired kernel above 128, in its layout at that head dim); a negative
+// cudaError_t code on failure
+extern "C" int vimo_flash_attention_bwd_dq_occupancy(int D, int drop) {
+  if (D <= 64)
+    return drop ? occupancy(dq_wgmma_kernel<1, true>, dq_hop_smem_bytes<1>())
+                : occupancy(dq_wgmma_kernel<1, false>, dq_hop_smem_bytes<1>());
+  if (D <= kSlice)
+    return drop ? occupancy(dq_wgmma_kernel<2, true>, dq_hop_smem_bytes<2>())
+                : occupancy(dq_wgmma_kernel<2, false>, dq_hop_smem_bytes<2>());
+  const size_t smem = dq_pair_smem((D + 63) / 64, dq_pair_config(D)).total;
+  return drop ? occupancy(dq_pair_wgmma_kernel<true>, smem, kPairThreads)
+              : occupancy(dq_pair_wgmma_kernel<false>, smem, kPairThreads);
 }
 
 extern "C" const char* vimo_cuda_error_string(int code) {

@@ -13,10 +13,10 @@ flash_attention`` (wrapper :751) and its kernels:
 
 Every head dim runs on the kernels, as on the TPU. Above
 ``WIDE_ABOVE_HEAD_DIM`` (128) each kernel has a wide variant, its launches
-counted under the kind's ``_wide`` name: in bf16 K1/K1', K2 and K4 take a
-pair of 128-column output slices per CTA, the scores once for the pair; K3
-and the float32 kernels one slice per CTA (the float32 K3 a pair), the
-score products streamed over the whole head dim.
+counted under the kind's ``_wide`` name: in bf16 every kernel (K1/K1',
+K2, K3 and K4) takes a pair of 128-column output slices per CTA, the scores
+once for the pair; in float32 K1/K1', K2 and K4 take one slice per CTA and
+K3 a pair, the score products streamed over the whole head dim.
 
 In bf16 every kernel runs on the tensor cores (wgmma) from tiles that TMA
 copies into shared memory; with dropout K3 also writes the keep bits of each
