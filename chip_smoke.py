@@ -63,8 +63,8 @@ NVIDIA card:
    128-frame chunks and a 77-frame tail at 224x224 with the trained
    student, K5 once per chunk, equal to the trainer's own tower.
 10. Teacher extraction: ``ClipExtractor.extract`` on synthetic videos made
-    from ``--seed`` and fed through its decode seam (no OpenCV or h5py on
-    the card's machine). The AK teacher, ViT-B/16 at full width on random
+    from ``--seed`` and fed through its decode seam (OpenCV and h5py are not
+    assumed on the card's machine). The AK teacher, ViT-B/16 at full width on random
     weights, bf16, batch 256, four decode threads, six 360x640 videos of
     120-700 frames (1,803 frames, 8 dispatches, packing across videos and a
     padded tail): each video equal to its frames run alone in padded
@@ -85,7 +85,7 @@ NVIDIA card:
     over phase 4's predictor (``batch_invariant``), fed six clips from
     ``--seed`` (three 360x640, 120-300 frames; three 224x224, 64-250
     frames) through a stand-in for the ``read_video`` name of ``serving``
-    (the card's machine has no OpenCV). Eight client threads POST two rounds
+    (OpenCV is not assumed on the card's machine). Eight client threads POST two rounds
     of 16 requests of 1-2 clips (top_k 3 or 5), cold then warm: every answer
     200, coalescing seen in ``/stats``, every record equal to a solo
     ``predict_batch`` of its clip and the raw probabilities within 1e-3, K1
@@ -189,7 +189,14 @@ NVIDIA card:
     bf16; (c) the ring on 2 in-process shards at (8, 2, 2048, 2048, 256)
     against one call as phase 15(a) holds it, and a seq-2 step at 2 heads
     as two gloo ranks on ``cuda:0`` held to the one-card step.
-18. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+18. The card machine's decoders, probed (nothing is installed): whether
+    ``cv2`` and ``av`` import, ``pkg-config --modversion`` of the four libav
+    libraries ``native/Makefile`` needs, whether ``make -C native`` builds
+    ``native/libvimo_dataplane.so`` and ``data/native.py::available()`` is
+    then true; where OpenCV can write the corpus, ``tools/bench_decode_torch.py``
+    at its defaults, whose line must hold a positive rate for each backend
+    that runs. What the machine lacks is printed, not failed.
+19. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -424,6 +431,11 @@ FULLGEOM_KERNEL_SHAPE = (8, 8, 16, 16, 64)
 # (d) Each fusion mode for three epochs; attention sites per layer
 FULLGEOM_EPOCHS = 3
 FULLGEOM_SITES = {"cross": 2, "concat_t": 1, "rgb": 1, "flow": 1}
+# Phase 18 (the decoders): the libraries ``native/Makefile`` takes from
+# pkg-config, and each subprocess's time limit (the tool at its defaults
+# decodes 1,200 360x640 frames three times per backend)
+DECODE_LIBS = ("libavformat", "libavcodec", "libavutil", "libswscale")
+DECODE_TIMEOUT_S = 300
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1677,15 +1689,15 @@ def _tower_pair(torch, cfg, state, videos: dict, smi: str, label: str) -> dict:
 
 def phase_extraction(torch, seed: int, smi: str) -> dict:
     """Teacher extraction through ``ClipExtractor.extract`` with synthetic
-    videos fed through its decode seam (the card's machine has no OpenCV or
-    h5py): the AK teacher at full width against each video run alone, warm
+    videos fed through its decode seam (OpenCV and h5py are not assumed on
+    the card's machine): the AK teacher at full width against each video run alone, warm
     frames/s, streaming, a failing reader, a profiled dispatch and pass; the MN
     teacher's 224x224 frames with K5 once per dispatch; K1 at the towers'
     shapes and the towers on it; the frame difference on the card."""
     import numpy as np
 
-    # these import on the card's machine, which has no cv2, h5py, pandas or
-    # PyYAML: they import those where they use them
+    # these import without cv2, h5py, pandas or PyYAML, which the card's
+    # machine is not assumed to have: they import those where they use them
     import vimoclip_tpu_torch.pipeline  # noqa: F401
     from vimoclip_tpu_torch.extraction import ClipExtractor
     from vimoclip_tpu_torch.models import init_parameters_
@@ -1921,7 +1933,7 @@ def phase_serving(torch, seed: int, smi: str) -> dict:
              for (h, w), lengths in SERVE_CLIPS for t in lengths}
     names = list(clips)
     small = [n for n in names if clips[n].shape[1:3] == SERVE_CLIPS[1][0]]  # K5
-    # the card's machine has no OpenCV: the script decodes from memory
+    # OpenCV is not assumed on the card's machine: the script decodes from memory
     real_read = serving.read_video
     serving.read_video = lambda path, max_frames=None: clips[path][:max_frames]
     observed = _Observed(pred)
@@ -2369,7 +2381,7 @@ def phase_accelerators(torch, seed: int, smi: str) -> dict:
     names = list(clips)
     probe_frames = clips[names[0]][np.unique(np.linspace(0, ACCEL_CLIPS[0] - 1,
                                                          ACCEL_PROBE).astype(int))]
-    # the card's machine has no OpenCV: both readers decode from memory
+    # OpenCV is not assumed on the card's machine: both readers decode from memory
     reads = (serving.read_video, video_reader.read_video)
     serving.read_video = lambda path, max_frames=None: clips[path][:max_frames]
     video_reader.read_video = serving.read_video
@@ -3481,6 +3493,65 @@ def phase_table2(torch, seed: int, smi: str, setup: dict) -> dict:
     return out
 
 
+def _run(cmd: list, **kw) -> tuple[int, str, str]:
+    """(exit code, stdout, stderr) of ``cmd``; 127 when it is not there."""
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=DECODE_TIMEOUT_S,
+                             **kw)
+    except FileNotFoundError as e:
+        return 127, "", str(e)
+    return res.returncode, res.stdout.strip(), res.stderr.strip()
+
+
+def _last_line(text: str) -> str:
+    return text.splitlines()[-1] if text else ""
+
+
+def phase_decode(smi: str) -> dict:
+    """Phase 18: the card machine's decoders, probed without installing
+    anything; ``tools/bench_decode_torch.py`` at its defaults where OpenCV
+    can write its corpus. A missing library is reported; a tool that runs
+    and fails, or gives a rate <= 0, fails the run."""
+    t0 = time.perf_counter()
+    probe = {}
+    for module in ("cv2", "av"):
+        rc, out, err = _run([sys.executable, "-c",
+                             f"import {module}; print({module}.__version__)"])
+        probe[module] = out if rc == 0 else f"missing: {_last_line(err)}"
+    for lib in DECODE_LIBS:
+        rc, out, err = _run(["pkg-config", "--modversion", lib])
+        probe[lib] = out if rc == 0 else f"missing: {_last_line(err) or f'exit {rc}'}"
+    rc, out, err = _run(["make", "-C", str(HERE / "native")])
+    lib_path = HERE / "native" / "libvimo_dataplane.so"
+    probe["make_native"] = ("built" if rc == 0 and lib_path.is_file()
+                            else f"not built (exit {rc}): {_last_line(err) or _last_line(out)}")
+    rc, out, err = _run([sys.executable, "-c", "from vimoclip_tpu_torch.data import native; "
+                         "print(native.available())"], cwd=HERE)
+    check(rc == 0, f"importing data/native.py failed: {_last_line(err)}")
+    probe["native_available"] = out == "True"
+    print("[decode-probe] " + json.dumps(probe))
+    result = {"probe": probe}
+    if probe["cv2"].startswith("missing"):
+        result["tool"] = "not measured: no cv2 to write the corpus"
+        print("[decode-tool] " + result["tool"])
+    else:
+        rc, out, err = _run([sys.executable, str(HERE / "tools" / "bench_decode_torch.py")],
+                            cwd=HERE)
+        check(rc == 0, f"tools/bench_decode_torch.py failed (exit {rc}): {err[-2000:]}")
+        line = json.loads(_last_line(out))
+        check(line["opencv_frames_per_s"] > 0, f"OpenCV rate {line['opencv_frames_per_s']}")
+        native = line["native_pool_frames_per_s"]
+        if probe["native_available"]:
+            check(isinstance(native, (int, float)) and native > 0, f"native pool rate {native}")
+        else:
+            check(str(native).startswith("unavailable: "), f"native pool rate {native}")
+        result["tool"] = line
+        print("[decode-tool] " + json.dumps(line) + f" [{smi}]")
+    result["seconds"] = round(time.perf_counter() - t0, 1)
+    print(f"[decode] phase 18 took {result['seconds']} s")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3527,6 +3598,7 @@ def main() -> int:
     seq_pipe = phase_seq_pipe(torch, args.seed, smi, setup)
     table2 = phase_table2(torch, args.seed, smi, setup)
     wide = phase_wide(torch, args.seed, smi, setup, train["warm_step_ms"])
+    phase_decode(smi)
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"

@@ -1160,6 +1160,33 @@ def test_ring_at_head_dim_256_matches_one_call_on_card(cuda):
     _ring_against_one_call(cuda, 2, 1024, 256)
 
 
+@pytest.mark.parametrize("strategy", ["ring", "allgather"])
+def test_fully_masked_row_gets_softmax_gradients_on_card(cuda, strategy):
+    """Row 0 has every key masked: ring and all-gather over 2 shards, float32
+    with dropout 0.1, give plain autograd's gradients of a softmax over all
+    keys with the kernels' keep mask (the one call gives Tk times them on
+    that row); every row within the float32 kernels' tolerance."""
+    from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.parallel.sequence import LocalRing, sequence_parallel_attention
+
+    t, rate = 1024, 0.1
+    q, k, v, mask = _inputs(2, 4, t, t, 64, torch.float32, cuda, seed=10)
+    seed = _seeds(cuda, 2, 4)
+    qs = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = sequence_parallel_attention(*qs, LocalRing(2), mask, strategy=strategy,
+                                      dropout_rate=rate, dropout_seed=seed)
+    scores = qs[0] @ qs[1].transpose(-1, -2) / 8.0 + torch.where(mask[:, None, None, :],
+                                                                  -1e9, 0.0)
+    keep = fa.dropout_keep_mask(seed, t, t, rate)
+    want = (torch.softmax(scores, dim=-1) * keep / (1.0 - rate)) @ qs[2]
+    g = torch.randn_like(want)
+    assert _rel(got, want) <= TOL[torch.float32]
+    for a, b in zip(torch.autograd.grad(got, qs, g), torch.autograd.grad(want, qs, g)):
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) <= GRAD_TOL[torch.float32]
+        assert b[0].abs().max().item() > 1e-4  # the masked row has a gradient
+
+
 def _ring_against_one_call(cuda, n, t, d):
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
     from vimoclip_tpu_torch.parallel.sequence import LocalRing, sequence_parallel_attention

@@ -10,8 +10,10 @@ virtual devices and against the port's one-process paths.
 - With dropout, the port's ring draws the bits one call on the whole
   sequence draws (global offsets): held to ``flash_attention`` with the same
   seeds at n = 2 and 4, at 1e-6; the keep fraction and the block bits.
-- A fully masked row: the ring keeps the kernels' P = 1 rule in its
-  backward, like the one-call path, where JAX's ring is exact (ROADMAP §C).
+- A fully masked row: ring and all-gather give JAX's q, k and v gradients
+  (exact, by autodiff) at n = 2 and 4, and with dropout plain autograd's of
+  the kernels' own keep mask, while the one call keeps the kernels' P = 1
+  rule (Tk times the gradient there), as JAX's flash kernels do.
 - Two gloo worlds, spawned once (two and four ranks): TFAM in all five
   fusion modes on ``attention_impl="ring"`` at seq 2 against JAX's TFAM ring
   and its ``xla`` path (2e-5); the trainer's step at seq 2 and data 2 x seq
@@ -302,36 +304,70 @@ def test_block_bits_are_the_whole_calls(n):
     assert abs(whole.float().mean().item() - 0.6) < 0.01
 
 
-def test_fully_masked_row_keeps_the_kernels_rule(devices):
-    """A row whose keys are all masked (no TFAM batch has one): the ring's
-    forward is the one call's (uniform over all keys), and so is its
-    backward, which recomputes P = 1 from lse = -1e9 as the kernels do
-    (ROADMAP §C); JAX's ring, differentiated by autodiff, is exact there."""
+def _masked_row_inputs():
+    """Seed 30, (2, 4, 16, 16); batch row 1 has every key masked."""
+    q, k, v = _qkv(30, t=16)
+    mask = np.zeros((2, 16), bool)
+    mask[1] = True
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("strategy", ["ring", "allgather"])
+def test_fully_masked_row_gets_jax_gradients(devices, strategy, n):
+    """A row whose keys are all masked (no TFAM batch has one): the forward
+    is the one call's and JAX's (uniform over all keys), and the q, k and v
+    gradients equal JAX's ``sequence_parallel_attention`` on both rows,
+    which autodiff makes exact. The one call keeps the kernels' P = 1 rule
+    (JAX's flash kernels have it): its masked-row gradients stay Tk times
+    these."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
     from vimoclip_tpu.parallel.sequence import sequence_parallel_attention as jsp
 
-    q, k, v = _qkv(30, t=16)
-    mask = np.zeros((2, 16), bool)
-    mask[1] = True
+    q, k, v, mask = _masked_row_inputs()
     ts = [t.requires_grad_() for t in _t(q, k, v)]
-    ring = sequence_parallel_attention(*ts, LocalRing(4), torch.from_numpy(mask))
+    got = sequence_parallel_attention(*ts, LocalRing(n), torch.from_numpy(mask),
+                                      strategy=strategy)
     one = fa.flash_attention(*ts, torch.from_numpy(mask))
-    np.testing.assert_allclose(ring.detach().numpy(), one.detach().numpy(), atol=1e-5)
-    mesh = Mesh(np.asarray(jax.devices()[:4]), ("seq",))
-    np.testing.assert_allclose(ring.detach().numpy(), _jax_attention(q, k, v, mask, mesh=mesh),
+    np.testing.assert_allclose(got.detach().numpy(), one.detach().numpy(), atol=1e-5)
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("seq",))
+    np.testing.assert_allclose(got.detach().numpy(),
+                               _jax_attention(q, k, v, mask, strategy=strategy, mesh=mesh),
                                atol=1e-5)
-    g_ring = torch.autograd.grad((ring ** 2).sum(), ts)
+    g_got = torch.autograd.grad((got ** 2).sum(), ts)
     g_one = torch.autograd.grad((one ** 2).sum(), ts)
-    g_jax = jax.jit(jax.grad(lambda *a: (jsp(*a, mesh, key_padding_mask=mask) ** 2).sum(),
-                             argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
-    for a, b, c in zip(g_ring, g_one, g_jax):
+    loss = lambda *a: (jsp(*a, mesh, key_padding_mask=mask, strategy=strategy) ** 2).sum()
+    g_jax = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
+    for a, b, c in zip(g_got, g_one, g_jax):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=1e-5)
+        np.testing.assert_allclose(b[0].numpy(), a[0].numpy(), atol=1e-5)
+        np.testing.assert_allclose(b[1].numpy(), 16 * a[1].numpy(), atol=16e-5, rtol=1e-5)
+        assert np.abs(a[1].numpy()).max() > 1e-3  # the masked row has a gradient
+
+
+@pytest.mark.parametrize("strategy", ["ring", "allgather"])
+def test_fully_masked_row_with_dropout_gets_softmax_gradients(strategy):
+    """With dropout (p = 0.3, two shards) the bits cannot be JAX's, so the
+    gradients on both rows are held to plain autograd of a softmax over all
+    keys (the -1e9 bias on masked keys) that applies the kernels' keep mask
+    at the global offsets with the pre-dropout denominator, at 1e-5."""
+    q, k, v, mask = _masked_row_inputs()
+    rate, seeds = 0.3, fa.expand_seed(torch.tensor([11, 12]), 2, 4)
+    ts = [t.requires_grad_() for t in _t(q, k, v)]
+    got = sequence_parallel_attention(*ts, LocalRing(2), torch.from_numpy(mask),
+                                      strategy=strategy, dropout_rate=rate, dropout_seed=seeds)
+    keep = fa.dropout_keep_mask(seeds, 16, 16, rate)
+    scores = ts[0] @ ts[1].transpose(-1, -2) / 4.0
+    scores = scores + torch.where(torch.from_numpy(mask)[:, None, None, :], -1e9, 0.0)
+    want = (torch.softmax(scores, dim=-1) * keep / (1.0 - rate)) @ ts[2]
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=1e-5)
+    g = torch.randn(want.shape, generator=torch.Generator().manual_seed(31))
+    for a, b in zip(torch.autograd.grad(got, ts, g), torch.autograd.grad(want, ts, g)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
-        np.testing.assert_allclose(a[0].numpy(), np.asarray(c)[0], atol=1e-4)  # real row
-    # the masked row's dk differs from JAX's exact gradient: the known gap
-    assert np.abs(g_ring[1][1].numpy() - np.asarray(g_jax[1])[1]).max() > 1e-2
+        assert np.abs(a[1].numpy()).max() > 1e-3
 
 
 def test_ring_needs_a_seq_group():

@@ -16,6 +16,15 @@ division by the summed weights (1 up to rounding) keeps a fully masked row
 uniform over all keys, as the one-call kernel leaves it: its block lse all
 round to -1e9.
 
+A fully masked row in the backward: its lse rounds to -1e9, so the backward
+kernels recompute P = 1 for each of its Tk keys where the softmax gives
+1/Tk (the one-call ``flash_attention`` keeps that rule, as JAX's flash
+kernels do). JAX's ring and all-gather are differentiated by autodiff and
+are exact there. The kernels' backward is linear in dO for a fixed P (with
+dropout too), so both strategies scale dO (and with it delta) by 1/Tk on
+such rows before it, Tk the global key count, and get JAX's gradients; the
+other rows are left as they are, bit for bit (``_exact_on_masked_rows``).
+
 Dropout: the kernels' Philox bits are keyed on global (query row, key)
 coordinates and one seed per (batch row, head) (``ops/kernels/
 flash_attention.py``); each block call passes its global offsets (row0 =
@@ -162,6 +171,14 @@ def seq_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _SeqSum.apply(x, group)
 
 
+def _exact_on_masked_rows(grad: torch.Tensor, masked: torch.Tensor, keys: int) -> torch.Tensor:
+    """``grad`` (the attention output's gradient) times 1/``keys`` where
+    ``masked`` (broadcast over it) is True, and unchanged elsewhere: the
+    backward kernels then give the softmax's exact gradients on a fully
+    masked row (module docstring)."""
+    return torch.where(masked, grad * (1.0 / keys), grad)
+
+
 def _merge(acc, o_b: torch.Tensor, lse_b: torch.Tensor):
     """(float32 output, lse, summed weight) after one more block."""
     o_b = o_b.float()
@@ -214,7 +231,10 @@ class _RingAttention(torch.autograd.Function):
         seed, *saved = ctx.saved_tensors
         qs, ks, vs, masks, outs, lses = (saved[i * m:(i + 1) * m] for i in range(6))
         n, tq, tk = ring.n, qs[0].shape[2], ks[0].shape[2]
-        douts = [g.contiguous() for g in grad_outs]
+        # a row whose keys are all masked has a global lse of -1e9 (the mask
+        # value); any other, at least its largest real score
+        douts = [_exact_on_masked_rows(g.contiguous(), (lse < fa._MASK_VALUE / 2)[..., None],
+                                       n * tk) for g, lse in zip(grad_outs, lses)]
         deltas = [(g.float() * o.float()).sum(dim=-1) for g, o in zip(douts, outs)]
         dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
         blocks = [list(b) for b in zip(ks, vs, masks)]
@@ -301,17 +321,22 @@ def allgather_attention(q, k, v, key_padding_mask, ring, dropout_rate: float = 0
     """Per-shard all-gather attention (JAX's ``allgather_attention``): the
     keys, values and mask gathered over the ring, then the port's flash
     attention on (local queries, all keys) with the shard's row offset, so
-    its dropout bits are the one call's (and the ring's). Same arguments
-    and return as ``ring_attention``."""
+    its dropout bits are the one call's (and the ring's); on a fully masked
+    row the gradient is the softmax's, as JAX's (module docstring). Same
+    arguments and return as ``ring_attention``."""
     single, qs, ks, vs, masks = _as_lists(ring, q, k, v, key_padding_mask)
     seed = _seeds(dropout_rate, dropout_seed, qs[0])
     k_all, v_all = ring.gather(ks, 2), ring.gather(vs, 2)
     with torch.no_grad():
         mask_all = ring.gather([mk.to(torch.uint8) for mk in masks], 1).to(torch.bool)
     tq = qs[0].shape[2]
+    masked, keys = mask_all.all(dim=1)[:, None, None, None], k_all.shape[2]
     outs = [fa.flash_attention(q_, k_all, v_all, mask_all, dropout_rate, seed,
                                row0=qi * tq if dropout_rate > 0.0 else 0)
             for q_, qi in zip(qs, ring.ranks)]
+    for o in outs:
+        if o.requires_grad:
+            o.register_hook(lambda g: _exact_on_masked_rows(g, masked, keys))
     return outs[0] if single else outs
 
 
