@@ -196,7 +196,14 @@ NVIDIA card:
     then true; where OpenCV can write the corpus, ``tools/bench_decode_torch.py``
     at its defaults, whose line must hold a positive rate for each backend
     that runs. What the machine lacks is printed, not failed.
-19. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
+19. ``bench_torch.py`` as a user runs it (a subprocess, its four paths at
+    ``bench.py``'s recipes and the card tests): its line must hold finite,
+    positive rates in every section, a TFAM step that launched K1' and K2
+    eight times each and nothing else, K1 eight times a serving request, a
+    pooled/serial probability difference within 1e-5, and the card tests
+    passed (at least 400); printed as ``[bench]`` with the card's name and
+    power limit. Its launches join the kernels line.
+20. A JSON line of the kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script exits non-zero and prints no result. It
 needs a CUDA card (exits 2 without one) and the package beside it.
@@ -436,6 +443,14 @@ FULLGEOM_SITES = {"cross": 2, "concat_t": 1, "rgb": 1, "flow": 1}
 # decodes 1,200 360x640 frames three times per backend)
 DECODE_LIBS = ("libavformat", "libavcodec", "libavutil", "libswscale")
 DECODE_TIMEOUT_S = 300
+# Phase 19 (``bench_torch.py``): its time limit, the launches of a TFAM
+# train step at the AK recipe (t = 512 keys fit K2's single pass: K1' and
+# K2 at each of the 8 attention sites), of one serving request (K1 at the
+# 8 sites), and the fewest card tests its record may show passed
+BENCH_TIMEOUT_S = 600
+BENCH_TFAM_STEP_LAUNCHES = {"fwd_lse": 8, "bwd_dqkv": 8}
+BENCH_REQUEST_LAUNCHES = {"fwd": 8}
+BENCH_MIN_CARD_TESTS = 400
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3552,6 +3567,57 @@ def phase_decode(smi: str) -> dict:
     return result
 
 
+def phase_bench(torch, smi: str) -> dict:
+    """Phase 19: ``bench_torch.py`` in a subprocess, as a user runs it, and
+    its line checked. Returns its kernel launches, by kind."""
+    import gc
+    import math
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the bench's process needs the card's memory
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, str(HERE / "bench_torch.py")], cwd=HERE,
+                             capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        check(False, f"bench_torch.py ran past {BENCH_TIMEOUT_S} s")
+    seconds = round(time.perf_counter() - t0, 1)
+    check(res.returncode == 0, f"bench_torch.py failed (exit {res.returncode}): "
+                               f"{res.stderr[-3000:]}")
+    line = json.loads(_last_line(res.stdout.strip()))
+    print("[bench] " + json.dumps(line) + f" [{smi}]")
+    d = line["detail"]
+    tfam, student, serving = d["tfam_train_step"], d["student_train_step"], d["serving"]
+    rates = {
+        "value": line["value"], "vs_baseline": line["vs_baseline"],
+        "baseline": d["baseline_ref_style_fps_same_host"],
+        "turbo": d["extraction_turbo_fps"], "ceiling": d["measured_ceiling_tflops"],
+        "tfam clips/s": tfam.get("clips_per_sec"),
+        "student segments/s": student.get("segments_per_sec"),
+        "serving latency frames/s": serving.get("video_latency_fps"),
+        "serving serial videos/s": serving.get("serial_videos_per_s"),
+        "serving pooled videos/s": serving.get("pooled_videos_per_s"),
+    }
+    for name, rate in rates.items():
+        check(isinstance(rate, (int, float)) and math.isfinite(rate) and rate > 0,
+              f"bench_torch.py: {name} is {rate}")
+    check(d["device"] == smi, f"bench_torch.py names {d['device']!r}, not {smi!r}")
+    check(tfam["launches_per_step"] == BENCH_TFAM_STEP_LAUNCHES,
+          f"the bench's TFAM step launched {tfam['launches_per_step']} a step, "
+          f"expected {BENCH_TFAM_STEP_LAUNCHES}")
+    for where in ("launches_per_request", "launches_per_pooled_call"):
+        check(serving[where] == BENCH_REQUEST_LAUNCHES,
+              f"the bench's serving {where} {serving[where]}, expected {BENCH_REQUEST_LAUNCHES}")
+    delta = serving["pooled_vs_serial_max_prob_delta"]
+    check(delta <= 1e-5, f"the bench's pooled vs serial probabilities differ by {delta}")
+    tests = d["cuda_test"]
+    check(tests["status"] == "passed" and tests.get("passed", 0) >= BENCH_MIN_CARD_TESTS,
+          f"the bench's card tests: {tests}")
+    print(f"[bench] phase 19 took {seconds} s; card tests {tests['summary']!r} "
+          f"in {tests['duration_s']} s")
+    return {"launches": d["kernel_launches"], "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3599,6 +3665,7 @@ def main() -> int:
     table2 = phase_table2(torch, args.seed, smi, setup)
     wide = phase_wide(torch, args.seed, smi, setup, train["warm_step_ms"])
     phase_decode(smi)
+    bench = phase_bench(torch, smi)["launches"]
     fwd_src = "vimoclip_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "vimoclip_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "vimoclip_tpu/ops/pallas/flash_attention.py"
@@ -3607,7 +3674,7 @@ def main() -> int:
         "replaces": f"{tpu}:113",
         "launches": (stats["flash_launches"] + served["k1_launches"]
                      + accel["cli_k1_launches"] + par["k1_launches"]
-                     + seq_pipe["launches"]["fwd"]),
+                     + seq_pipe["launches"]["fwd"] + bench.get("fwd", 0)),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -3622,7 +3689,8 @@ def main() -> int:
         kernels.append({
             "name": name_, "route": "cuda", "source": source, "replaces": f"{tpu}:{line}",
             "launches": (train["launches"][kind] + par["launches"][kind]
-                         + seq_pipe["launches"][kind] + table2["launches"][kind]),
+                         + seq_pipe["launches"][kind] + table2["launches"][kind]
+                         + bench.get(kind, 0)),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``vimoclip_tpu_torch``, no
-``tools/*_torch.py`` and not ``chip_smoke.py`` imports JAX or the JAX
-package; entry points refuse a missing card instead of falling back; CPU
-calls launch no kernel."""
+``tools/*_torch.py``, not ``chip_smoke.py`` and not ``bench_torch.py``
+imports JAX or the JAX package; entry points refuse a missing card instead
+of falling back; CPU calls launch no kernel."""
 
 import ast
 import subprocess
@@ -14,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "vimoclip_tpu_torch"
 TOOLS = sorted((ROOT / "tools").glob("*_torch.py"))
-FILES = sorted(PORT.rglob("*.py")) + TOOLS + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + TOOLS + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -45,6 +45,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         "import importlib.util\n"
         f"for p in {[str(t) for t in TOOLS]!r}:\n"
         "    spec = importlib.util.spec_from_file_location('tool', p)\n"
