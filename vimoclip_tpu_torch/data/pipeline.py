@@ -8,6 +8,10 @@ packages, and a resumed run skips the batches it already trained on
 thread pool one batch ahead (h5py releases the GIL while it reads).
 ``prefetch_to_device`` keeps two batches in flight to the card through
 pinned memory and ``non_blocking`` copies.
+
+Spans (``utils/profiling.py::annotate``): ``vimo.data.load_wait`` while a
+batch's items are awaited, ``vimo.data.collate`` around ``collate`` and
+``vimo.data.upload`` around each batch's upload in ``prefetch_to_device``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from vimoclip_tpu_torch.utils.profiling import annotate
 
 
 class BatchLoader:
@@ -63,16 +69,23 @@ class BatchLoader:
                    for i in range(0, end, self.batch_size)][self._start_batch:]
         if self.num_workers <= 1:
             for b in batches:
-                yield self.collate([self.dataset[i] for i in b])
+                with annotate("vimo.data.load_wait"):
+                    items = [self.dataset[i] for i in b]
+                yield self._collate(items)
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = collections.deque(
                 pool.map(self.dataset.__getitem__, b) for b in batches[:2])
             for k in range(len(batches)):
-                items = list(pending.popleft())
+                with annotate("vimo.data.load_wait"):
+                    items = list(pending.popleft())
                 if k + 2 < len(batches):
                     pending.append(pool.map(self.dataset.__getitem__, batches[k + 2]))
-                yield self.collate(items)
+                yield self._collate(items)
+
+    def _collate(self, items: list) -> dict:
+        with annotate("vimo.data.collate"):
+            return self.collate(items)
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -94,15 +107,20 @@ def prefetch_to_device(iterator: Iterable[dict], device: torch.device | str,
                        size: int = 2) -> Iterator[dict]:
     """Upload batches ``size`` steps ahead of their use."""
     device = torch.device(device)
+
+    def put(batch: dict) -> None:
+        with annotate("vimo.data.upload"):
+            queue.append(to_device(batch, device))
+
     queue: collections.deque = collections.deque()
     it = iter(iterator)
     for batch in it:
-        queue.append(to_device(batch, device))
+        put(batch)
         if len(queue) >= size:
             break
     while queue:
         out = queue.popleft()
         nxt = next(it, None)
         if nxt is not None:
-            queue.append(to_device(nxt, device))
+            put(nxt)
         yield out

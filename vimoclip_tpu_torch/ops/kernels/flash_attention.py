@@ -56,6 +56,9 @@ design does about it.
 - ``flash_attention.launches`` counts kernel launches by kind (``fwd``,
   ``fwd_lse``, ``bwd_dqkv``, ``bwd_dq``, ``bwd_dkv``, and each of them with
   ``_wide`` above head dim 128), never CPU calls.
+- Spans (``utils/profiling.py::annotate``): ``vimo.attn.fwd`` around each
+  call, either path; ``vimo.attn.bwd`` around the autograd backward, on the
+  engine's thread when the tensors are on the card.
 
 A fully masked row (every key ignored) comes out uniform over the real
 keys, and its lse is -1e9 + log(n) rounded in float32, i.e. -1e9: the
@@ -67,6 +70,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from vimoclip_tpu_torch.utils.profiling import annotate
 
 _MASK_VALUE = -1e9  # ops/attention.py::_MASK_VALUE
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -548,8 +553,9 @@ class _FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         q, k, v, key_padding_mask, seed, out, lse = ctx.saved_tensors
-        grads = backward(q, k, v, key_padding_mask, seed, ctx.dropout_rate, out, lse,
-                         grad_out, *ctx.offsets)
+        with annotate("vimo.attn.bwd"):
+            grads = backward(q, k, v, key_padding_mask, seed, ctx.dropout_rate, out, lse,
+                             grad_out, *ctx.offsets)
         return (*grads, None, None, None, None, None)
 
 
@@ -585,17 +591,18 @@ def flash_attention(
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     b, h = q.shape[:2]
-    seed = None
-    if dropout_rate > 0.0:
-        seed = expand_seed(dropout_seed, b, h, device=q.device)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, key_padding_mask, seed, float(dropout_rate),
-                                     row0, col0)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate, seed=seed,
-                                         row0=row0, col0=col0)
-    return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=False,
-                       row0=row0, col0=col0)[0]
+    with annotate("vimo.attn.fwd"):
+        seed = None
+        if dropout_rate > 0.0:
+            seed = expand_seed(dropout_seed, b, h, device=q.device)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return _FlashAttention.apply(q, k, v, key_padding_mask, seed,
+                                         float(dropout_rate), row0, col0)
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, key_padding_mask, dropout_rate,
+                                             seed=seed, row0=row0, col0=col0)
+        return _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse=False,
+                           row0=row0, col0=col0)[0]
 
 
 flash_attention.launches = dict.fromkeys(LAUNCH_KINDS, 0)

@@ -40,6 +40,7 @@ from vimoclip_tpu_torch.ops.batching import (
 from vimoclip_tpu_torch.ops.preprocess import clip_preprocess, frame_diff
 from vimoclip_tpu_torch.parallel.mesh import Replicas
 from vimoclip_tpu_torch.utils.device import resolve_device
+from vimoclip_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -140,13 +141,14 @@ class ViMoCLIPPredictor:
         return embed_fn(frames_dev), n
 
     def _dispatch_window(self, chunk: torch.Tensor, nxt: torch.Tensor | None):
-        rgb_dev, rn = self._embed_window_device(self._teacher_embed, chunk)
-        window = chunk if nxt is None else torch.cat([chunk, nxt])
-        mot_dev = mot_n = None
-        if window.shape[0] >= 2:
-            mot_dev, mot_n = self._embed_window_device(
-                self._student_embed, frame_diff(window))
-        return rgb_dev, rn, mot_dev, mot_n
+        with annotate("vimo.serve.embed"):
+            rgb_dev, rn = self._embed_window_device(self._teacher_embed, chunk)
+            window = chunk if nxt is None else torch.cat([chunk, nxt])
+            mot_dev = mot_n = None
+            if window.shape[0] >= 2:
+                mot_dev, mot_n = self._embed_window_device(
+                    self._student_embed, frame_diff(window))
+            return rgb_dev, rn, mot_dev, mot_n
 
     @torch.inference_mode()
     def embed_video(self, frames) -> tuple[np.ndarray, np.ndarray]:
@@ -163,14 +165,16 @@ class ViMoCLIPPredictor:
         mot_out: list[np.ndarray] = []
 
         def flush(p):
-            rgb_dev, rn, mot_dev, mn = p
-            rgb_out.append(rgb_dev[:rn].cpu().numpy())
-            if mot_dev is not None:
-                mot_out.append(mot_dev[:mn].cpu().numpy())
+            with annotate("vimo.serve.fetch"):
+                rgb_dev, rn, mot_dev, mn = p
+                rgb_out.append(rgb_dev[:rn].cpu().numpy())
+                if mot_dev is not None:
+                    mot_out.append(mot_dev[:mn].cpu().numpy())
 
         pending = prev = None
         for i in range(0, frames.shape[0], bs):
-            chunk = upload(frames[i : i + bs], self.device)
+            with annotate("vimo.serve.upload"):
+                chunk = upload(frames[i : i + bs], self.device)
             if prev is not None:
                 dispatched = self._dispatch_window(prev, chunk[:1])
                 if pending is not None:
@@ -245,14 +249,16 @@ class ViMoCLIPPredictor:
         so results equal the per-clip path."""
         out: list = [None] * len(videos)
         groups: dict[tuple, list[int]] = {}
-        for i, frames in enumerate(videos):
-            groups.setdefault(tuple(frames.shape[1:3]), []).append(i)
+        with annotate("vimo.serve.pool"):
+            for i, frames in enumerate(videos):
+                groups.setdefault(tuple(frames.shape[1:3]), []).append(i)
         for idxs in groups.values():
-            stacks = [videos[i] for i in idxs]
-            if isinstance(stacks[0], torch.Tensor):
-                pooled = torch.cat([s.to(self.device) for s in stacks])
-            else:
-                pooled = np.concatenate(stacks)
+            with annotate("vimo.serve.pool"):
+                stacks = [videos[i] for i in idxs]
+                if isinstance(stacks[0], torch.Tensor):
+                    pooled = torch.cat([s.to(self.device) for s in stacks])
+                else:
+                    pooled = np.concatenate(stacks)
             rgb_all, diff_all = self.embed_video(pooled)
             ofs = 0
             for i in idxs:
@@ -272,28 +278,33 @@ class ViMoCLIPPredictor:
     def predict_videos(self, videos: list, video_ids: list[str] | None = None,
                        top_k: int = 5) -> list[Prediction]:
         """In-memory (T, H, W, 3) uint8 stacks (numpy, or tensors on any
-        device) through the pooled embedding path and one batched fusion."""
-        video_ids = video_ids or [f"video_{i}" for i in range(len(videos))]
-        for vid, frames in zip(video_ids, videos):
-            if len(frames) < 2:
-                raise ValueError(
-                    f"{vid}: {len(frames)} frame(s) — the fused cascade "
-                    "needs >= 2 (motion = consecutive-frame diffs)"
-                )
-        embs = self._embed_videos_pooled(videos)
-        t_r = round_up_bucket(max(len(r) for r, _ in embs),
-                              self.length_bucket, self.max_seq_len)
-        t_m = round_up_bucket(max(len(m) for _, m in embs),
-                              self.length_bucket, self.max_seq_len)
-        b, d = len(embs), embs[0][0].shape[1]
-        rgb = np.zeros((b, t_r, d), np.float32)
-        mot = np.zeros((b, t_m, d), np.float32)
-        mask_r = np.zeros((b, t_r), bool)
-        mask_m = np.zeros((b, t_m), bool)
-        for i, (r, m) in enumerate(embs):
-            nr, nm = min(len(r), t_r), min(len(m), t_m)
-            rgb[i, :nr], mot[i, :nm] = r[:nr], m[:nm]
-            mask_r[i, :nr] = mask_m[i, :nm] = True
-        probs = self._fuse(rgb, mot, mask_r, mask_m)
-        return [Prediction(vid, self._top(probs[i], top_k), probs[i])
-                for i, vid in enumerate(video_ids)]
+        device) through the pooled embedding path and one batched fusion.
+        Spans: ``vimo.serve.request`` around the call; inside it
+        ``vimo.serve.pool``, ``vimo.serve.upload``, ``vimo.serve.embed``,
+        ``vimo.serve.fetch`` and ``vimo.serve.fuse``."""
+        with annotate("vimo.serve.request"):
+            video_ids = video_ids or [f"video_{i}" for i in range(len(videos))]
+            for vid, frames in zip(video_ids, videos):
+                if len(frames) < 2:
+                    raise ValueError(
+                        f"{vid}: {len(frames)} frame(s) — the fused cascade "
+                        "needs >= 2 (motion = consecutive-frame diffs)"
+                    )
+            embs = self._embed_videos_pooled(videos)
+            with annotate("vimo.serve.fuse"):
+                t_r = round_up_bucket(max(len(r) for r, _ in embs),
+                                      self.length_bucket, self.max_seq_len)
+                t_m = round_up_bucket(max(len(m) for _, m in embs),
+                                      self.length_bucket, self.max_seq_len)
+                b, d = len(embs), embs[0][0].shape[1]
+                rgb = np.zeros((b, t_r, d), np.float32)
+                mot = np.zeros((b, t_m, d), np.float32)
+                mask_r = np.zeros((b, t_r), bool)
+                mask_m = np.zeros((b, t_m), bool)
+                for i, (r, m) in enumerate(embs):
+                    nr, nm = min(len(r), t_r), min(len(m), t_m)
+                    rgb[i, :nr], mot[i, :nm] = r[:nr], m[:nm]
+                    mask_r[i, :nr] = mask_m[i, :nm] = True
+                probs = self._fuse(rgb, mot, mask_r, mask_m)
+            return [Prediction(vid, self._top(probs[i], top_k), probs[i])
+                    for i, vid in enumerate(video_ids)]

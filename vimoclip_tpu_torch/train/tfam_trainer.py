@@ -18,6 +18,12 @@ steps, mid-epoch resume that redraws the same batches and dropout masks
 (batches from the epoch seed, dropout from ``KeyChain(seed)("dropout",
 step)``), and preemption (SIGTERM/SIGINT cut a resume checkpoint).
 
+Spans (``utils/profiling.py::annotate``, recorded only under a profiler):
+``train_epoch`` opens ``vimo.train.data_wait`` around each fetch of the next
+batch, and ``vimo.train.loss_fetch`` and ``vimo.train.metric`` after each
+step; ``train_step`` is ``vimo.train.step``, with ``forward``, ``backward``
+and ``optimizer`` inside. They do not overlap, so their host times add up.
+
 Attention runs where ``model.attention_impl`` says: with ``flash`` (or
 ``auto`` past its crossover) a training step runs K1' forward and K2 or
 K3 + K4 backward per attention site, and ``validate`` runs K1.
@@ -91,6 +97,7 @@ from vimoclip_tpu_torch.train.state import (
 from vimoclip_tpu_torch.utils.device import resolve_device
 from vimoclip_tpu_torch.utils.logging import StepTimer, SummaryWriter, progress
 from vimoclip_tpu_torch.utils.preemption import PreemptionGuard
+from vimoclip_tpu_torch.utils.profiling import annotate
 
 _INPUTS = ("embeddings", "motion_embeddings", "mask_rgb", "mask_motion")
 
@@ -264,40 +271,45 @@ class TFAMTrainer:
         """One optimizer step on a collated global batch (numpy or on the
         device); dropout draws from the step's own stream. Returns the
         detached loss and logits of the global batch."""
-        accum = self.config.training.grad_accum
-        batch = to_device(shard_batch(batch, self.mesh, max(accum, 1) * self.n_micro),
-                          self.device)
-        generator = self.keys("dropout", self.state.step, device=self.device)
-        model, opt = self.model, self.state.optimizer
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        accum = self.config.training.grad_accum
-        if accum <= 1:
-            logits = self._logits(batch, generator)
-            loss = self.loss_fn(logits, batch["labels"])
-            self._backward(loss)
-            loss, logits = self._global(loss.detach(), logits.detach())
-        else:
-            rows = batch["labels"].shape[0] // accum
-            loss_sum, parts = 0.0, []
-            for i in range(accum):
-                mb = {k: batch[k][i * rows:(i + 1) * rows] for k in (*_INPUTS, "labels")}
-                part = self._logits(mb, generator)
-                mb_loss = self.loss_fn(part, mb["labels"])
-                self._backward(mb_loss)  # gradients add up in .grad
-                mb_loss, part = self._global(mb_loss.detach(), part.detach())
-                loss_sum = loss_sum + mb_loss
-                parts.append(part)
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum)
-            loss, logits = loss_sum / accum, torch.cat(parts)
-        if self.shard is not None:
-            self.shard.average_gradients_(model.parameters())
-        opt.step()
-        self.state.scheduler.step()
-        self.state.step += 1
-        return loss.detach(), logits.detach()
+        with annotate("vimo.train.step"):
+            accum = self.config.training.grad_accum
+            batch = to_device(shard_batch(batch, self.mesh, max(accum, 1) * self.n_micro),
+                              self.device)
+            generator = self.keys("dropout", self.state.step, device=self.device)
+            model, opt = self.model, self.state.optimizer
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            if accum <= 1:
+                with annotate("vimo.train.forward"):
+                    logits = self._logits(batch, generator)
+                    loss = self.loss_fn(logits, batch["labels"])
+                with annotate("vimo.train.backward"):
+                    self._backward(loss)
+                loss, logits = self._global(loss.detach(), logits.detach())
+            else:
+                rows = batch["labels"].shape[0] // accum
+                loss_sum, parts = 0.0, []
+                for i in range(accum):
+                    mb = {k: batch[k][i * rows:(i + 1) * rows] for k in (*_INPUTS, "labels")}
+                    with annotate("vimo.train.forward"):
+                        part = self._logits(mb, generator)
+                        mb_loss = self.loss_fn(part, mb["labels"])
+                    with annotate("vimo.train.backward"):
+                        self._backward(mb_loss)  # gradients add up in .grad
+                    mb_loss, part = self._global(mb_loss.detach(), part.detach())
+                    loss_sum = loss_sum + mb_loss
+                    parts.append(part)
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+                loss, logits = loss_sum / accum, torch.cat(parts)
+            if self.shard is not None:
+                self.shard.average_gradients_(model.parameters())
+            with annotate("vimo.train.optimizer"):
+                opt.step()
+                self.state.scheduler.step()
+            self.state.step += 1
+            return loss.detach(), logits.detach()
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -316,14 +328,21 @@ class TFAMTrainer:
         timer = StepTimer()
         last = None
         # every rank uploads the global batch and keeps its rows on the card
-        batches = prefetch_to_device(self.train_loader, self.device)
-        for batch in progress(batches, desc=f"epoch {epoch + 1}",
-                              total=len(self.train_loader) - skip_batches):
+        batches = iter(progress(prefetch_to_device(self.train_loader, self.device),
+                                desc=f"epoch {epoch + 1}",
+                                total=len(self.train_loader) - skip_batches))
+        while True:
+            with annotate("vimo.train.data_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             loss, logits = self.train_step(batch)
-            total_loss += float(loss)
+            with annotate("vimo.train.loss_fetch"):
+                total_loss += float(loss)
             n += 1
             last = (logits, batch["labels"])
-            _metric_update(self.metric, logits, batch["labels"])
+            with annotate("vimo.train.metric"):
+                _metric_update(self.metric, logits, batch["labels"])
             timer.tick(batch["labels"].shape[0])
             done = skip_batches + n
             if self._stop_requested():
