@@ -101,6 +101,69 @@ def test_embed_video_matches_jax_across_windows(weights):
     np.testing.assert_array_equal(mot_t, mot)
 
 
+def _two_resolutions():
+    """Clips of 3, 8, 13 and 20 frames at 36x48 and of 5 and 11 at 40x32,
+    interleaved: through 8-frame windows the first group's edges fall inside
+    windows (3, 11) and on one (24); the second's at 5."""
+    rng = np.random.default_rng(3)
+    shape = {3: (36, 48), 5: (40, 32), 8: (36, 48), 13: (36, 48), 11: (40, 32),
+             20: (36, 48)}
+    return [rng.integers(0, 256, (t, *shape[t], 3), dtype=np.uint8)
+            for t in (3, 5, 8, 13, 11, 20)]
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_pooled_windows_equal_the_joined_stack(weights, kind):
+    """Each resolution group is read in place: its embeddings are bit for bit
+    those of the group joined along time, only the windows across a clip
+    edge are gathered (the first group's [0, 8) and [8, 16), the second's
+    [0, 8)), and each clip's result is its own within the CPU's round-off."""
+    videos = _two_resolutions()
+    port = _port_predictor(weights)
+    given = videos if kind == "numpy" else [torch.from_numpy(v) for v in videos]
+    pooled = port._embed_videos_pooled(given)
+    assert port.stats() == {"windows": 6 + 2, "gathered_windows": 3, "gathered_frames": 24}
+    for group in ([0, 2, 3, 5], [1, 4]):
+        rgb_all, mot_all = port.embed_video(np.concatenate([videos[i] for i in group]))
+        ofs = 0
+        for i in group:
+            n = len(videos[i])
+            np.testing.assert_array_equal(pooled[i][0], rgb_all[ofs : ofs + n])
+            np.testing.assert_array_equal(pooled[i][1], mot_all[ofs : ofs + n - 1])
+            ofs += n
+    preds = port.predict_videos(given)
+    for v, (rgb, mot), pred in zip(videos, pooled, preds):
+        own_rgb, own_mot = port.embed_video(v)
+        np.testing.assert_allclose(rgb, own_rgb, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(mot, own_mot, atol=1e-4, rtol=0)
+        own = port.predict_embeddings(own_rgb, own_mot)
+        np.testing.assert_allclose(pred.probabilities, own.probabilities, atol=1e-4, rtol=0)
+
+
+def test_one_clip_request_uploads_views_of_the_clip(weights, monkeypatch):
+    """A one-clip request copies none of its frames on the host before the
+    upload: every window handed to ``upload`` is a view of the caller's clip."""
+    import vimoclip_tpu_torch.serving as serving
+
+    clip = _videos()[1]  # 20 frames: windows of 8, 8 and 4
+    handed = []
+    real_upload = serving.upload
+
+    def spy(window, device):
+        assert np.shares_memory(window, clip)
+        handed.append(len(window))
+        return real_upload(window, device)
+
+    monkeypatch.setattr(serving, "upload", spy)
+    port = _port_predictor(weights)
+    (pred,) = port.predict_videos([clip])
+    assert handed == [8, 8, 4]
+    assert port.stats() == {"windows": 3, "gathered_windows": 0, "gathered_frames": 0}
+    monkeypatch.undo()
+    want = port.predict_embeddings(*port.embed_video(clip.copy()))
+    np.testing.assert_array_equal(pred.probabilities, want.probabilities)
+
+
 def test_predict_embeddings_matches_jax(weights):
     rng = np.random.default_rng(5)
     rgb = rng.standard_normal((11, 16)).astype(np.float32)

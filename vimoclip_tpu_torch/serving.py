@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -43,6 +44,31 @@ from vimoclip_tpu_torch.utils.device import resolve_device
 from vimoclip_tpu_torch.utils.profiling import annotate
 
 
+class _Clips:
+    """Clips of one resolution read as one stack along time without joining
+    them: ``clips[a:b]`` inside one clip is a view of it; a slice across a
+    clip boundary gathers only its own frames, counted through ``count``."""
+
+    def __init__(self, clips: Sequence, count):
+        self.clips, self.count = clips, count
+        self.starts = np.cumsum([0] + [len(c) for c in clips])
+
+    def __len__(self) -> int:
+        return int(self.starts[-1])
+
+    def __getitem__(self, window: slice):
+        start, stop, _ = window.indices(len(self))
+        parts = [clip[max(start - s, 0) : stop - s]
+                 for clip, s in zip(self.clips, self.starts)
+                 if max(start, s) < min(stop, s + len(clip))]
+        if len(parts) == 1:
+            return parts[0]
+        self.count(gathered_windows=1, gathered_frames=stop - start)
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts)
+        return np.concatenate(parts)
+
+
 @dataclasses.dataclass
 class Prediction:
     video_id: str
@@ -60,6 +86,7 @@ class ViMoCLIPPredictor:
     arrays. ``device`` is ``cuda`` unless the caller asks for the CPU.
     ``devices``: one replica of each tower per entry (``frame_batch`` must
     divide by their number); the first is where the fusion runs.
+    ``stats()``: frame windows embedded, and those gathered across clips.
     """
 
     def __init__(
@@ -88,6 +115,12 @@ class ViMoCLIPPredictor:
         self.length_bucket = length_bucket
         self.max_seq_len = max_seq_len
         self.dtype = torch.bfloat16 if half_precision else torch.float32
+        self._stats_lock = threading.Lock()
+        self._stats = {
+            "windows": 0,           # frame windows uploaded and embedded
+            "gathered_windows": 0,  # windows across a clip boundary, copied
+            "gathered_frames": 0,   # the frames those windows copied
+        }
         tfam_config = tfam_config or TFAMModelConfig(attention_impl="flash")
         if batch_invariant and not tfam_config.masked_pooling:
             # A prediction must not depend on what a clip is co-batched
@@ -111,6 +144,15 @@ class ViMoCLIPPredictor:
                                                teacher_config.image_size)
         self._student_embed = self._make_embed(Replicas(self.student, devices),
                                                student_config.image_size)
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return dict(self._stats)
+
+    def _count(self, **added: int) -> None:
+        with self._stats_lock:
+            for key, n in added.items():
+                self._stats[key] += n
 
     def _place(self, module: nn.Module, state: Mapping) -> nn.Module:
         module.load_state_dict(to_tensors(state), strict=True)
@@ -153,6 +195,8 @@ class ViMoCLIPPredictor:
     @torch.inference_mode()
     def embed_video(self, frames) -> tuple[np.ndarray, np.ndarray]:
         """(T, H, W, 3) uint8 -> (rgb_emb (T, D), motion_emb (T-1, D)).
+        ``frames`` is an array, a tensor or a ``_Clips``, sliced window by
+        window.
 
         Streams ``frame_batch``-frame windows; each window's diffs reach one
         frame into the next window, so the frame difference crosses window
@@ -172,9 +216,10 @@ class ViMoCLIPPredictor:
                     mot_out.append(mot_dev[:mn].cpu().numpy())
 
         pending = prev = None
-        for i in range(0, frames.shape[0], bs):
+        for i in range(0, len(frames), bs):
             with annotate("vimo.serve.upload"):
                 chunk = upload(frames[i : i + bs], self.device)
+            self._count(windows=1)
             if prev is not None:
                 dispatched = self._dispatch_window(prev, chunk[:1])
                 if pending is not None:
@@ -242,8 +287,9 @@ class ViMoCLIPPredictor:
 
     def _embed_videos_pooled(self, videos) -> list[tuple[np.ndarray, np.ndarray]]:
         """Embed several clips through shared frame windows: clips of one
-        resolution are concatenated along time and streamed as one stack,
-        so only the pool's tail window is padded. Per-clip arrays are
+        resolution are streamed as one stack along time, read in place
+        (``_Clips``), so only the group's tail window is padded and only a
+        window across two clips is copied on the host. Per-clip arrays are
         slices; the one cross-clip diff between consecutive clips is
         dropped. Each frame's embedding is independent of its neighbours,
         so results equal the per-clip path."""
@@ -254,12 +300,9 @@ class ViMoCLIPPredictor:
                 groups.setdefault(tuple(frames.shape[1:3]), []).append(i)
         for idxs in groups.values():
             with annotate("vimo.serve.pool"):
-                stacks = [videos[i] for i in idxs]
-                if isinstance(stacks[0], torch.Tensor):
-                    pooled = torch.cat([s.to(self.device) for s in stacks])
-                else:
-                    pooled = np.concatenate(stacks)
-            rgb_all, diff_all = self.embed_video(pooled)
+                clips = _Clips([v.to(self.device) if isinstance(v, torch.Tensor) else v
+                                for v in (videos[i] for i in idxs)], self._count)
+            rgb_all, diff_all = self.embed_video(clips)
             ofs = 0
             for i in idxs:
                 n = len(videos[i])
