@@ -95,6 +95,58 @@ def test_kernel_reads_strided_views(cuda, dtype, offset):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+# The SigLIP So400m/14 towers' calls (head dim 72: two 64-column chunks, the
+# second 8 columns live): the 384 px teacher's 729 tokens, the 224 px
+# student's 256, the attention-pooling head's one query over 729; and TFAM
+# at d 1152 over 8 heads (head dim 144, the wide pair kernel) with key masks.
+@pytest.mark.parametrize("shape, masked", [
+    ((8, 16, 729, 729, 72), False), ((8, 16, 256, 256, 72), False),
+    ((8, 16, 1, 729, 72), False), ((1, 8, 512, 512, 144), True),
+], ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else ("mask" if x else "nomask"))
+def test_kernel_matches_reference_at_the_siglip_shapes(cuda, shape, masked):
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import launch_kind
+
+    q, k, v, mask = _inputs(*shape, torch.bfloat16, cuda)
+    mask = mask if masked else None
+    kind = launch_kind("fwd", shape[-1])
+    before = flash_attention.launches[kind]
+    out = flash_attention(q, k, v, key_padding_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches[kind] == before + 1
+    ref = flash_attention_reference(q, k, v, mask)
+    assert out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+def test_siglip_tower_on_the_kernels_matches_eager(cuda):
+    # the So400m/14 tower at its published widths, bf16: every block's
+    # attention and the head's on K1 against the eager path, same weights;
+    # the two round the attention's probabilities differently (bf16 p in
+    # K1), so the embeddings agree to bf16 rounding through 27 blocks
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.siglip_vit import SiglipVisionConfig
+    from vimoclip_tpu_torch.models.towers import preprocess, vision_tower
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    frames = torch.randint(0, 256, (4, 360, 640, 3), dtype=torch.uint8, device=cuda,
+                           generator=g)
+    out = {}
+    state = None
+    for impl in ("xla", "flash"):
+        cfg = SiglipVisionConfig(attention_impl=impl)
+        tower = vision_tower(cfg, torch.bfloat16).to(cuda).eval()
+        if state is None:
+            state = init_parameters_(tower, g).state_dict()
+        tower.load_state_dict(state)
+        before = dict(flash_attention.launches)
+        with torch.no_grad():
+            out[impl] = tower(preprocess(frames, cfg, torch.bfloat16)).double()
+        launched = flash_attention.launches["fwd"] - before["fwd"]
+        assert launched == (cfg.num_layers + 1 if impl == "flash" else 0)
+    cos = torch.nn.functional.cosine_similarity(out["xla"], out["flash"], dim=-1)
+    assert cos.min().item() > 0.999, cos
+
+
 def test_kernel_refusals(cuda):
     q = torch.randn(1, 2, 8, 16, device=cuda)
     with pytest.raises(TypeError):

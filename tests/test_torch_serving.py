@@ -122,7 +122,10 @@ def test_pooled_windows_equal_the_joined_stack(weights, kind):
     port = _port_predictor(weights)
     given = videos if kind == "numpy" else [torch.from_numpy(v) for v in videos]
     pooled = port._embed_videos_pooled(given)
-    assert port.stats() == {"windows": 6 + 2, "gathered_windows": 3, "gathered_frames": 24}
+    # the student runs each group's differences, the one across a clip edge
+    # included: 44 - 1 and 16 - 1
+    assert port.stats() == {"windows": 6 + 2, "gathered_windows": 3, "gathered_frames": 24,
+                            "teacher_frames": 60, "student_frames": 43 + 15}
     for group in ([0, 2, 3, 5], [1, 4]):
         rgb_all, mot_all = port.embed_video(np.concatenate([videos[i] for i in group]))
         ofs = 0
@@ -158,7 +161,8 @@ def test_one_clip_request_uploads_views_of_the_clip(weights, monkeypatch):
     port = _port_predictor(weights)
     (pred,) = port.predict_videos([clip])
     assert handed == [8, 8, 4]
-    assert port.stats() == {"windows": 3, "gathered_windows": 0, "gathered_frames": 0}
+    assert port.stats() == {"windows": 3, "gathered_windows": 0, "gathered_frames": 0,
+                            "teacher_frames": 20, "student_frames": 19}
     monkeypatch.undo()
     want = port.predict_embeddings(*port.embed_video(clip.copy()))
     np.testing.assert_array_equal(pred.probabilities, want.probabilities)

@@ -111,16 +111,16 @@ def _bench_gpu(batch: int = 128, iters: int = 4, seed: int = 0,
                device: str | torch.device = "cuda", vision_config=None,
                tfam_config=None, frame_hw: tuple[int, int] = (360, 640),
                clips: tuple[int, int] = (8, 450)) -> dict:
-    """Frames/s of the extraction forward (``clip_preprocess`` + the CLIP
-    tower, ViT-B/16 by default) on ``batch`` uint8 frames of ``frame_hw``,
-    and clips/s of the TFAM forward (d512, 8 heads, 4 layers by default) on
+    """Frames/s of the extraction forward (the tower's preprocessing + the
+    vision tower ``vision_config`` names, CLIP ViT-B/16 by default) on
+    ``batch`` uint8 frames of ``frame_hw``, and clips/s of the TFAM forward (d512, 8 heads, 4 layers by default) on
     ``clips`` = (B, T) random embeddings, both bf16 on weights drawn from
     ``seed``. ``device`` is the card unless the caller asks for the CPU."""
     from vimoclip_tpu_torch.config import TFAMModelConfig
     from vimoclip_tpu_torch.models import init_parameters_
-    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
     from vimoclip_tpu_torch.models.tfam import TFAM
-    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+    from vimoclip_tpu_torch.models.towers import preprocess, vision_tower
     from vimoclip_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -130,10 +130,10 @@ def _bench_gpu(batch: int = 128, iters: int = 4, seed: int = 0,
            "batch": batch, "iters": iters}
 
     cfg = vision_config or ClipVisionConfig.vit_b_16()
-    enc = init_parameters_(ClipVisionEncoder(cfg, dtype=dtype).to(dev), g).eval()
+    enc = init_parameters_(vision_tower(cfg, dtype).to(dev), g).eval()
     frames = torch.randint(0, 256, (batch, *frame_hw, 3), dtype=torch.uint8,
                            device=dev, generator=g)
-    ms = _timed_ms(lambda: enc(clip_preprocess(frames, cfg.image_size, dtype=dtype)),
+    ms = _timed_ms(lambda: enc(preprocess(frames, cfg, dtype)),
                    iters, dev)
     out["extract_frames_per_s"] = batch * iters / ms * 1e3
 

@@ -121,8 +121,9 @@ def main(argv: list[str] | None = None) -> None:
         devices = replica_devices(args.data_parallel, args.device)
         logging.info("extraction: %d-way data parallel over %s", args.data_parallel,
                      [str(d) for d in devices])
-    logging.info("CLIP visual tower: patch %d, %d layers, proj %d",
-                 config.patch_size, config.num_layers, config.projection_dim)
+    logging.info("%s visual tower: patch %d, %d layers, embedding %d",
+                 type(config).__name__, config.patch_size, config.num_layers,
+                 config.embed_dim)
     start = time.time()
     errors = create_hdf5_dataset(
         data_root=args.data_root,

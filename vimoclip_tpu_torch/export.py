@@ -30,10 +30,9 @@ import numpy as np
 import torch
 
 from vimoclip_tpu_torch.data.video_reader import iter_video_chunks
-from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
 from vimoclip_tpu_torch.models.convert import student_tower_state, to_tensors
+from vimoclip_tpu_torch.models.towers import VisionConfig, preprocess, tower_state, vision_tower
 from vimoclip_tpu_torch.ops.batching import pad_to_batch, upload
-from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
 from vimoclip_tpu_torch.utils.device import resolve_device
 
 
@@ -76,9 +75,10 @@ def find_motion_videos(videos_dir: str, extensions=(".mp4", ".avi", ".mkv")) -> 
 
 class MotionEmbeddingExporter:
     """``student_state``: a student state dict (reference layout, or just
-    its tower in the ``ClipVisionEncoder`` layout); only the tower is used."""
+    its tower in the layout of ``vision_config``'s kind, ``models/towers.py``);
+    only the tower is used."""
 
-    def __init__(self, student_state: Mapping, vision_config: ClipVisionConfig,
+    def __init__(self, student_state: Mapping, vision_config: VisionConfig,
                  chunk_size: int = 128, half_precision: bool = True,
                  compression: str | None = "lzf", min_free_gb: float = 2.0,
                  device: str | torch.device = "cuda"):
@@ -88,8 +88,10 @@ class MotionEmbeddingExporter:
         self.compression = compression
         self.min_free_gb = min_free_gb
         self.dtype = torch.bfloat16 if half_precision else torch.float32
-        encoder = ClipVisionEncoder(vision_config, dtype=self.dtype)
-        encoder.load_state_dict(to_tensors(student_tower_state(student_state)), strict=True)
+        encoder = vision_tower(vision_config, dtype=self.dtype)
+        encoder.load_state_dict(
+            to_tensors(tower_state(vision_config, student_tower_state(student_state))),
+            strict=True)
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
 
     @torch.inference_mode()
@@ -97,7 +99,7 @@ class MotionEmbeddingExporter:
         """(n <= chunk_size, H, W, 3) uint8 -> (n, P) float32 embeddings."""
         n = frames.shape[0]
         x = upload(pad_to_batch(frames, self.chunk_size), self.device)
-        pixels = clip_preprocess(x, self.vision_config.image_size, dtype=self.dtype)
+        pixels = preprocess(x, self.vision_config, self.dtype)
         return self.encoder(pixels).float()[:n].cpu().numpy()
 
     def export(self, video_paths: list[str], output_h5: str, overwrite: bool = False,

@@ -39,13 +39,13 @@ from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from vimoclip_tpu_torch.data.hdf5_schema import AsyncWriter, EmbeddingWriter
 from vimoclip_tpu_torch.data.video_reader import _native_backend, iter_video_chunks
-from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
 from vimoclip_tpu_torch.models.convert import to_tensors
+from vimoclip_tpu_torch.models.towers import VisionConfig, preprocess, tower_state, vision_tower
 from vimoclip_tpu_torch.ops.batching import pad_to_batch, upload
-from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
 from vimoclip_tpu_torch.parallel.mesh import Replicas
 from vimoclip_tpu_torch.utils.device import resolve_device
 
@@ -118,7 +118,8 @@ class _FrameBlock:
 class ClipExtractor:
     """Batched CLIP embedding extractor over a video corpus.
 
-    ``state``: the ``ClipVisionEncoder`` layout (``models/pretrained.py::
+    ``config``: a vision tower's config of either kind (``models/towers.py``);
+    ``state``: that tower's layout (``models/pretrained.py::
     load_clip_vision``, or ``models/convert.py::clip_vision_state_from_jax``
     with ``prefix=""``). It runs on ``device`` (default ``cuda``, an error
     without a card).
@@ -143,7 +144,7 @@ class ClipExtractor:
     def __init__(
         self,
         state: Mapping,
-        config: ClipVisionConfig,
+        config: VisionConfig,
         batch_size: int = 256,
         half_precision: bool = True,
         decode_workers: int = 4,
@@ -160,19 +161,19 @@ class ClipExtractor:
         self.frame_queue_blocks = frame_queue_blocks
         self.dedup_threshold = dedup_threshold
         self.dtype = torch.bfloat16 if half_precision else torch.float32
-        encoder = ClipVisionEncoder(config, dtype=self.dtype)
-        encoder.load_state_dict(to_tensors(state), strict=True)
+        encoder = vision_tower(config, dtype=self.dtype)
+        encoder.load_state_dict(to_tensors(tower_state(config, state)), strict=True)
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
         self.replicas = Replicas(self.encoder, devices or [self.device])
         self.replicas.check_divides(batch_size, "batch_size")
         self._decode = decode_fn if decode_fn is not None else iter_video_chunks
 
     @torch.inference_mode()
-    def _embed(self, frames: torch.Tensor, encoder: ClipVisionEncoder | None = None
+    def _embed(self, frames: torch.Tensor, encoder: nn.Module | None = None
                ) -> torch.Tensor:
         """(n, H, W, 3) uint8 on the device -> (n, P) float32, through
         ``encoder`` (default: the first replica)."""
-        pixels = clip_preprocess(frames, self.config.image_size, dtype=self.dtype)
+        pixels = preprocess(frames, self.config, self.dtype)
         return (encoder or self.encoder)(pixels).float()
 
     def _dispatch(self, stack: np.ndarray) -> tuple:
@@ -407,7 +408,7 @@ class ClipExtractor:
                 emb = (
                     np.stack(chunks)
                     if chunks
-                    else np.zeros((0, self.config.projection_dim), np.float32)
+                    else np.zeros((0, self.config.embed_dim), np.float32)
                 )
                 vid_slots = slots.pop(vid, None)
                 last_kept.pop(vid, None)
@@ -510,7 +511,7 @@ def create_hdf5_dataset(
     class_file: str,
     output_hdf5: str,
     state: Mapping,
-    config: ClipVisionConfig,
+    config: VisionConfig,
     max_frames: int | None = None,
     batch_size: int = 256,
     split: str = "val",
@@ -590,7 +591,7 @@ def create_hdf5_dataset(
         EmbeddingWriter(
             output_hdf5, num_classes=num_classes, dataset_name=dataset_name,
             split=split, clip_model=clip_model_name, compression=compression,
-            embed_dim=config.projection_dim,
+            embed_dim=config.embed_dim,
         )
     )
 

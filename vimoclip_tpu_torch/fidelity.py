@@ -72,14 +72,13 @@ def encoder_fidelity_probe(
     """Per-frame cosine of the exact and the approximate tower, same
     weights, same preprocessing.
 
-    ``state``: the tower's state dict (``ClipVisionEncoder`` layout);
-    ``approx_config``: a ``ClipVisionConfig`` carrying the approximations,
+    ``state``: the tower's state dict (its kind's layout, ``models/towers.py``);
+    ``approx_config``: a vision tower's config carrying the approximations,
     whose exact twin clears them; ``frames``: (N, H, W, 3) uint8. Returns
     ``cosine_min``, ``cosine_mean`` (float64 on the host), ``n_frames`` and
     ``config`` (a tag of what was approximated)."""
-    from vimoclip_tpu_torch.models.clip_vit import ClipVisionEncoder
     from vimoclip_tpu_torch.models.convert import to_tensors
-    from vimoclip_tpu_torch.ops.preprocess import clip_preprocess
+    from vimoclip_tpu_torch.models.towers import preprocess, tower_state, vision_tower
 
     exact_config = dataclasses.replace(approx_config, matmul_quant=None, token_merge_r=0)
     if exact_config == approx_config:
@@ -90,11 +89,11 @@ def encoder_fidelity_probe(
     dev = resolve_device(device)
     dtype = torch.bfloat16 if half_precision else torch.float32
     raw = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
-    pixels = clip_preprocess(raw, approx_config.image_size, dtype=dtype)
-    tensors = to_tensors(state)
+    pixels = preprocess(raw, approx_config, dtype)
+    tensors = to_tensors(tower_state(approx_config, state))
 
     def run(config) -> np.ndarray:
-        enc = ClipVisionEncoder(config, dtype=dtype)
+        enc = vision_tower(config, dtype)
         enc.load_state_dict(tensors, strict=True)
         enc = enc.to(dev).eval()
         return enc(pixels).float().cpu().numpy().astype(np.float64)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
+from vimoclip_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from vimoclip_tpu_torch.ops.quant import make_dense
 from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_schedule
 
@@ -52,9 +53,19 @@ class ClipVisionConfig:
     matmul_quant: str | None = None  # None | "int8" (ops/quant.py), opt-in
     token_merge_r: int = 0  # tokens merged after each block (ops/tome.py), opt-in
 
+    # the tower's frame preprocessing (ops/preprocess.py::clip_preprocess)
+    resize = "crop"
+    image_mean = CLIP_MEAN
+    image_std = CLIP_STD
+
     @property
     def num_patches(self) -> int:
         return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def embed_dim(self) -> int:
+        """The width of the tower's output: the projection's."""
+        return self.projection_dim
 
     @staticmethod
     def vit_b_16() -> "ClipVisionConfig":
@@ -104,7 +115,7 @@ class ClipEncoderLayer(nn.Module):
         self.attn = MultiHeadAttention(
             cfg.hidden_size, cfg.num_heads, dtype=dtype,
             implementation=cfg.attention_impl, quant=cfg.matmul_quant,
-            head_proj=cfg.head_proj,
+            head_proj=cfg.head_proj, span="vimo.tower.attn",
         )
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg)

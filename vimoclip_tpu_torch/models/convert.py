@@ -10,7 +10,9 @@ they are:
 - ``TFAM``: reference AMO_CLIP (packed ``in_proj_weight``, ``ffn.0/3``,
   ``classifier.0/1/4``, ``projection_layer``);
 - ``StudentModel``: the reference student (``visual_encoder.*`` as above,
-  ``residual_mlp.fc1/fc2``, ``classification_head.0/.2``).
+  ``residual_mlp.fc1/fc2``, ``classification_head.0/.2``);
+- ``SiglipVisionEncoder``: HF's ``vision_model.*`` without the prefix, the
+  blocks' q/k/v packed (``siglip_vision_state_from_hf``).
 
 The converters here are the port's own copies of the mappings in
 ``vimoclip_tpu/models/torch_compat.py`` and ``clip_convert.py`` (the tests
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
+from vimoclip_tpu_torch.models.siglip_vit import SiglipVisionConfig
 
 
 def strip_prefix(state: Mapping, prefix: str = "module.") -> dict:
@@ -242,6 +245,86 @@ def config_from_hf_state(state: Mapping) -> ClipVisionConfig:
 
 
 # ---------------------------------------------------------------------------
+# HF transformers SigLIP -> SiglipVisionEncoder
+# ---------------------------------------------------------------------------
+
+_SIGLIP_PATCH = "vision_model.embeddings.patch_embedding.weight"
+
+
+def is_siglip_state(state: Mapping) -> bool:
+    """An HF SigLIP state (``SiglipModel`` or ``SiglipVisionModel``): a
+    patch embedding under ``vision_model.`` and no CLS token."""
+    return _SIGLIP_PATCH in state and \
+        "vision_model.embeddings.class_embedding" not in state
+
+
+def _cat(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return _c(np.concatenate([np.asarray(p) for p in parts]))
+
+
+def siglip_vision_state_from_hf(state: Mapping) -> dict:
+    """An HF ``SiglipModel`` / ``SiglipVisionModel`` state (``vision_model.*``
+    keys; a text tower's keys are dropped), or the vision model's own keys
+    without the prefix -> the ``SiglipVisionEncoder`` layout: the prefix
+    gone, each block's ``q_proj``/``k_proj``/``v_proj`` packed into
+    ``self_attn.in_proj_weight``/``in_proj_bias`` (rows q, k, v), the
+    ``position_ids`` buffer dropped. A state already in that layout passes
+    through. Values stay numpy arrays or tensors, as they came."""
+    prefix = "vision_model."
+    s = ({k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+         if any(k.startswith(prefix) for k in state) else dict(state))
+    s.pop("embeddings.position_ids", None)
+    out = {}
+    for key, value in s.items():
+        head, _, leaf = key.rpartition(".")
+        if head.endswith(".self_attn.q_proj"):
+            attn = head[: -len(".q_proj")]
+            out[f"{attn}.in_proj_{leaf}"] = _cat(
+                [s[f"{attn}.{n}_proj.{leaf}"] for n in "qkv"])
+        elif not (head.endswith(".self_attn.k_proj") or head.endswith(".self_attn.v_proj")):
+            out[key] = value
+    return out
+
+
+# what a SigLIP state's shapes do not give, for the published towers: the
+# head count by width (B/16 768 -> 12, L/16 1024 -> 16, So400m/14 1152 ->
+# 16), and the 384 px So400m/14's frame size, 6 pixels past its 27 patches
+_SIGLIP_HEADS = {768: 12, 1024: 16, 1152: 16}
+_SIGLIP_IMAGE = {(14, 27): 384}
+
+
+def siglip_config_from_hf_state(state: Mapping, hf_vision_config: Mapping | None = None
+                                ) -> SiglipVisionConfig:
+    """A SiglipVisionConfig from an HF SigLIP state's shapes; the frame
+    size, heads and the LayerNorm's eps from the checkpoint's
+    ``vision_config`` (``config.json``) where given, else the published
+    towers' (``_SIGLIP_IMAGE`` or whole patches; ``_SIGLIP_HEADS``; 1e-6).
+    The tower's activation is GELU-tanh: another is refused."""
+    s = dict(state)
+    c = dict(hf_vision_config or {})
+    if c.get("hidden_act", "gelu_pytorch_tanh") != "gelu_pytorch_tanh":
+        raise ValueError(f"SigLIP tower with activation {c['hidden_act']!r}: the port's "
+                         "tower runs gelu_pytorch_tanh")
+    hidden, _, patch, _ = np.shape(s[_SIGLIP_PATCH])
+    n_pos = np.shape(s["vision_model.embeddings.position_embedding.weight"])[0]
+    n_layers = 1 + max(int(k.split(".")[3]) for k in s
+                       if k.startswith("vision_model.encoder.layers."))
+    grid = int(round(n_pos ** 0.5))
+    image = c.get("image_size", _SIGLIP_IMAGE.get((int(patch), grid), grid * int(patch)))
+    return SiglipVisionConfig(
+        image_size=int(image), patch_size=int(patch),
+        hidden_size=int(hidden), num_layers=n_layers,
+        num_heads=int(c.get("num_attention_heads",
+                            _SIGLIP_HEADS.get(int(hidden), max(1, hidden // 64)))),
+        intermediate_size=int(np.shape(
+            s["vision_model.encoder.layers.0.mlp.fc1.weight"])[0]),
+        layer_norm_eps=float(c.get("layer_norm_eps", 1e-6)),
+    )
+
+
+# ---------------------------------------------------------------------------
 # reference checkpoint files
 # ---------------------------------------------------------------------------
 
@@ -271,25 +354,28 @@ def student_tower_state(state: Mapping) -> dict:
 
 
 def student_state_from_checkpoint(
-    path: str, vision_config: ClipVisionConfig | None = None
-) -> tuple[ClipVisionConfig, dict[str, np.ndarray]]:
+    path: str, vision_config: ClipVisionConfig | SiglipVisionConfig | None = None
+) -> tuple[ClipVisionConfig | SiglipVisionConfig, dict[str, np.ndarray]]:
     """A reference stage-1 student checkpoint (``student_best.pth``: a state
     dict, possibly under ``state_dict`` and DataParallel-prefixed) -> the
     whole ``StudentModel`` state dict, plus the tower's config (inferred
-    from the shapes unless given)."""
+    from the shapes unless given: a CLIP or a SigLIP tower)."""
     state = _load_state_file(path)
     if not any(k.startswith("visual_encoder.") for k in state):
         raise ValueError(f"{path}: no 'visual_encoder.*' keys (not a student checkpoint)")
     if vision_config is None:
-        vision_config = config_from_openai_state(state, prefix="visual_encoder.")
+        tower = {f"vision_model.{k[len('visual_encoder.'):]}": v for k, v in state.items()
+                 if k.startswith("visual_encoder.")}
+        vision_config = (siglip_config_from_hf_state(tower) if is_siglip_state(tower)
+                         else config_from_openai_state(state, prefix="visual_encoder."))
     return vision_config, state
 
 
 def student_visual_state_from_checkpoint(
-    path: str, vision_config: ClipVisionConfig | None = None
-) -> tuple[ClipVisionConfig, dict[str, np.ndarray]]:
+    path: str, vision_config: ClipVisionConfig | SiglipVisionConfig | None = None
+) -> tuple[ClipVisionConfig | SiglipVisionConfig, dict[str, np.ndarray]]:
     """A reference stage-1 student checkpoint (``student_best.pth``) -> its
-    CLIP visual tower in the ``ClipVisionEncoder`` layout, plus the tower's
+    visual tower in its kind's layout (``models/towers.py``), plus the tower's
     config (inferred from the shapes unless given). The serving cascade
     feeds TFAM the tower's output; the residual MLP and classification head
     are not used there."""

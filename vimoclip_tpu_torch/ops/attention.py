@@ -35,6 +35,7 @@ from the float32 weights (``ops/quant.py``); the attention products stay in
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -51,6 +52,7 @@ from vimoclip_tpu_torch.ops.quant import Int8Linear, int8_linear, make_dense
 from vimoclip_tpu_torch.parallel.mesh import Shard, draw
 from vimoclip_tpu_torch.parallel.partition import _ShardedLinear, copy_to_model
 from vimoclip_tpu_torch.parallel.sequence import ring_attention
+from vimoclip_tpu_torch.utils.profiling import annotate
 
 # Additive mask value. Large-finite (not -inf) so a fully masked row comes
 # out uniform instead of NaN; the flash kernel uses the same constant.
@@ -168,6 +170,11 @@ class MultiHeadAttention(nn.Module):
       ``shard`` (module docstring); without one it raises.
     ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
     transposes in JAX; the math is one, and the port runs one layout.
+    ``span``: a span name (``utils/profiling.py::annotate``) around the
+    attention core alone (scores, softmax and the value product, whichever
+    route runs; the projections outside it): the vision towers' blocks open
+    ``vimo.tower.attn``; TFAM names none (``flash_attention`` opens
+    ``vimo.attn.fwd`` on its route).
     ``quant="int8"``: the projections in dynamic int8. The packed
     ``in_proj_weight``'s per-row scales are JAX's per-column scales of its
     q/k/v kernels, and every projection of a token shares its activation
@@ -186,6 +193,7 @@ class MultiHeadAttention(nn.Module):
         implementation: str = "xla",
         quant: str | None = None,
         head_proj: str = "split",
+        span: str | None = None,
     ):
         super().__init__()
         if embed_dim % num_heads:
@@ -201,6 +209,7 @@ class MultiHeadAttention(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
         self.implementation = implementation
+        self.span = span
         self.quantized = linear is Int8Linear
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
@@ -253,19 +262,21 @@ class MultiHeadAttention(nn.Module):
         impl = self.implementation
         if impl == "auto":
             impl = _auto_impl(q.is_cuda, dropping, k.shape[2], q.shape[-1], q.dtype)
-        if impl in ("ring", "ring_inner"):
-            ring = None if shard is None else shard.seq_ring
-            if ring is None:
-                raise ValueError(
-                    f'implementation="{impl}" needs a seq group (a mesh with a "seq" '
-                    "axis, parallel/mesh.py): it is a runtime object, given to the model "
-                    "by parallel.partition.parallelize_ under training.parallelism.seq")
-            out = ring_attention(q, k, v, key_padding_mask, ring, rate, seed)
-        elif impl == "flash":
-            out = flash_attention(q, k, v, key_padding_mask=key_padding_mask,
-                                  dropout_rate=rate, dropout_seed=seed)
-        else:
-            out = dot_product_attention(q, k, v, key_padding_mask, rate, seed)
+        with annotate(self.span) if self.span else contextlib.nullcontext():
+            if impl in ("ring", "ring_inner"):
+                ring = None if shard is None else shard.seq_ring
+                if ring is None:
+                    raise ValueError(
+                        f'implementation="{impl}" needs a seq group (a mesh with a "seq" '
+                        "axis, parallel/mesh.py): it is a runtime object, given to the "
+                        "model by parallel.partition.parallelize_ under "
+                        "training.parallelism.seq")
+                out = ring_attention(q, k, v, key_padding_mask, ring, rate, seed)
+            elif impl == "flash":
+                out = flash_attention(q, k, v, key_padding_mask=key_padding_mask,
+                                      dropout_rate=rate, dropout_seed=seed)
+            else:
+                out = dot_product_attention(q, k, v, key_padding_mask, rate, seed)
         b, _, s, _ = out.shape
         out = out.transpose(1, 2).reshape(b, s, e)
         return dense(out, self.out_proj, dt)

@@ -1,10 +1,13 @@
 """On-device image and video preprocessing (the port's copy of
 ``vimoclip_tpu/ops/preprocess.py``).
 
-- ``clip_preprocess``: uint8 NHWC -> bicubic antialiased resize of the short
-  edge -> center crop -> CLIP normalisation, as two small matrix products.
-  The crop is folded into the resize weight matrices, and input pixels the
-  crop never samples are sliced off before the contraction.
+- ``clip_preprocess``: uint8 NHWC -> bicubic antialiased resize -> the
+  tower's normalisation, as two small matrix products. The resize rule is
+  CLIP's (``"crop"``: the short edge to S, then a center crop) or SigLIP's
+  (``"squash"``: each axis to S on its own, no crop); mean and std are the
+  tower's (CLIP's by default). The crop is folded into the resize weight
+  matrices, and input pixels the crop never samples are sliced off before
+  the contraction.
 - ``frame_diff``: BT.601 grayscale absolute difference of consecutive frames,
   replicated to 3 channels (what a saved grayscale video decodes back as).
 
@@ -67,12 +70,21 @@ def normalize(images: torch.Tensor, mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tenso
     return (images - mean) / std
 
 
+RESIZE_RULES = ("crop", "squash")
+
+
 @functools.lru_cache(maxsize=32)
-def _crop_resize_weights(h: int, w: int, size: int):
-    """Host weight matrices for resize-shortest-edge + center crop, the crop
-    folded into the resize. Returns ((wh, h0, h1), (ww, w0, w1)): per axis a
-    weight matrix (None for a no-op axis) over the input window [x0, x1)."""
-    if h <= w:
+def _crop_resize_weights(h: int, w: int, size: int, resize: str = "crop"):
+    """Host weight matrices for ``resize``: ``"crop"`` resizes the shortest
+    edge to ``size`` and center-crops, the crop folded into the resize;
+    ``"squash"`` resizes each axis to ``size`` on its own. Returns ((wh, h0,
+    h1), (ww, w0, w1)): per axis a weight matrix (None for a no-op axis)
+    over the input window [x0, x1)."""
+    if resize not in RESIZE_RULES:
+        raise ValueError(f"unknown resize rule {resize!r}; known: {RESIZE_RULES}")
+    if resize == "squash":
+        new_h = new_w = size
+    elif h <= w:
         new_h, new_w = size, max(size, int(round(w * size / h)))
     else:
         new_h, new_w = max(size, int(round(h * size / w))), size
@@ -92,17 +104,22 @@ def _crop_resize_weights(h: int, w: int, size: int):
 
 
 @functools.lru_cache(maxsize=32)
-def _weights_on(h: int, w: int, size: int, device: str, dtype: torch.dtype):
-    (wh, h0, h1), (ww, w0, w1) = _crop_resize_weights(h, w, size)
+def _weights_on(h: int, w: int, size: int, device: str, dtype: torch.dtype,
+                resize: str = "crop"):
+    (wh, h0, h1), (ww, w0, w1) = _crop_resize_weights(h, w, size, resize)
     put = lambda m: None if m is None else torch.from_numpy(m).to(device, dtype)
     return (put(wh), h0, h1), (put(ww), w0, w1)
 
 
 def clip_preprocess(
-    frames: torch.Tensor, image_size: int = 224, dtype: torch.dtype = torch.float32
+    frames: torch.Tensor, image_size: int = 224, dtype: torch.dtype = torch.float32,
+    resize: str = "crop", mean=CLIP_MEAN, std=CLIP_STD,
 ) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> (B, S, S, 3) CLIP-normalised ``dtype`` images
-    (Resize(S, bicubic) -> CenterCrop(S) -> ToTensor -> Normalize).
+    """(B, H, W, 3) uint8 -> (B, S, S, 3) normalised ``dtype`` images:
+    Resize(S, bicubic) -> CenterCrop(S) -> ToTensor -> Normalize(mean, std)
+    with ``resize="crop"`` (CLIP's), Resize((S, S), bicubic) -> ToTensor ->
+    Normalize with ``"squash"`` (SigLIP's: every pixel row and column kept,
+    the aspect ratio not).
 
     The contraction runs in the output's precision: float32 output uses a
     float32 contraction, bfloat16 output a bfloat16 one (bf16 operands,
@@ -119,19 +136,19 @@ def clip_preprocess(
         )
     cdtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     (wh, h0, h1), (ww, w0, w1) = _weights_on(
-        frames.shape[1], frames.shape[2], image_size, str(frames.device), cdtype
+        frames.shape[1], frames.shape[2], image_size, str(frames.device), cdtype, resize
     )
     if wh is None and ww is None:
         # imported here: the kernel's module takes its constants from this one
         from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
 
-        return fused_normalize(frames, dtype=cdtype).to(dtype)
+        return fused_normalize(frames, mean, std, dtype=cdtype).to(dtype)
     x = frames[:, h0:h1, w0:w1, :].to(cdtype)
     if ww is not None:  # (B, h, w, C) x (w, W) -> (B, h, W, C)
         x = torch.einsum("bhwc,wW->bhWc", x, ww)
     if wh is not None:  # (B, h, W, C) x (h, H) -> (B, H, W, C)
         x = torch.einsum("bhwc,hH->bHwc", x, wh)
-    return normalize(x).to(dtype)
+    return normalize(x, mean, std).to(dtype)
 
 
 def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:

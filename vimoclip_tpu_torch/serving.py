@@ -30,15 +30,15 @@ from torch import nn
 
 from vimoclip_tpu_torch.config import TFAMModelConfig
 from vimoclip_tpu_torch.data.video_reader import read_video
-from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
 from vimoclip_tpu_torch.models.convert import student_tower_state, to_tensors
 from vimoclip_tpu_torch.models.tfam import TFAM
+from vimoclip_tpu_torch.models.towers import VisionConfig, preprocess, tower_state, vision_tower
 from vimoclip_tpu_torch.ops.batching import (
     embed_in_fixed_batches,
     round_up_bucket,
     upload,
 )
-from vimoclip_tpu_torch.ops.preprocess import clip_preprocess, frame_diff
+from vimoclip_tpu_torch.ops.preprocess import frame_diff
 from vimoclip_tpu_torch.parallel.mesh import Replicas
 from vimoclip_tpu_torch.utils.device import resolve_device
 from vimoclip_tpu_torch.utils.profiling import annotate
@@ -79,22 +79,25 @@ class Prediction:
 class ViMoCLIPPredictor:
     """The fused cascade in one process.
 
-    ``teacher_state`` / ``student_state`` are CLIP visual state dicts in the
-    ``ClipVisionEncoder`` layout (OpenAI keys without ``visual.``; a reference
-    student state with ``visual_encoder.*`` keys is accepted too), and
-    ``tfam_state`` an AMO_CLIP state dict; values are tensors or numpy
-    arrays. ``device`` is ``cuda`` unless the caller asks for the CPU.
-    ``devices``: one replica of each tower per entry (``frame_batch`` must
-    divide by their number); the first is where the fusion runs.
-    ``stats()``: frame windows embedded, and those gathered across clips.
+    ``teacher_config`` / ``student_config`` are vision towers' configs of
+    either kind (``models/towers.py``: CLIP or SigLIP), and
+    ``teacher_state`` / ``student_state`` their state dicts in the tower's
+    layout (a reference student state with ``visual_encoder.*`` keys, and
+    HF's names for a SigLIP tower, are accepted too); ``tfam_state`` is an
+    AMO_CLIP state dict whose width is the towers' ``embed_dim``; values are
+    tensors or numpy arrays. ``device`` is ``cuda`` unless the caller asks
+    for the CPU. ``devices``: one replica of each tower per entry
+    (``frame_batch`` must divide by their number); the first is where the
+    fusion runs. ``stats()``: frame windows embedded, those gathered across
+    clips, and the frames each tower embedded.
     """
 
     def __init__(
         self,
         teacher_state: Mapping,
-        teacher_config: ClipVisionConfig,
+        teacher_config: VisionConfig,
         student_state: Mapping,
-        student_config: ClipVisionConfig,
+        student_config: VisionConfig,
         tfam_state: Mapping,
         tfam_config: TFAMModelConfig | None = None,
         num_classes: int = 140,
@@ -109,7 +112,7 @@ class ViMoCLIPPredictor:
     ):
         self.device = resolve_device(device if devices is None else devices[0])
         self.num_classes = num_classes
-        self.embed_dim = teacher_config.projection_dim
+        self.embed_dim = teacher_config.embed_dim
         self.class_names = class_names or {}
         self.frame_batch = frame_batch
         self.length_bucket = length_bucket
@@ -120,6 +123,8 @@ class ViMoCLIPPredictor:
             "windows": 0,           # frame windows uploaded and embedded
             "gathered_windows": 0,  # windows across a clip boundary, copied
             "gathered_frames": 0,   # the frames those windows copied
+            "teacher_frames": 0,    # frames the teacher embedded (padding aside)
+            "student_frames": 0,    # frames the student embedded (padding aside)
         }
         tfam_config = tfam_config or TFAMModelConfig(attention_impl="flash")
         if batch_invariant and not tfam_config.masked_pooling:
@@ -133,17 +138,18 @@ class ViMoCLIPPredictor:
             )
             tfam_config = dataclasses.replace(tfam_config, masked_pooling=True)
 
-        self.teacher = self._place(ClipVisionEncoder(teacher_config, self.dtype),
-                                   teacher_state)
-        self.student = self._place(ClipVisionEncoder(student_config, self.dtype),
-                                   student_tower_state(student_state))
+        self.teacher = self._place(vision_tower(teacher_config, self.dtype),
+                                   tower_state(teacher_config, teacher_state))
+        self.student = self._place(
+            vision_tower(student_config, self.dtype),
+            tower_state(student_config, student_tower_state(student_state)))
         self.tfam = self._place(TFAM(tfam_config, num_classes, self.dtype),
                                 tfam_state)
         devices = devices or [self.device]
         self._teacher_embed = self._make_embed(Replicas(self.teacher, devices),
-                                               teacher_config.image_size)
+                                               teacher_config)
         self._student_embed = self._make_embed(Replicas(self.student, devices),
-                                               student_config.image_size)
+                                               student_config)
 
     def stats(self) -> dict:
         with self._stats_lock:
@@ -158,11 +164,11 @@ class ViMoCLIPPredictor:
         module.load_state_dict(to_tensors(state), strict=True)
         return module.to(self.device).eval().requires_grad_(False)
 
-    def _make_embed(self, replicas: Replicas, image_size: int):
+    def _make_embed(self, replicas: Replicas, config: VisionConfig):
         replicas.check_divides(self.frame_batch, "frame_batch")
 
-        def run(enc: ClipVisionEncoder, frames: torch.Tensor) -> torch.Tensor:
-            return enc(clip_preprocess(frames, image_size, dtype=self.dtype)).float()
+        def run(enc: nn.Module, frames: torch.Tensor) -> torch.Tensor:
+            return enc(preprocess(frames, config, self.dtype)).float()
 
         def embed(frames: torch.Tensor) -> torch.Tensor:  # (N, H, W, 3) uint8
             return replicas(run, frames)
@@ -190,6 +196,7 @@ class ViMoCLIPPredictor:
             if window.shape[0] >= 2:
                 mot_dev, mot_n = self._embed_window_device(
                     self._student_embed, frame_diff(window))
+            self._count(teacher_frames=rn, student_frames=mot_n or 0)
             return rgb_dev, rn, mot_dev, mot_n
 
     @torch.inference_mode()
@@ -283,6 +290,7 @@ class ViMoCLIPPredictor:
                 rgb_emb = self._embed_frames(self._teacher_embed, frames)
                 motion = read_video(motion_video_path, max_frames=max_frames)
                 motion_emb = self._embed_frames(self._student_embed, motion)
+            self._count(teacher_frames=len(rgb_emb), student_frames=len(motion_emb))
         return self.predict_embeddings(rgb_emb, motion_emb, video_path, top_k)
 
     def _embed_videos_pooled(self, videos) -> list[tuple[np.ndarray, np.ndarray]]:
