@@ -9,16 +9,24 @@ NVIDIA card:
    sm_90a (seconds and the ``-Xptxas -v`` report); the SASS of every bf16
    attention kernel (K1/K1', K2, K3, K4, and their wide kernels above head
    dim 128) must hold wgmma products (HGMMA) and TMA loads (UTMALDG); their
-   registers and spill bytes, none in the paired kernels; the bf16 K1, K2
-   and K3 CTAs that fit one SM at head dims 64, 128, 256 and 512.
+   registers and spill bytes, none in the paired kernels and in bf16 K1 at
+   head dims 65-128; the bf16 K1, K2 and K3 CTAs that fit one SM at head
+   dims 64, 128, 256 and 512 (K1 at 128: ``fwd_pp_wgmma_kernel`` without
+   dropout, ``fwd_wgmma_kernel`` with it).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
-   PyTorch library call's (a yardstick the port never calls) and the bound.
+   PyTorch library call's (a yardstick the port never calls) and the bound;
+   then the times of bf16 K1 at head dims 65-128 (``fwd_pp_wgmma_kernel``)
+   at the SigLIP towers' shapes, beside the kernel it replaced.
 4. Serving path: the full-width serving cascade (ViT-B/16 teacher, ViT-B/32
    student, TFAM d512/8 heads/4 layers cross-attention, 140 classes) on
    weights drawn from ``--seed``, answering one request of three clips, with
    the kernel launch counts of that request, and checked against the same
-   predictor on the eager attention path.
+   predictor on the eager attention path; then the full-width SigLIP
+   So400m/14 tower (27 blocks, 16 heads of 72, the attention-pooling head)
+   at 384 px and at 224 px against its eager path, on the same weights, with
+   the launches of each tower call (every block's and the head's attention
+   on ``fwd_pp_wgmma_kernel``).
 5. Training kernels vs plain: the attention forward's lse/dropout variant
    (K1') and the backward kernels (K2; K3 + K4 past 512 keys) against their
    plain versions under the same Philox keep mask, with and without
@@ -271,6 +279,8 @@ _FWD_WIDE_NAMES = {"float32": ("fwd_tf32_kernel",), "bfloat16": ("fwd_pair_wgmma
 _DQKV_F32 = ("dkv_tf32_kernel", "dq_reduce_kernel<float")
 KERNEL_NAMES = {
     "fwd": _FWD_NAMES, "fwd_lse": _FWD_NAMES,
+    # bf16 K1 without dropout at head dims 65-128 (no float32 kernel)
+    "fwd_pp": {"float32": (), "bfloat16": ("fwd_pp_wgmma_kernel",)},
     "bwd_dqkv": {"float32": _DQKV_F32,
                  "bfloat16": ("dqkv_wgmma_kernel", "dq_reduce_kernel<__nv_bfloat16")},
     "bwd_dq": {"float32": ("dq_tf32_kernel",), "bfloat16": ("dq_wgmma_kernel",)},
@@ -292,14 +302,15 @@ KERNEL_PER_CALL = {kind: {dt: len(names) for dt, names in by_dtype.items()}
 # the kernels whose SASS must hold HGMMA and UTMALDG, by library: every
 # bf16 one and the float32 TF32 ones
 WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_pair_wgmma_kernel",
-                                         "fwd_tf32_kernel"),
+                                         "fwd_pp_wgmma_kernel", "fwd_tf32_kernel"),
                  "flash_attention_bwd": ("dqkv_wgmma_kernel", "dq_wgmma_kernel",
                                          "dkv_wgmma_kernel", "dq_pair_wgmma_kernel",
                                          "dkv_pair_wgmma_kernel", "dkv_tf32_kernel",
                                          "dq_tf32_kernel", "dq_tf32_wide_kernel")}
 # the kernels that must build without spills (the bf16 paired kernels above
-# head dim 128)
-NO_SPILL_KERNELS = ("fwd_pair_wgmma_kernel", "dkv_pair_wgmma_kernel", "dq_pair_wgmma_kernel")
+# head dim 128, and the bf16 K1 at 65-128)
+NO_SPILL_KERNELS = ("fwd_pair_wgmma_kernel", "dkv_pair_wgmma_kernel", "dq_pair_wgmma_kernel",
+                    "fwd_pp_wgmma_kernel")
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -590,8 +601,9 @@ def phase_build() -> None:
                 found = {name: v for name, v in regs.items() if k in name}
                 check(bool(found) and all(spill == 0 for _, spill in found.values()),
                       f"{k}: no ptxas report, or spill stores in some instantiation: {found}")
-    # CTAs per SM of the bf16 K1/K1', K2 and K3 at D = 64 and 128, and of
-    # their wide kernels at 256 and 512
+    # CTAs per SM of the bf16 K1/K1', K2 and K3 at D = 64 and 128 (K1 at 128
+    # without dropout: fwd_pp_wgmma_kernel), and of their wide kernels at 256
+    # and 512
     occupancy = {}
     for lib, entry, kind in (("flash_attention_fwd", "vimo_flash_attention_fwd_occupancy", "fwd"),
                              ("flash_attention_bwd", "vimo_flash_attention_bwd_dqkv_occupancy",
@@ -693,7 +705,7 @@ def phase_kernels(torch, seed: int, smi: str, shapes=KERNEL_SHAPES,
             kernel = lambda: flash_attention(q, k, v, key_padding_mask=mask)
             plain = lambda: flash_attention_reference(q, k, v, mask)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-            kind = launch_kind("fwd", d)
+            kind = launch_kind("fwd", d, dtype)
             ms = device_ms(torch, kernel, names=KERNEL_NAMES[kind][dtype_name],
                            per_call=KERNEL_PER_CALL[kind][dtype_name])
             plain_ms, library_ms = (device_ms(torch, f) for f in (plain, library))
@@ -717,6 +729,60 @@ def phase_kernels(torch, seed: int, smi: str, shapes=KERNEL_SHAPES,
                 rows[dtype_name] = row
     check(set(rows) == {"float32", "bfloat16"}, "no measurement at the main path's shape")
     return {**rows["bfloat16"], "float32": rows["float32"]}
+
+
+# The SigLIP So400m/14 towers' K1 calls at a serving window of 128 frames
+# (16 heads of 72): the 384 px teacher's 729 tokens, the 224 px student's
+# 256, and the attention-pooling head's one query over 729.
+TOWER_K1_SHAPES = [(128, 16, 729, 729, 72), (128, 16, 256, 256, 72), (128, 16, 1, 729, 72)]
+
+
+def phase_tower_k1(torch, seed: int, smi: str, shapes=TOWER_K1_SHAPES) -> dict:
+    """bf16 K1 at head dims 65-128 (``fwd_pp_wgmma_kernel``) at the towers'
+    shapes: checked against the plain version, then its device time beside
+    its bound, the kernel it replaced (``fwd_wgmma_kernel`` with two
+    64-column chunks, still K1''s: timed through K1' at p = 0, which also
+    stores lse), the plain version and SDPA (a yardstick the port never
+    calls). Returns the rows."""
+    import torch.nn.functional as F
+
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+        forward_lse,
+    )
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for shape in shapes:
+        b, h, tq, tk, d = shape
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=g).bfloat16()
+                   for t in (tq, tk, tk))
+        before = flash_attention.launches["fwd_pp"]
+        out = flash_attention(q, k, v)
+        ref = flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        check(flash_attention.launches["fwd_pp"] == before + 1, f"{shape}: K1 not on fwd_pp")
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err <= KERNEL_TOL["bfloat16"], f"fwd_pp {shape}: max|d| {err}")
+        moved = (2 * b * h * tq * d + 2 * b * h * tk * d) * 2
+        flops = 4 * b * h * tq * tk * d
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+        row = {
+            "shape": list(shape), "max_abs_err": err,
+            "ms": device_ms(torch, lambda: flash_attention(q, k, v),
+                            names=KERNEL_NAMES["fwd_pp"]["bfloat16"], per_call=1),
+            "parent_ms": device_ms(torch, lambda: forward_lse(q, k, v, None, None, 0.0),
+                                   names=("fwd_wgmma_kernel",), per_call=1),
+            "plain_ms": device_ms(torch, lambda: flash_attention_reference(q, k, v), iters=5),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        print("[tower_k1] " + json.dumps(row) + f" [{smi}]")
+        rows.append(row)
+    return rows
 
 
 def _rel(a, b) -> float:
@@ -1026,6 +1092,57 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
     print("[main] " + json.dumps(stats) + f" [{smi}]")
     stats["probs"] = probs  # phase 14 holds the replicated towers to them
     return stats
+
+
+def phase_siglip_tower(torch, seed: int, smi: str) -> dict:
+    """The SigLIP So400m/14 tower at its published widths in bf16, at 384 px
+    (729 tokens) and 224 px (256 tokens), through the tower factory on the
+    kernels against its eager path on the same weights: each tower call
+    launches ``fwd_pp_wgmma_kernel`` once per block and once for the head's
+    one query, and nothing else. The two round the attention's
+    probabilities differently (bf16 p in K1), so the embeddings agree to
+    bf16 rounding through 27 blocks. Returns the launches."""
+    import dataclasses
+
+    from vimoclip_tpu_torch.models import init_parameters_
+    from vimoclip_tpu_torch.models.siglip_vit import SiglipVisionConfig
+    from vimoclip_tpu_torch.models.towers import preprocess, vision_tower
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        reset_launch_counts,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(0, 256, (16, 360, 640, 3), dtype=torch.uint8, device="cuda",
+                           generator=g)
+    rows, total = [], 0
+    for size in (384, 224):
+        cfg = SiglipVisionConfig(image_size=size)
+        out, state = {}, None
+        for impl in ("xla", "flash"):
+            tower = vision_tower(dataclasses.replace(cfg, attention_impl=impl),
+                                 torch.bfloat16).cuda().eval()
+            if state is None:
+                state = init_parameters_(tower, g).state_dict()
+            tower.load_state_dict(state)
+            reset_launch_counts()
+            with torch.no_grad():
+                out[impl] = tower(preprocess(frames, cfg, torch.bfloat16)).double()
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in flash_attention.launches.items() if n}
+            want = {"fwd_pp": cfg.num_layers + 1} if impl == "flash" else {}
+            check(launched == want, f"SigLIP {size} px tower on {impl}: launched {launched}, "
+                                    f"expected {want}")
+            n = launched.get("fwd_pp", 0)
+            del tower
+        cos = torch.nn.functional.cosine_similarity(out["xla"], out["flash"], dim=-1)
+        cos_min = cos.min().item()
+        check(cos_min > 0.999, f"SigLIP {size} px tower, kernels vs eager: cos {cos_min}")
+        total += n
+        rows.append({"image_size": size, "tokens": cfg.num_patches, "frames": len(frames),
+                     "fwd_pp_launches": n, "min_cos_vs_eager": cos_min})
+    print("[siglip_tower] " + json.dumps(rows) + f" [{smi}]")
+    return {"launches": total}
 
 
 def _clips(rng, lengths, d: int, classes: int, tag: str) -> list[dict]:
@@ -3645,7 +3762,9 @@ def main() -> int:
     name, count, smi = phase_device(torch)
     phase_build()
     k1 = phase_kernels(torch, args.seed, smi)
+    tower_k1 = phase_tower_k1(torch, args.seed, smi)
     stats = phase_main_path(torch, args.seed, smi)
+    siglip = phase_siglip_tower(torch, args.seed, smi)
     setup = training_setup(torch, args.seed)
     train_rows = phase_training_kernels(torch, args.seed, smi, setup["main_shapes"])
     train = phase_training(torch, setup, smi)
@@ -3735,6 +3854,15 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             })
+    # bf16 K1 at head dims 65-128 (fwd_pp_wgmma_kernel): its time at the
+    # teacher's shape, its launches on the SigLIP towers' path
+    row = tower_k1[0]
+    kernels.append({
+        "name": "flash_attention_fwd_pp", "route": "cuda", "source": fwd_src,
+        "replaces": f"{tpu}:113", "launches": siglip["launches"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+    })
     k5_launches = (student["mn_k5_launches"] + export["k5_launches"]
                    + extraction["stats"]["k5_launches"] + served["k5_launches"]
                    + par["k5_launches"])

@@ -71,7 +71,7 @@ def test_kernel_matches_reference(cuda, shape, dtype):
     from vimoclip_tpu_torch.ops.kernels.flash_attention import launch_kind
 
     q, k, v, mask = _inputs(*shape, dtype, cuda)
-    kind = launch_kind("fwd", shape[-1])
+    kind = launch_kind("fwd", shape[-1], dtype)
     before = flash_attention.launches[kind]
     out = flash_attention(q, k, v, key_padding_mask=mask)
     torch.cuda.synchronize()
@@ -95,20 +95,29 @@ def test_kernel_reads_strided_views(cuda, dtype, offset):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
-# The SigLIP So400m/14 towers' calls (head dim 72: two 64-column chunks, the
-# second 8 columns live): the 384 px teacher's 729 tokens, the 224 px
-# student's 256, the attention-pooling head's one query over 729; and TFAM
-# at d 1152 over 8 heads (head dim 144, the wide pair kernel) with key masks.
-@pytest.mark.parametrize("shape, masked", [
-    ((8, 16, 729, 729, 72), False), ((8, 16, 256, 256, 72), False),
-    ((8, 16, 1, 729, 72), False), ((1, 8, 512, 512, 144), True),
-], ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else ("mask" if x else "nomask"))
+# The SigLIP So400m/14 towers' calls at head dims 65-128 (fwd_pp_wgmma_kernel: the
+# head dim padded to 16 columns, 72 -> 80): the 384 px teacher's 729 tokens
+# and the 224 px student's 256 at each padding; at head dim 72 ragged calls
+# (Tq != Tk, key masks with a fully masked row, the attention-pooling head's
+# one query over 729); and TFAM at d 1152 over 8 heads (head dim 144, the
+# wide pair kernel) with key masks.
+_SIGLIP_SHAPES = (
+    [((8, 16, t, t, d), False) for d in (65, 72, 80, 96, 112, 128) for t in (729, 256)]
+    + [((8, 16, 1, 729, 72), False), ((8, 16, 1, 729, 72), True), ((3, 16, 200, 729, 72), True),
+       ((2, 16, 729, 300, 72), True), ((2, 16, 129, 1, 72), True), ((2, 4, 300, 129, 100), True),
+       ((1, 8, 512, 512, 144), True)])
+
+
+@pytest.mark.parametrize("shape, masked", _SIGLIP_SHAPES,
+                         ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple)
+                         else ("mask" if x else "nomask"))
 def test_kernel_matches_reference_at_the_siglip_shapes(cuda, shape, masked):
     from vimoclip_tpu_torch.ops.kernels.flash_attention import launch_kind
 
     q, k, v, mask = _inputs(*shape, torch.bfloat16, cuda)
-    mask = mask if masked else None
-    kind = launch_kind("fwd", shape[-1])
+    mask = mask if masked else None  # masked: batch row 0 has every key masked
+    kind = launch_kind("fwd", shape[-1], torch.bfloat16)
+    assert kind == ("fwd_wide" if shape[-1] > 128 else "fwd_pp")
     before = flash_attention.launches[kind]
     out = flash_attention(q, k, v, key_padding_mask=mask)
     torch.cuda.synchronize()
@@ -116,6 +125,35 @@ def test_kernel_matches_reference_at_the_siglip_shapes(cuda, shape, masked):
     ref = flash_attention_reference(q, k, v, mask)
     assert out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_pp_kernel_reads_packed_projection_views(cuda, offset):
+    # a SigLIP block's q, k and v: head-dim-72 views of one packed projection
+    # (rows of 3 x 16 x 72), as MultiHeadAttention splits them; offset 1
+    # leaves every row misaligned, so the wrapper hands TMA padded copies
+    b, t, h, d = 2, 729, 16, 72
+    x = torch.randn(b, t, 3 * h * d + offset, device=cuda).to(torch.bfloat16)[..., offset:]
+    q, k, v = (y.view(b, t, h, d).transpose(1, 2) for y in x.split(h * d, -1))
+    before = flash_attention.launches["fwd_pp"]
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["fwd_pp"] == before + 1
+    ref = flash_attention_reference(q.contiguous(), k.contiguous(), v.contiguous())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+def test_lse_forward_at_head_dim_72_keeps_its_kernel(cuda):
+    # K1' (lse) at head dim 72 stays on fwd_wgmma_kernel, counted as fwd_lse
+    q, k, v, mask = _inputs(2, 16, 300, 729, 72, torch.bfloat16, cuda)
+    before = dict(flash_attention.launches)
+    out, lse = forward_lse(q, k, v, mask, None, 0.0)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["fwd_lse"] == before["fwd_lse"] + 1
+    assert flash_attention.launches["fwd_pp"] == before["fwd_pp"]
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, return_lse=True)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item() <= 1e-4
 
 
 def test_siglip_tower_on_the_kernels_matches_eager(cuda):
@@ -141,8 +179,10 @@ def test_siglip_tower_on_the_kernels_matches_eager(cuda):
         before = dict(flash_attention.launches)
         with torch.no_grad():
             out[impl] = tower(preprocess(frames, cfg, torch.bfloat16)).double()
-        launched = flash_attention.launches["fwd"] - before["fwd"]
-        assert launched == (cfg.num_layers + 1 if impl == "flash" else 0)
+        launched = {k: n - before[k] for k, n in flash_attention.launches.items()
+                    if n != before[k]}
+        # every block's attention and the head's one query on fwd_pp_wgmma_kernel
+        assert launched == ({"fwd_pp": cfg.num_layers + 1} if impl == "flash" else {})
     cos = torch.nn.functional.cosine_similarity(out["xla"], out["flash"], dim=-1)
     assert cos.min().item() > 0.999, cos
 
@@ -286,7 +326,10 @@ def test_backward_is_deterministic(cuda, tk, dtype):
 def test_single_pass_kernels_match_plain(cuda, tq, tk, d, rate, dtype):
     """K1, K1' and K2 (keys within one 512-key tile) against their plain
     versions: Tq below one tile, ragged Tk, head dims 16 and 32 (the
-    64-column kernels), 64 and 128 (two chunks)."""
+    64-column kernels), 64 and 128 (two chunks; bf16 K1 at 128 runs
+    fwd_pp_wgmma_kernel)."""
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import launch_kind
+
     b, h = 2, 3
     q, k, v, mask = _inputs(b, h, tq, tk, d, dtype, cuda, seed=tq + tk + d)
     g = torch.randn(b, tq, h, d, device=cuda).to(dtype).transpose(1, 2)
@@ -296,7 +339,8 @@ def test_single_pass_kernels_match_plain(cuda, tq, tk, d, rate, dtype):
         out1 = flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
     after = flash_attention.launches
-    assert after["fwd_lse"] == before["fwd_lse"] + 1 and after["fwd"] == before["fwd"] + 1
+    k1 = launch_kind("fwd", d, dtype)
+    assert after["fwd_lse"] == before["fwd_lse"] + 1 and after[k1] == before[k1] + 1
     assert after["bwd_dqkv"] == before["bwd_dqkv"] + 1
     assert (out1.float() - flash_attention_reference(q, k, v, mask).float()).abs().max() <= TOL[
         dtype]

@@ -66,3 +66,39 @@ def test_plain_forward_on_copies_matches_jax_kernel(dtype, d, tol):
     got = flash_attention_reference(tq_, tk_, tv_, torch.from_numpy(mask))
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                atol=tol, rtol=0)
+
+
+# The launch kind names the kernel the forward entry routes to (run_hopper in
+# csrc/flash_attention_fwd.cu): bf16 K1 without dropout at head dims 65-128
+# runs fwd_pp_wgmma_kernel; every other call keeps its kind.
+@pytest.mark.parametrize("kind, d, dtype, dropout, expected", [
+    ("fwd", 65, torch.bfloat16, False, "fwd_pp"),
+    ("fwd", 72, torch.bfloat16, False, "fwd_pp"),
+    ("fwd", 80, torch.bfloat16, False, "fwd_pp"),
+    ("fwd", 128, torch.bfloat16, False, "fwd_pp"),
+    ("fwd", 64, torch.bfloat16, False, "fwd"),
+    ("fwd", 144, torch.bfloat16, False, "fwd_wide"),
+    ("fwd", 72, torch.float32, False, "fwd"),
+    ("fwd", 72, torch.bfloat16, True, "fwd"),
+    ("fwd_lse", 72, torch.bfloat16, False, "fwd_lse"),
+    ("fwd_lse", 72, torch.bfloat16, True, "fwd_lse"),
+    ("fwd_lse", 144, torch.bfloat16, False, "fwd_lse_wide"),
+    ("bwd_dqkv", 72, torch.bfloat16, False, "bwd_dqkv"),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_launch_kind_routes_bf16_k1_at_head_dims_65_to_128(kind, d, dtype, dropout, expected):
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import LAUNCH_KINDS, launch_kind
+
+    assert launch_kind(kind, d, dtype, dropout) == expected
+    assert expected in LAUNCH_KINDS
+
+
+@pytest.mark.parametrize("d", [65, 72, 80, 100, 128])
+def test_pp_output_rows_are_tma_legal(d):
+    # fwd_pp_wgmma_kernel stores O with TMA: at any head dim its rows start 16-byte
+    # aligned, and the view shows exactly D columns
+    from vimoclip_tpu_torch.ops.kernels.flash_attention import fwd_output
+
+    out = fwd_output(2, 5, 3, d, torch.bfloat16, "cpu", "fwd_pp")
+    assert out.shape == (2, 3, 5, d) and tma_legal(out)
+    plain = fwd_output(2, 5, 3, d, torch.bfloat16, "cpu", "fwd")
+    assert plain.shape == out.shape and plain.stride()[1:] == (d, 3 * d, 1)

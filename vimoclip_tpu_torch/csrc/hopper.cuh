@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarriers, TMA loads,
-// 128-byte-swizzle shared-memory descriptors, wgmma wrappers, the register
-// A operand, the elementwise helpers and the host-side tensor maps (bf16 or
-// float32; the float32 kernels' TF32 blocks are in tf32.cuh).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarriers, TMA loads and
+// stores, 128- and 32-byte-swizzle shared-memory descriptors, wgmma wrappers,
+// the register A operand, the elementwise helpers and the host-side tensor
+// maps (bf16 or float32; the float32 kernels' TF32 blocks are in tf32.cuh).
 //
 // Tiles are 64 rows x 64 bf16 columns (128 bytes a row, 8 KB) in the layout
 // TMA's 128-byte swizzle writes (16-byte chunk c of row r stored at chunk
@@ -100,6 +100,27 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// box of a (B, H, T, D) tensor map from shared memory into device memory at
+// (c0, row0, h, b); the tensor's bounds clip it. Tracked by the issuing
+// thread's bulk groups (bulk_commit, bulk_wait_read)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
+                                          int row0, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(row0), "r"(h),
+        "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until the thread's committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // the consumer warpgroup's own barrier (the producer warp never joins it)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -158,6 +179,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for register A operands, which an in-flight wgmma still reads
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
 // shared-memory matrix descriptor, 128-byte swizzle, from a 32-bit
 // shared-memory address or a pointer
 __device__ __forceinline__ uint64_t sw128_desc_u32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -181,6 +212,16 @@ __device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int kk) {
 // 64 columns one chunk (8 KB) further
 __device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int kk) {
   return sw128_desc(tile + kk * 16 * 64, kChunk * 2, 1024);
+}
+
+// shared-memory matrix descriptor, 32-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes, 16-byte half h of row r stored
+// at h ^ ((r / 4) % 2), from a 256-byte aligned base). A K-major operand's
+// k-step of 16 columns is one such 32-byte row (8-row groups `sbo` = 256
+// bytes apart); an MN-major one steps `lbo` bytes per 16 columns of M or N
+__device__ __forceinline__ uint64_t sw32_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(ptr) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
 }
 
 #define VIMO_ACC32                                                                             \
@@ -241,6 +282,69 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
 }
 
+// D (64 x 128, float32) {+}= A . B^T, A (64 x 16 bf16) in registers, B a
+// K-major bf16 operand in shared memory; accumulate unless `zero`
+__device__ __forceinline__ void wgmma_rs_n128_k(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                bool zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"((uint32_t)zero));
+}
+
+// D (64 x 16, float32) += A . B, A (64 x 16 bf16) in registers, B an
+// MN-major bf16 operand in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
+}
+
+// D (64 x 32, float32) += A . B, A (64 x 16 bf16) in registers, B an
+// MN-major bf16 operand in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
+}
+
+// D (64 x 48, float32) += A . B, A (64 x 16 bf16) in registers, B an
+// MN-major bf16 operand in shared memory
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
+}
+
+// acc += A . B for a 64 x 16 register slice A and an MN-major operand B of
+// N columns (16, 32, 48, 64 or 128) described by `db`
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n(float (&acc)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16(acc, a, db);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(acc, a, db);
+  } else if constexpr (N == 48) {
+    wgmma_rs_n48(acc, a, db);
+  } else if constexpr (N == 64) {
+    wgmma_rs_n64(acc, a, db);
+  } else {
+    static_assert(N == 128, "wgmma_rs_n: N is 16, 32, 48, 64 or 128");
+    wgmma_rs_n128(acc, a, db);
+  }
+}
+
 // acc (+)= A . B for a 64 x 16 register slice A and the MN-major k-step kk
 // of tile B, N = 64 * NC
 template <int NC>
@@ -267,6 +371,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
+    a[c][0] = pack_bf16(d[8 * c + 0], d[8 * c + 1]);
+    a[c][1] = pack_bf16(d[8 * c + 2], d[8 * c + 3]);
+    a[c][2] = pack_bf16(d[8 * c + 4], d[8 * c + 5]);
+    a[c][3] = pack_bf16(d[8 * c + 6], d[8 * c + 7]);
+  }
+}
+
+// the same for a 64 x 128 accumulator: the A operands of eight k-steps
+__device__ __forceinline__ void to_a_operand(const float (&d)[64], uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
     a[c][0] = pack_bf16(d[8 * c + 0], d[8 * c + 1]);
     a[c][1] = pack_bf16(d[8 * c + 2], d[8 * c + 3]);
     a[c][2] = pack_bf16(d[8 * c + 4], d[8 * c + 5]);
@@ -389,24 +504,33 @@ inline bool tma_legal(const void* ptr, long long sb, long long sh, long long st,
 }
 
 // dims (D, T, H, B) of a bf16 (or, with `f32`, float32) operand through its
-// strides, boxes of 128 bytes (64 bf16 or 32 float32 columns) x 64 rows,
-// 128-byte swizzle, zeros out of bounds; 0, or -4 when the driver refuses
-inline int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int t, int D,
-                      long long sb, long long sh, long long st, bool f32 = false) {
+// strides, boxes of `cols` x `rows`, the given swizzle, zeros out of bounds;
+// 0, or -4 when cuTensorMapEncodeTiled refuses
+inline int encode_box_map(CUtensorMap* map, const void* ptr, int B, int H, int t, int D,
+                          long long sb, long long sh, long long st, int cols, int rows,
+                          CUtensorMapSwizzle swizzle, bool f32 = false) {
   EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return -4;
   const cuuint64_t elem_bytes = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)t, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st * elem_bytes, (cuuint64_t)sh * elem_bytes,
                                  (cuuint64_t)sb * elem_bytes};
-  const cuuint32_t box[4] = {f32 ? 32u : 64u, (cuuint32_t)kTile, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult rc = encode(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-      const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : -4;
+}
+
+// dims (D, T, H, B) of a bf16 (or, with `f32`, float32) operand through its
+// strides, boxes of 128 bytes (64 bf16 or 32 float32 columns) x 64 rows,
+// 128-byte swizzle, zeros out of bounds; 0, or -4 when the driver refuses
+inline int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int t, int D,
+                      long long sb, long long sh, long long st, bool f32 = false) {
+  return encode_box_map(map, ptr, B, H, t, D, sb, sh, st, f32 ? 32 : 64, kTile,
+                        CU_TENSOR_MAP_SWIZZLE_128B, f32);
 }
 
 }  // namespace vimo

@@ -55,7 +55,8 @@ design does about it.
   CPU interpreter's stubbed bits give).
 - ``flash_attention.launches`` counts kernel launches by kind (``fwd``,
   ``fwd_lse``, ``bwd_dqkv``, ``bwd_dq``, ``bwd_dkv``, and each of them with
-  ``_wide`` above head dim 128), never CPU calls.
+  ``_wide`` above head dim 128; ``fwd_pp`` for bf16 K1 without dropout at
+  head dims 65-128, ``launch_kind``), never CPU calls.
 - Spans (``utils/profiling.py::annotate``): ``vimo.attn.fwd`` around each
   call, either path; ``vimo.attn.bwd`` around the autograd backward, on the
   engine's thread when the tensors are on the card.
@@ -80,8 +81,11 @@ WIDE_ABOVE_HEAD_DIM = 128
 # JAX's backward takes its single-pass kernel when the keys fit one
 # block_k = 512 tile (nk == 1); the port keeps the same rule
 SINGLE_PASS_MAX_TK = 512
+# bf16 K1 (no lse, no dropout) above this head dim, up to WIDE_ABOVE_HEAD_DIM,
+# runs on its own kernel, counted as ``fwd_pp``
+PP_ABOVE_HEAD_DIM = 64
 _KINDS = ("fwd", "fwd_lse", "bwd_dqkv", "bwd_dq", "bwd_dkv")
-LAUNCH_KINDS = _KINDS + tuple(f"{k}_wide" for k in _KINDS)
+LAUNCH_KINDS = _KINDS + tuple(f"{k}_wide" for k in _KINDS) + ("fwd_pp",)
 _BWD_WHICH = {"bwd_dqkv": 0, "bwd_dq": 1, "bwd_dkv": 2}
 _BWD_TILE = 64  # key tile of the backward kernels (dq scratch of K2)
 
@@ -324,10 +328,18 @@ _BWD_ARGS = [_P] * 13 + [_I] * 9 + [_LL] * 22 + [_F, _U32, _F, _P]
 _TMA_ALIGN = 16  # bytes: TMA's start address and stride granule
 
 
-def launch_kind(kind: str, head_dim: int) -> str:
-    """The launch counter of ``kind`` at ``head_dim``: the kind itself, or
-    its wide variant above ``WIDE_ABOVE_HEAD_DIM``."""
-    return f"{kind}_wide" if head_dim > WIDE_ABOVE_HEAD_DIM else kind
+def launch_kind(kind: str, head_dim: int, dtype: torch.dtype | None = None,
+                dropout: bool = False) -> str:
+    """The launch counter of ``kind`` at ``head_dim``: its wide variant above
+    ``WIDE_ABOVE_HEAD_DIM``; ``fwd_pp`` for K1 (``fwd``) in bf16 without
+    dropout above ``PP_ABOVE_HEAD_DIM``, the rule the forward entry routes
+    by; else the kind itself."""
+    if head_dim > WIDE_ABOVE_HEAD_DIM:
+        return f"{kind}_wide"
+    if (kind == "fwd" and dtype == torch.bfloat16 and not dropout
+            and head_dim > PP_ABOVE_HEAD_DIM):
+        return "fwd_pp"
+    return kind
 
 
 def _check_kernel_inputs(q, k, v):
@@ -387,7 +399,8 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse, row0=0,
     q, k, v = _rows(q), _rows(k), _rows(v)
     q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)  # the kernels read them with TMA
     mask, mask_ptr, m_sb = _mask_arg(key_padding_mask, q.device)
-    out = _heads_major(b, tq, h, d, q.dtype, q.device)
+    kind = launch_kind("fwd_lse" if with_lse else "fwd", d, q.dtype, dropout_rate > 0.0)
+    out = fwd_output(b, tq, h, d, q.dtype, q.device, kind)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
     seed_ptr = None
     if dropout_rate > 0.0:
@@ -405,8 +418,18 @@ def _launch_fwd(q, k, v, key_padding_mask, seed, dropout_rate, with_lse, row0=0,
             stream,
         )
     _raise_on(lib, rc, "flash_attention forward")
-    flash_attention.launches[launch_kind("fwd_lse" if with_lse else "fwd", d)] += 1
+    flash_attention.launches[kind] += 1
     return out, lse
+
+
+def fwd_output(b, tq, h, d, dtype, device, kind: str) -> torch.Tensor:
+    """K1's output, (B, H, Tq, D) over heads-major storage. ``fwd_pp``'s
+    kernel stores it with TMA, so there its rows are padded to 16 bytes (the
+    view shows D columns)."""
+    if kind != "fwd_pp":
+        return _heads_major(b, tq, h, d, dtype, device)
+    per = _TMA_ALIGN // dtype.itemsize
+    return _heads_major(b, tq, h, -(-d // per) * per, dtype, device)[..., :d]
 
 
 def tma_legal(t: torch.Tensor) -> bool:
