@@ -172,12 +172,12 @@ def test_attention_int8_matches_jax(head_proj, cross):
     params = jax.tree.map(lambda p: p + 0.01, params)
     ref = np.asarray(jm.apply(params, jnp.asarray(x),
                               None if kv is None else jnp.asarray(kv)))
-    tm = MultiHeadAttention(64, 4, quant="int8", head_proj=head_proj).eval()
+    tm = MultiHeadAttention(64, 4, quant="int8").eval()
     tm.load_state_dict(_mha_state(params), strict=True)
     with torch.no_grad():
         got = tm(torch.from_numpy(x), None if kv is None else torch.from_numpy(kv))
     assert _rel(got.numpy(), ref) <= 1e-5
-    exact = MultiHeadAttention(64, 4, head_proj=head_proj).eval()
+    exact = MultiHeadAttention(64, 4).eval()
     exact.load_state_dict(tm.state_dict(), strict=True)
     with torch.no_grad():
         assert not torch.allclose(exact(torch.from_numpy(x), None if kv is None

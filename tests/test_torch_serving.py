@@ -20,6 +20,7 @@ from vimoclip_tpu.models.torch_compat import tfam_params_from_torch
 from vimoclip_tpu.serving import ViMoCLIPPredictor as JPredictor
 from vimoclip_tpu_torch.cli import predict as cli
 from vimoclip_tpu_torch.config import TFAMModelConfig
+from vimoclip_tpu_torch.data.video_reader import read_video
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig
 from vimoclip_tpu_torch.models.convert import (
     clip_vision_state_from_jax,
@@ -166,6 +167,22 @@ def test_one_clip_request_uploads_views_of_the_clip(weights, monkeypatch):
     monkeypatch.undo()
     want = port.predict_embeddings(*port.embed_video(clip.copy()))
     np.testing.assert_array_equal(pred.probabilities, want.probabilities)
+
+
+def test_predict_is_the_one_clip_form_of_predict_videos(weights, tmp_path):
+    """``predict(path)`` is ``predict_videos`` on the file's frames: the same
+    probabilities bit for bit, and the same windows and frames counted."""
+    path = str(tmp_path / "clip.mp4")
+    write_video(path, _videos()[1])  # 20 frames: windows of 8, 8 and 4
+    by_file, by_frames = _port_predictor(weights), _port_predictor(weights)
+    got = by_file.predict(path, top_k=3)
+    (want,) = by_frames.predict_videos([read_video(path)], [path], top_k=3)
+    assert got.video_id == want.video_id == path
+    assert got.top_classes == want.top_classes
+    np.testing.assert_array_equal(got.probabilities, want.probabilities)
+    assert by_file.stats() == by_frames.stats() == {
+        "windows": 3, "gathered_windows": 0, "gathered_frames": 0,
+        "teacher_frames": 20, "student_frames": 19}
 
 
 def test_predict_embeddings_matches_jax(weights):

@@ -7,6 +7,7 @@ context and nothing is recorded."""
 import threading
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -17,6 +18,7 @@ from vimoclip_tpu_torch.config import (
     TFAMModelConfig,
     TrainingConfig,
 )
+from vimoclip_tpu_torch.data.video_reader import write_video
 from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
 from vimoclip_tpu_torch.models.tfam import TFAM
 from vimoclip_tpu_torch.serving import ViMoCLIPPredictor
@@ -99,7 +101,10 @@ def test_train_epoch_spans_each_phase_once_a_step(tmp_path):
                                        "vimo.train.data_wait"]
 
 
-def test_predict_videos_spans_a_request_and_its_five_phases():
+@pytest.mark.parametrize("given", ["frames", "file"])
+def test_predict_videos_spans_a_request_and_its_five_phases(given, tmp_path):
+    """``predict_videos([frames])`` and ``predict(path)``, its one-clip form
+    on a file, open the same spans."""
     vision = ClipVisionConfig(image_size=32, patch_size=8, hidden_size=32, num_layers=1,
                               num_heads=2, intermediate_size=64, projection_dim=D)
     tfam_cfg = TFAMModelConfig(**(TFAM_GEOM | {"dropout": 0.0}))
@@ -112,8 +117,13 @@ def test_predict_videos_spans_a_request_and_its_five_phases():
                                   num_classes=C, frame_batch=8, length_bucket=8,
                                   half_precision=False, device="cpu")
     clip = np.random.default_rng(1).integers(0, 256, (20, 40, 48, 3), dtype=np.uint8)
+    path = str(tmp_path / "clip.mp4")
+    write_video(path, clip)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        (pred,) = predictor.predict_videos([clip])
+        if given == "frames":
+            (pred,) = predictor.predict_videos([clip])
+        else:
+            pred = predictor.predict(path)
     assert pred.probabilities.shape == (C,)
     spans = _spans(prof)
     (request,) = _named(spans, "vimo.serve.request")

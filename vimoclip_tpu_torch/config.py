@@ -108,7 +108,8 @@ class TFAMModelConfig:
     # CUDA kernel (ops/kernels/flash_attention.py); "auto" = flash for
     # CUDA tensors from the crossover length on (ops/attention.py).
     attention_impl: str = "auto"
-    # "split" | "fused" | "fused_qkv": one math, one layout in the port.
+    # "split" | "fused" | "fused_qkv": read and checked because the YAML
+    # configs both packages share carry it; the port runs one layout.
     head_proj: str = "split"
 
 

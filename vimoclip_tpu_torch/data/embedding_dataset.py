@@ -22,7 +22,7 @@ import threading
 
 import numpy as np
 
-from vimoclip_tpu_torch.ops.batching import pad_to_batch, round_up_bucket
+from vimoclip_tpu_torch.ops.batching import pad_sequences
 
 
 def sparse_sample_indices(total_frames: int, num_frames: int) -> np.ndarray:
@@ -104,21 +104,15 @@ def collate_pad(items: list[dict], bucket: int | None = None,
                 max_seq_len: int | None = None) -> dict:
     """Pad variable-length sequences and build validity masks (True =
     real); ``bucket`` rounds the padded length up, ``max_seq_len`` caps it
-    (longer sequences are truncated)."""
-    lens_rgb = np.array([it["embeddings"].shape[0] for it in items])
-    lens_mot = np.array([it["motion_embeddings"].shape[0] for it in items])
-    t_rgb = round_up_bucket(int(lens_rgb.max()), bucket, max_seq_len)
-    t_mot = round_up_bucket(int(lens_mot.max()), bucket, max_seq_len)
-    lens_rgb = np.minimum(lens_rgb, t_rgb)
-    lens_mot = np.minimum(lens_mot, t_mot)
-    rgb = np.stack([pad_to_batch(it["embeddings"][:t_rgb], t_rgb) for it in items])
-    motion = np.stack([pad_to_batch(it["motion_embeddings"][:t_mot], t_mot)
-                       for it in items])
+    (longer sequences are truncated): ``ops/batching.py::pad_sequences``."""
+    rgb, mask_rgb = pad_sequences([it["embeddings"] for it in items], bucket, max_seq_len)
+    motion, mask_motion = pad_sequences([it["motion_embeddings"] for it in items],
+                                        bucket, max_seq_len)
     return {
         "video_id": [it["video_id"] for it in items],
         "embeddings": rgb,
         "motion_embeddings": motion,
         "labels": np.stack([it["labels"] for it in items]),
-        "mask_rgb": np.arange(t_rgb)[None, :] < lens_rgb[:, None],
-        "mask_motion": np.arange(t_mot)[None, :] < lens_mot[:, None],
+        "mask_rgb": mask_rgb,
+        "mask_motion": mask_motion,
     }

@@ -23,6 +23,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from vimoclip_tpu_torch.ops.batching import upload
 from vimoclip_tpu_torch.utils.profiling import annotate
 
 
@@ -89,18 +90,11 @@ class BatchLoader:
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """numpy leaves -> tensors on ``device`` (pinned, ``non_blocking`` for a
-    card); other values (video ids) pass through."""
-    out = {}
-    for key, value in batch.items():
-        if isinstance(value, np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(value))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            out[key] = t
-        else:
-            out[key] = value
-    return out
+    """numpy leaves -> tensors on ``device`` (``ops/batching.py::upload``:
+    pinned, ``non_blocking`` for a card); other values (video ids, tensors)
+    pass through."""
+    return {key: upload(value, device) if isinstance(value, np.ndarray) else value
+            for key, value in batch.items()}
 
 
 def prefetch_to_device(iterator: Iterable[dict], device: torch.device | str,

@@ -49,7 +49,6 @@ class ClipVisionConfig:
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"
     attention_impl: str = "xla"
-    head_proj: str = "fused"
     matmul_quant: str | None = None  # None | "int8" (ops/quant.py), opt-in
     token_merge_r: int = 0  # tokens merged after each block (ops/tome.py), opt-in
 
@@ -115,7 +114,7 @@ class ClipEncoderLayer(nn.Module):
         self.attn = MultiHeadAttention(
             cfg.hidden_size, cfg.num_heads, dtype=dtype,
             implementation=cfg.attention_impl, quant=cfg.matmul_quant,
-            head_proj=cfg.head_proj, span="vimo.tower.attn",
+            span="vimo.tower.attn",
         )
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg)

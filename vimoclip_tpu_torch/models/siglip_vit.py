@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vimoclip_tpu_torch.models.clip_vit import layer_norm
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
 from vimoclip_tpu_torch.ops.quant import make_dense
 from vimoclip_tpu_torch.utils.profiling import annotate
@@ -74,11 +75,6 @@ class SiglipVisionConfig:
     def embed_dim(self) -> int:
         """The width of the tower's output: the MAP head's, the hidden size."""
         return self.hidden_size
-
-
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm in float32."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
 
 
 class _MLP(nn.Module):

@@ -85,14 +85,11 @@ class AttentionLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "relu",
-                 attention_impl: str = "xla", head_proj: str = "split",
-                 dtype: torch.dtype = torch.float32):
+                 attention_impl: str = "xla", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        mha = lambda: MultiHeadAttention(
-            d_model, num_heads, dropout=dropout, dtype=dtype,
-            implementation=attention_impl, head_proj=head_proj,
-        )
+        mha = lambda: MultiHeadAttention(d_model, num_heads, dropout=dropout, dtype=dtype,
+                                         implementation=attention_impl)
         self.self_attn = mha()
         self.cross_attn = mha()
         self.norm_self = nn.LayerNorm(d_model, eps=_LN_EPS)
@@ -135,8 +132,7 @@ class TFAM(nn.Module):
         self.layers = nn.ModuleList(
             AttentionLayer(d, cfg.nhead, cfg.dim_feedforward, dropout=cfg.dropout,
                            activation=cfg.activation,
-                           attention_impl=cfg.attention_impl,
-                           head_proj=cfg.head_proj, dtype=dtype)
+                           attention_impl=cfg.attention_impl, dtype=dtype)
             for _ in range(cfg.num_layers)
         )
         self.projection_layer = nn.Linear(2 * d, d)

@@ -168,8 +168,6 @@ class MultiHeadAttention(nn.Module):
       (``_auto_impl``); the eager path on the CPU;
     - "ring" / "ring_inner": ring attention over the ``seq`` group of
       ``shard`` (module docstring); without one it raises.
-    ``head_proj`` ("split" | "fused" | "fused_qkv") only rescheduled XLA's
-    transposes in JAX; the math is one, and the port runs one layout.
     ``span``: a span name (``utils/profiling.py::annotate``) around the
     attention core alone (scores, softmax and the value product, whichever
     route runs; the projections outside it): the vision towers' blocks open
@@ -178,8 +176,8 @@ class MultiHeadAttention(nn.Module):
     ``quant="int8"``: the projections in dynamic int8. The packed
     ``in_proj_weight``'s per-row scales are JAX's per-column scales of its
     q/k/v kernels, and every projection of a token shares its activation
-    scale, so the result equals JAX's for every ``head_proj`` (its fused
-    int8 paths are bit-identical to Int8Dense-then-split).
+    scale, so the result equals JAX's in each of its head-projection
+    layouts (its fused int8 paths are bit-identical to Int8Dense-then-split).
     """
 
     shard: Shard | None = None  # set by parallel.partition.parallelize_
@@ -192,7 +190,6 @@ class MultiHeadAttention(nn.Module):
         dtype: torch.dtype = torch.float32,
         implementation: str = "xla",
         quant: str | None = None,
-        head_proj: str = "split",
         span: str | None = None,
     ):
         super().__init__()
@@ -203,8 +200,6 @@ class MultiHeadAttention(nn.Module):
         if implementation not in IMPLEMENTATIONS:
             raise ValueError(f"unknown attention implementation {implementation!r}")
         linear = make_dense(quant)
-        if head_proj not in ("split", "fused", "fused_qkv"):
-            raise ValueError(f"unknown head_proj {head_proj!r}")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout = dropout
         self.dtype = dtype

@@ -1,12 +1,11 @@
-"""Fixed-shape batching helpers for the serving path (the port's copy of
+"""Fixed-shape batching helpers (the port's copy of
 ``vimoclip_tpu/ops/batching.py``).
 
 Frame stacks go through the encoders in fixed ``batch_size`` chunks, the
 tail padded: one shape per encoder keeps cuBLAS on one algorithm (results
 do not depend on how full the last chunk is) and is what a CUDA-graph
-capture would replay. CUDA work is asynchronous until a result is copied
-to the host, so chunk ``i+1`` is uploaded and enqueued before chunk ``i``'s
-embeddings are fetched: one chunk stays in flight.
+capture would replay. Embedding sequences reach TFAM padded by one rule,
+``pad_sequences``, in training's collate and in serving alike.
 """
 
 from __future__ import annotations
@@ -33,6 +32,22 @@ def pad_to_batch(arr: np.ndarray, batch_size: int) -> np.ndarray:
     return np.concatenate([arr, pad])
 
 
+def pad_sequences(seqs: list[np.ndarray], bucket: int | None,
+                  cap: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """TFAM's input layout: (T_i, D) arrays -> the zero-padded (B, T, D)
+    array in their dtype and the (B, T) mask (True = real step). T is the
+    longest T_i rounded up to ``bucket`` and capped at ``cap``; longer
+    sequences are truncated. One allocation, filled in place."""
+    t = round_up_bucket(max(len(s) for s in seqs), bucket, cap)
+    out = np.zeros((len(seqs), t) + seqs[0].shape[1:], seqs[0].dtype)
+    mask = np.zeros((len(seqs), t), bool)
+    for i, s in enumerate(seqs):
+        n = min(len(s), t)
+        out[i, :n] = s[:n]
+        mask[i, :n] = True
+    return out, mask
+
+
 def upload(frames, device: torch.device) -> torch.Tensor:
     """Host numpy (or a tensor anywhere) -> tensor on ``device``. Host data
     to a card goes through pinned memory with ``non_blocking`` so the copy
@@ -43,25 +58,3 @@ def upload(frames, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
-
-
-def embed_in_fixed_batches(
-    embed_fn, frames: np.ndarray, batch_size: int, out_dim: int,
-    device: torch.device,
-) -> np.ndarray:
-    """Run ``embed_fn`` (exactly ``batch_size`` frames in, (batch_size, D)
-    float32 out) over an arbitrary-length host frame stack; returns
-    (len(frames), out_dim) float32 numpy. Frames are uploaded chunk by
-    chunk, so device residency stays bounded by two chunks."""
-    out = []
-    pending: tuple | None = None  # (device embeddings, valid row count)
-    for i in range(0, frames.shape[0], batch_size):
-        chunk = np.asarray(frames[i : i + batch_size])
-        n = chunk.shape[0]
-        dev = embed_fn(upload(pad_to_batch(chunk, batch_size), device))  # enqueued
-        if pending is not None:
-            out.append(pending[0][: pending[1]].cpu().numpy())
-        pending = (dev, n)
-    if pending is not None:
-        out.append(pending[0][: pending[1]].cpu().numpy())
-    return np.concatenate(out) if out else np.zeros((0, out_dim), np.float32)

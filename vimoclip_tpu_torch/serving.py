@@ -8,6 +8,10 @@ copy of ``vimoclip_tpu/serving.py``).
 - frames go to the device once, as uint8, and are preprocessed there;
 - the motion stream is the frame difference of the RGB frames, computed on
   the device; precomputed motion videos can be passed instead;
+- one request path: ``predict`` on a file is ``predict_videos`` on its
+  frames; every frame stack goes through one window loop (``_windows``)
+  and every batch of embeddings through one padded fusion
+  (``_predictions``);
 - TFAM runs the hand-written flash-attention kernel by default;
 - sequence lengths round up to ``length_bucket`` (capped at ``max_seq_len``)
   so a request sees one of a handful of shapes;
@@ -33,11 +37,7 @@ from vimoclip_tpu_torch.data.video_reader import read_video
 from vimoclip_tpu_torch.models.convert import student_tower_state, to_tensors
 from vimoclip_tpu_torch.models.tfam import TFAM
 from vimoclip_tpu_torch.models.towers import VisionConfig, preprocess, tower_state, vision_tower
-from vimoclip_tpu_torch.ops.batching import (
-    embed_in_fixed_batches,
-    round_up_bucket,
-    upload,
-)
+from vimoclip_tpu_torch.ops.batching import pad_sequences, upload
 from vimoclip_tpu_torch.ops.preprocess import frame_diff
 from vimoclip_tpu_torch.parallel.mesh import Replicas
 from vimoclip_tpu_torch.utils.device import resolve_device
@@ -175,10 +175,6 @@ class ViMoCLIPPredictor:
         return embed
 
     # ------------------------------------------------------------------
-    def _embed_frames(self, embed_fn, frames) -> np.ndarray:
-        return embed_in_fixed_batches(embed_fn, frames, self.frame_batch,
-                                      self.embed_dim, self.device)
-
     def _embed_window_device(self, embed_fn, frames_dev: torch.Tensor):
         """One <= frame_batch window through the encoder, padded to the
         fixed batch, NOT fetched: returns (device embeddings, valid rows)."""
@@ -189,6 +185,8 @@ class ViMoCLIPPredictor:
         return embed_fn(frames_dev), n
 
     def _dispatch_window(self, chunk: torch.Tensor, nxt: torch.Tensor | None):
+        """The cascade's window: the teacher on ``chunk``, the student on
+        its frame differences, which reach into ``nxt``."""
         with annotate("vimo.serve.embed"):
             rgb_dev, rn = self._embed_window_device(self._teacher_embed, chunk)
             window = chunk if nxt is None else torch.cat([chunk, nxt])
@@ -197,52 +195,65 @@ class ViMoCLIPPredictor:
                 mot_dev, mot_n = self._embed_window_device(
                     self._student_embed, frame_diff(window))
             self._count(teacher_frames=rn, student_frames=mot_n or 0)
-            return rgb_dev, rn, mot_dev, mot_n
+            return (rgb_dev, rn), (mot_dev, mot_n)
+
+    def _tower_dispatch(self, embed_fn, counted: str):
+        """One tower's window: ``embed_fn`` on the frames as they come."""
+        def dispatch(chunk: torch.Tensor, _nxt):
+            with annotate("vimo.serve.embed"):
+                dev, n = self._embed_window_device(embed_fn, chunk)
+                self._count(**{counted: n})
+                return ((dev, n),)
+        return dispatch
 
     @torch.inference_mode()
-    def embed_video(self, frames) -> tuple[np.ndarray, np.ndarray]:
-        """(T, H, W, 3) uint8 -> (rgb_emb (T, D), motion_emb (T-1, D)).
-        ``frames`` is an array, a tensor or a ``_Clips``, sliced window by
-        window.
-
-        Streams ``frame_batch``-frame windows; each window's diffs reach one
-        frame into the next window, so the frame difference crosses window
-        boundaries. Every frame is uploaded once: a window is dispatched
-        once the next chunk (whose first frame it needs) is on the device,
-        and its embeddings are fetched only after the next window has been
-        enqueued, so one window stays in flight."""
+    def _windows(self, frames, dispatch, streams: int) -> list[np.ndarray]:
+        """The window loop of every frame stack: ``frames`` (an array, a
+        tensor or a ``_Clips``) in ``frame_batch``-frame windows, each
+        uploaded once. ``dispatch(chunk, nxt)`` enqueues a window (``nxt``:
+        the next window's first frame, None for the last) and returns
+        ``streams`` (device embeddings, valid rows) pairs, embeddings None
+        for none. A window is dispatched once the next is on the device,
+        and fetched only after the next has been enqueued, so one window
+        stays in flight. Returns each stream's rows, (N, D) float32."""
         bs = self.frame_batch
-        rgb_out: list[np.ndarray] = []
-        mot_out: list[np.ndarray] = []
+        outs: list[list[np.ndarray]] = [[] for _ in range(streams)]
 
-        def flush(p):
-            with annotate("vimo.serve.fetch"):
-                rgb_dev, rn, mot_dev, mn = p
-                rgb_out.append(rgb_dev[:rn].cpu().numpy())
-                if mot_dev is not None:
-                    mot_out.append(mot_dev[:mn].cpu().numpy())
-
-        pending = prev = None
-        for i in range(0, len(frames), bs):
-            with annotate("vimo.serve.upload"):
-                chunk = upload(frames[i : i + bs], self.device)
-            self._count(windows=1)
+        def windows():
+            prev = None
+            for i in range(0, len(frames), bs):
+                with annotate("vimo.serve.upload"):
+                    chunk = upload(frames[i : i + bs], self.device)
+                self._count(windows=1)
+                if prev is not None:
+                    yield prev, chunk[:1]
+                prev = chunk
             if prev is not None:
-                dispatched = self._dispatch_window(prev, chunk[:1])
-                if pending is not None:
-                    flush(pending)
-                pending = dispatched
-            prev = chunk
-        if prev is not None:
-            dispatched = self._dispatch_window(prev, None)
+                yield prev, None
+
+        def flush(dispatched):
+            with annotate("vimo.serve.fetch"):
+                for out, (dev, n) in zip(outs, dispatched):
+                    if dev is not None:
+                        out.append(dev[:n].cpu().numpy())
+
+        pending = None
+        for chunk, nxt in windows():
+            dispatched = dispatch(chunk, nxt)
             if pending is not None:
                 flush(pending)
             pending = dispatched
         if pending is not None:
             flush(pending)
-        empty = np.zeros((0, self.embed_dim), np.float32)
-        rgb_emb = np.concatenate(rgb_out) if rgb_out else empty
-        motion_emb = np.concatenate(mot_out) if mot_out else empty
+        return [np.concatenate(out) if out else np.zeros((0, self.embed_dim), np.float32)
+                for out in outs]
+
+    def embed_video(self, frames) -> tuple[np.ndarray, np.ndarray]:
+        """(T, H, W, 3) uint8 -> (rgb_emb (T, D), motion_emb (T-1, D)).
+        ``frames`` is an array, a tensor or a ``_Clips``. Each window's
+        diffs reach one frame into the next window, so the frame
+        difference crosses window boundaries."""
+        rgb_emb, motion_emb = self._windows(frames, self._dispatch_window, 2)
         return rgb_emb, motion_emb
 
     @torch.inference_mode()
@@ -250,6 +261,16 @@ class ViMoCLIPPredictor:
         put = lambda a: torch.from_numpy(a).to(self.device)
         logits = self.tfam(put(rgb), put(mot), put(mask_r), put(mask_m))
         return torch.sigmoid(logits).cpu().numpy()
+
+    def _predictions(self, embs, video_ids, top_k: int) -> list[Prediction]:
+        """(rgb_emb, motion_emb) pairs -> one padded batch through TFAM ->
+        each video's sigmoid top-k."""
+        rgb, mask_r = pad_sequences([r for r, _ in embs], self.length_bucket,
+                                    self.max_seq_len)
+        mot, mask_m = pad_sequences([m for _, m in embs], self.length_bucket,
+                                    self.max_seq_len)
+        probs = self._fuse(rgb, mot, mask_r, mask_m)
+        return [Prediction(vid, self._top(p, top_k), p) for vid, p in zip(video_ids, probs)]
 
     def _top(self, probs: np.ndarray, top_k: int):
         order = np.argsort(probs)[::-1][:top_k]
@@ -260,22 +281,16 @@ class ViMoCLIPPredictor:
         self, rgb_emb: np.ndarray, motion_emb: np.ndarray, video_id: str = "",
         top_k: int = 5,
     ) -> Prediction:
-        t_r = round_up_bucket(len(rgb_emb), self.length_bucket, self.max_seq_len)
-        t_m = round_up_bucket(len(motion_emb), self.length_bucket, self.max_seq_len)
-        rgb = np.zeros((1, t_r, rgb_emb.shape[1]), np.float32)
-        mot = np.zeros((1, t_m, motion_emb.shape[1]), np.float32)
-        rgb[0, : len(rgb_emb)] = rgb_emb[:t_r]
-        mot[0, : len(motion_emb)] = motion_emb[:t_m]
-        mask_r = np.arange(t_r)[None, :] < min(len(rgb_emb), t_r)
-        mask_m = np.arange(t_m)[None, :] < min(len(motion_emb), t_m)
-        probs = self._fuse(rgb, mot, mask_r, mask_m)[0]
-        return Prediction(video_id, self._top(probs, top_k), probs)
+        pair = (np.asarray(rgb_emb, np.float32), np.asarray(motion_emb, np.float32))
+        return self._predictions([pair], [video_id], top_k)[0]
 
     def predict(
         self, video_path: str, motion_video_path: str | None = None,
         top_k: int = 5, max_frames: int | None = None,
     ) -> Prediction:
-        """Full cascade on one video file."""
+        """Full cascade on one video file: ``predict_videos`` on its frames,
+        or, with a motion video, the teacher on the frames and the student
+        on the motion video's."""
         frames = read_video(video_path, max_frames=max_frames)
         if motion_video_path is None:
             if len(frames) < 2:
@@ -284,14 +299,15 @@ class ViMoCLIPPredictor:
                     "fused cascade needs >= 2 (motion = consecutive-frame "
                     "diffs); raise max_frames or supply motion_video_path"
                 )
-            rgb_emb, motion_emb = self.embed_video(frames)
-        else:
-            with torch.inference_mode():
-                rgb_emb = self._embed_frames(self._teacher_embed, frames)
-                motion = read_video(motion_video_path, max_frames=max_frames)
-                motion_emb = self._embed_frames(self._student_embed, motion)
-            self._count(teacher_frames=len(rgb_emb), student_frames=len(motion_emb))
-        return self.predict_embeddings(rgb_emb, motion_emb, video_path, top_k)
+            return self.predict_videos([frames], [video_path], top_k)[0]
+        motion = read_video(motion_video_path, max_frames=max_frames)
+        with annotate("vimo.serve.request"):
+            (rgb_emb,) = self._windows(
+                frames, self._tower_dispatch(self._teacher_embed, "teacher_frames"), 1)
+            (motion_emb,) = self._windows(
+                motion, self._tower_dispatch(self._student_embed, "student_frames"), 1)
+            with annotate("vimo.serve.fuse"):
+                return self._predictions([(rgb_emb, motion_emb)], [video_path], top_k)[0]
 
     def _embed_videos_pooled(self, videos) -> list[tuple[np.ndarray, np.ndarray]]:
         """Embed several clips through shared frame windows: clips of one
@@ -343,19 +359,4 @@ class ViMoCLIPPredictor:
                     )
             embs = self._embed_videos_pooled(videos)
             with annotate("vimo.serve.fuse"):
-                t_r = round_up_bucket(max(len(r) for r, _ in embs),
-                                      self.length_bucket, self.max_seq_len)
-                t_m = round_up_bucket(max(len(m) for _, m in embs),
-                                      self.length_bucket, self.max_seq_len)
-                b, d = len(embs), embs[0][0].shape[1]
-                rgb = np.zeros((b, t_r, d), np.float32)
-                mot = np.zeros((b, t_m, d), np.float32)
-                mask_r = np.zeros((b, t_r), bool)
-                mask_m = np.zeros((b, t_m), bool)
-                for i, (r, m) in enumerate(embs):
-                    nr, nm = min(len(r), t_r), min(len(m), t_m)
-                    rgb[i, :nr], mot[i, :nm] = r[:nr], m[:nm]
-                    mask_r[i, :nr] = mask_m[i, :nm] = True
-                probs = self._fuse(rgb, mot, mask_r, mask_m)
-            return [Prediction(vid, self._top(probs[i], top_k), probs[i])
-                    for i, vid in enumerate(video_ids)]
+                return self._predictions(embs, video_ids, top_k)
