@@ -12,7 +12,8 @@ NVIDIA card:
    registers and spill bytes, none in the paired kernels and in bf16 K1 at
    head dims 65-128; the bf16 K1, K2 and K3 CTAs that fit one SM at head
    dims 64, 128, 256 and 512 (K1 at 128: ``fwd_pp_wgmma_kernel`` without
-   dropout, ``fwd_wgmma_kernel`` with it).
+   dropout, ``fwd_wgmma_kernel`` with it); and no spills in any
+   instantiation of ``add_layer_norm_kernel``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the serving shapes, with its time, the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the bound;
@@ -21,12 +22,18 @@ NVIDIA card:
 4. Serving path: the full-width serving cascade (ViT-B/16 teacher, ViT-B/32
    student, TFAM d512/8 heads/4 layers cross-attention, 140 classes) on
    weights drawn from ``--seed``, answering one request of three clips, with
-   the kernel launch counts of that request, and checked against the same
+   the kernel launch counts of that request (``add_layer_norm``: 24 a tower
+   call, two tower calls a window), and checked against the same
    predictor on the eager attention path; then the full-width SigLIP
    So400m/14 tower (27 blocks, 16 heads of 72, the attention-pooling head)
    at 384 px and at 224 px against its eager path, on the same weights, with
    the launches of each tower call (every block's and the head's attention
-   on ``fwd_pp_wgmma_kernel``).
+   on ``fwd_pp_wgmma_kernel``, every LayerNorm but the head's one
+   ``add_layer_norm`` launch); then the fused residual add + LayerNorm +
+   cast alone against its plain version at the towers' shapes (hidden 768
+   and 1152, with no delta and with a bf16 one), and timed at the SigLIP
+   teacher's window beside its bytes bound and the three PyTorch passes it
+   replaced.
 5. Training kernels vs plain: the attention forward's lse/dropout variant
    (K1') and the backward kernels (K2; K3 + K4 past 512 keys) against their
    plain versions under the same Philox keep mask, with and without
@@ -311,6 +318,10 @@ WGMMA_KERNELS = {"flash_attention_fwd": ("fwd_wgmma_kernel", "fwd_pair_wgmma_ker
 # head dim 128, and the bf16 K1 at 65-128)
 NO_SPILL_KERNELS = ("fwd_pair_wgmma_kernel", "dkv_pair_wgmma_kernel", "dq_pair_wgmma_kernel",
                     "fwd_pp_wgmma_kernel")
+# the other kernels that must build without spills, by library:
+# add_layer_norm holds a row in registers (4 * VEC floats a lane, 64 at
+# VEC=16)
+NO_SPILL_LIBS = {"layer_norm": ("add_layer_norm_kernel",)}
 # ops per B*H*Tq*Tk*D: QK^T and PV forward; the backward recomputes QK^T and
 # adds dO V^T, dS K, dS^T Q and P^T dO (K3 leaves out the last two, K4 dS K)
 OPS_PER_ELEMENT = {"fwd_lse": 4, "bwd_dqkv": 10, "bwd_dq": 6, "bwd_dkv": 8}
@@ -601,6 +612,14 @@ def phase_build() -> None:
                 found = {name: v for name, v in regs.items() if k in name}
                 check(bool(found) and all(spill == 0 for _, spill in found.values()),
                       f"{k}: no ptxas report, or spill stores in some instantiation: {found}")
+    for lib, kernels in NO_SPILL_LIBS.items():
+        regs = ptxas_report(built[lib].log, kinds=kernels)
+        check(len(regs) > 0 and all(spill == 0 for _, spill in regs.values()),
+              f"{lib}: no ptxas report of {kernels}, or spill stores in some instantiation: "
+              f"{regs}")
+        print("[ptxas] " + json.dumps({lib: {"instantiations": len(regs),
+                                             "max_registers": max(r for r, _ in regs.values()),
+                                             "spill_stores": 0}}))
     # CTAs per SM of the bf16 K1/K1', K2 and K3 at D = 64 and 128 (K1 at 128
     # without dropout: fwd_pp_wgmma_kernel), and of their wide kernels at 256
     # and 512
@@ -735,6 +754,14 @@ def phase_kernels(torch, seed: int, smi: str, shapes=KERNEL_SHAPES,
 # (16 heads of 72): the 384 px teacher's 729 tokens, the 224 px student's
 # 256, and the attention-pooling head's one query over 729.
 TOWER_K1_SHAPES = [(128, 16, 729, 729, 72), (128, 16, 256, 256, 72), (128, 16, 1, 729, 72)]
+# add_layer_norm (csrc/layer_norm.cu) at the teacher's window: 128 frames x
+# 729 tokens of hidden 1152, a bf16 residual branch and bf16 out (12 B an
+# element: x and the branch read, x_out and h written)
+ADD_LN_SHAPE = (128 * 729, 1152)
+# and checked at the CLIP cascade's windows: the ViT-B/16 teacher's 128 x
+# 197 tokens and the ViT-B/32 student's 128 x 50, hidden 768, and the
+# SigLIP student's 128 x 256 at 1152
+ADD_LN_CHECKED = ((128 * 197, 768), (128 * 50, 768), (128 * 256, 1152))
 
 
 def phase_tower_k1(torch, seed: int, smi: str, shapes=TOWER_K1_SHAPES) -> dict:
@@ -1021,6 +1048,7 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
         flash_attention,
         reset_launch_counts,
     )
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
     from vimoclip_tpu_torch.ops.preprocess import frame_diff
     from vimoclip_tpu_torch.serving import ViMoCLIPPredictor
 
@@ -1047,17 +1075,26 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    add_layer_norm.launches = 0
+    windows = pred.stats()["windows"]
     t0 = time.perf_counter()
     out = pred.predict_videos(videos)
     torch.cuda.synchronize()
     request_ms = (time.perf_counter() - t0) * 1e3
     counts = dict(flash_attention.launches)
     launches = counts["fwd"]
+    norms, windows = add_layer_norm.launches, pred.stats()["windows"] - windows
     peak_bytes = torch.cuda.max_memory_allocated()
 
     check(launches == 8, f"flash_attention launched {launches} times, expected 8 "
                          "(4 layers x self + cross)")
     check(sum(counts.values()) == launches, f"serving launched other kernels: {counts}")
+    # each window runs the teacher (ViT-B/16) and the student (ViT-B/32):
+    # 12 blocks x 2 LayerNorms a tower call
+    per_window = 2 * (teacher_cfg.num_layers + student_cfg.num_layers)
+    check(windows > 0 and norms == per_window * windows == 48 * windows,
+          f"add_layer_norm launched {norms} times over {windows} windows, expected "
+          f"{per_window} a window (24 a tower call)")
     probs = np.stack([p.probabilities for p in out])
     check(probs.shape == (3, 140), f"probabilities shape {probs.shape}")
     check(bool(np.isfinite(probs).all()), "non-finite probabilities")
@@ -1084,6 +1121,7 @@ def phase_main_path(torch, seed: int, smi: str) -> dict:
     stats = {
         "request_ms": request_ms, "cold_request_ms": cold_ms,
         "frames": sum(len(v) for v in videos), "flash_launches": launches,
+        "windows": windows, "add_layer_norm_launches": norms,
         "teacher_frames_per_s": 128 / teacher_ms * 1e3,
         "student_frames_per_s": 128 / student_ms * 1e3,
         "peak_mem_bytes": peak_bytes, "flash_vs_eager_max_abs": path_err,
@@ -1099,9 +1137,10 @@ def phase_siglip_tower(torch, seed: int, smi: str) -> dict:
     (729 tokens) and 224 px (256 tokens), through the tower factory on the
     kernels against its eager path on the same weights: each tower call
     launches ``fwd_pp_wgmma_kernel`` once per block and once for the head's
-    one query, and nothing else. The two round the attention's
-    probabilities differently (bf16 p in K1), so the embeddings agree to
-    bf16 rounding through 27 blocks. Returns the launches."""
+    one query, and nothing else, and ``add_layer_norm`` at the 27 blocks'
+    two LayerNorms and the post-LN (55) on both paths. The two round the
+    attention's probabilities differently (bf16 p in K1), so the embeddings
+    agree to bf16 rounding through 27 blocks. Returns the launches."""
     import dataclasses
 
     from vimoclip_tpu_torch.models import init_parameters_
@@ -1111,11 +1150,12 @@ def phase_siglip_tower(torch, seed: int, smi: str) -> dict:
         flash_attention,
         reset_launch_counts,
     )
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     frames = torch.randint(0, 256, (16, 360, 640, 3), dtype=torch.uint8, device="cuda",
                            generator=g)
-    rows, total = [], 0
+    rows, total, norms_total = [], 0, 0
     for size in (384, 224):
         cfg = SiglipVisionConfig(image_size=size)
         out, state = {}, None
@@ -1126,6 +1166,7 @@ def phase_siglip_tower(torch, seed: int, smi: str) -> dict:
                 state = init_parameters_(tower, g).state_dict()
             tower.load_state_dict(state)
             reset_launch_counts()
+            add_layer_norm.launches = 0
             with torch.no_grad():
                 out[impl] = tower(preprocess(frames, cfg, torch.bfloat16)).double()
             torch.cuda.synchronize()
@@ -1133,6 +1174,10 @@ def phase_siglip_tower(torch, seed: int, smi: str) -> dict:
             want = {"fwd_pp": cfg.num_layers + 1} if impl == "flash" else {}
             check(launched == want, f"SigLIP {size} px tower on {impl}: launched {launched}, "
                                     f"expected {want}")
+            norms = add_layer_norm.launches
+            check(norms == 2 * cfg.num_layers + 1 == 55,
+                  f"SigLIP {size} px tower on {impl}: {norms} add_layer_norm launches, not 55")
+            norms_total += norms
             n = launched.get("fwd_pp", 0)
             del tower
         cos = torch.nn.functional.cosine_similarity(out["xla"], out["flash"], dim=-1)
@@ -1140,9 +1185,83 @@ def phase_siglip_tower(torch, seed: int, smi: str) -> dict:
         check(cos_min > 0.999, f"SigLIP {size} px tower, kernels vs eager: cos {cos_min}")
         total += n
         rows.append({"image_size": size, "tokens": cfg.num_patches, "frames": len(frames),
-                     "fwd_pp_launches": n, "min_cos_vs_eager": cos_min})
+                     "fwd_pp_launches": n, "add_layer_norm_launches": norms,
+                     "min_cos_vs_eager": cos_min})
     print("[siglip_tower] " + json.dumps(rows) + f" [{smi}]")
-    return {"launches": total}
+    return {"launches": total, "add_layer_norm_launches": norms_total}
+
+
+def _ln_within(got, want) -> bool:
+    """An ``add_layer_norm`` output ``got`` against the plain version's
+    ``want``: within one bf16 ulp (of the larger of the two) plus 1e-6 of
+    the largest |want|, the float32 gap of the LayerNorm's two sums in
+    another order, which shows where the bias cancels w * x_hat. In float32
+    the ulp term is below the gap; the card test holds float32 out to the
+    gap alone."""
+    import torch
+
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return bool(((got - want).abs() <= ulp + 1e-6 * want.abs().max()).all())
+
+
+def phase_add_layer_norm(torch, seed: int, smi: str, shape=ADD_LN_SHAPE,
+                         checked=ADD_LN_CHECKED) -> dict:
+    """``add_layer_norm`` against its plain version at the shapes the towers
+    pass (``checked``: CLIP B's 768 and SigLIP's 1152, each with no delta,
+    as at every tower's first LayerNorm, and with a bf16 residual branch,
+    bf16 out): x_out bit for bit and h within ``_ln_within``. Then at
+    ``shape`` (bf16 branch and out) its device time beside its 12
+    B-an-element bound and the three PyTorch passes it replaced (the plain
+    version: the add, the LayerNorm, the cast). Returns the timed row, with
+    the largest error over every checked shape."""
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import (
+        add_layer_norm,
+        add_layer_norm_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+
+    def inputs(rows, hidden, delta):
+        ln = torch.nn.LayerNorm(hidden, eps=1e-6).cuda()
+        ln.weight.normal_(1.0, 0.2, generator=g)
+        ln.bias.normal_(0.0, 0.2, generator=g)
+        x = torch.randn((rows, hidden), device="cuda", generator=g)
+        d = torch.randn((rows, hidden), device="cuda", generator=g).bfloat16() if delta else None
+        return x, d, ln
+
+    errs = []
+    with torch.no_grad():
+        for rows, hidden in (*checked, shape):
+            for delta in (False, True):
+                x, d, ln = inputs(rows, hidden, delta)
+                before = add_layer_norm.launches
+                got_x, got_h = add_layer_norm(x, d, ln, torch.bfloat16)
+                want_x, want_h = add_layer_norm_reference(x, d, ln, torch.bfloat16)
+                torch.cuda.synchronize()
+                what = f"add_layer_norm ({rows}, {hidden}) {'bf16' if delta else 'no'} delta"
+                check(add_layer_norm.launches == before + 1, f"{what}: not launched")
+                check(torch.equal(got_x, want_x) and (delta or got_x is x),
+                      f"{what}: x_out not bitwise the plain add")
+                err = (got_h.float() - want_h.float()).abs().max().item()
+                check(_ln_within(got_h, want_h), f"{what}: h off by more than one bf16 ulp "
+                                                 f"plus the float32 gap ({err})")
+                errs.append(err)
+                del got_x, got_h, want_x, want_h
+        rows, hidden = shape
+        run = lambda: add_layer_norm(x, d, ln, torch.bfloat16)
+        plain = lambda: add_layer_norm_reference(x, d, ln, torch.bfloat16)
+        moved = rows * hidden * (4 + 2 + 4 + 2)
+        row = {"shape": list(shape), "out": "bfloat16", "delta": "bfloat16",
+               "checked": [list(c) for c in (*checked, shape)], "max_abs_err": max(errs),
+               "ms": device_ms(torch, run, names=("add_layer_norm_kernel",), per_call=1),
+               "plain_ms": device_ms(torch, plain),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    row["roofline"] = row["bound_ms"] / row["ms"]
+    row["achieved_GB_per_s"] = moved / (row["ms"] * 1e-3) / 1e9
+    print("[add_layer_norm] " + json.dumps(row) + f" [{smi}]")
+    return row
 
 
 def _clips(rng, lengths, d: int, classes: int, tag: str) -> list[dict]:
@@ -1557,6 +1676,7 @@ def phase_student(torch, seed: int, smi: str) -> tuple[dict, object]:
 
     from vimoclip_tpu_torch.data.pipeline import to_device
     from vimoclip_tpu_torch.ops.kernels import flash_attention as fa
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
     from vimoclip_tpu_torch.ops.kernels.normalize import fused_normalize
 
     rng = np.random.default_rng(seed + 3)
@@ -1570,11 +1690,12 @@ def phase_student(torch, seed: int, smi: str) -> tuple[dict, object]:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     fused_normalize.launches = 0
+    add_layer_norm.launches = 0
     t0 = time.perf_counter()
     best = mn.train()
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    mn_launches = fused_normalize.launches
+    mn_launches, mn_norms = fused_normalize.launches, add_layer_norm.launches
     peak_bytes = torch.cuda.max_memory_allocated()
     n_train, n_val = len(mn.train_loader), len(mn.val_loader)
     check((n_train, n_val) == (6, 2), f"MN batches {n_train} train, {n_val} val")
@@ -1583,6 +1704,11 @@ def phase_student(torch, seed: int, smi: str) -> tuple[dict, object]:
           "(one per train step and per eval batch)")
     check(sum(fa.flash_attention.launches.values()) == 0,
           "the student's eager attention launched a flash kernel")
+    # ViT-B/32's 12 blocks x 2 LayerNorms a tower call, one call a train
+    # step (autograd recording) and one an eval batch
+    check(mn_norms == 24 * (n_train + n_val),
+          f"add_layer_norm launched {mn_norms} times in the MN epoch, expected "
+          f"{24 * (n_train + n_val)} (24 per train step and per eval batch)")
     check(np.isfinite(best), f"MN best val loss {best}")
 
     # the AK recipe: 360x640 frames take the resize branch, so no K5
@@ -1633,7 +1759,8 @@ def phase_student(torch, seed: int, smi: str) -> tuple[dict, object]:
     del accum
 
     stats = {
-        "mn_k5_launches": mn_launches, "mn_epoch_s": epoch_s, "mn_best_val": best,
+        "mn_k5_launches": mn_launches, "mn_add_layer_norm_launches": mn_norms,
+        "mn_epoch_s": epoch_s, "mn_best_val": best,
         "ak_k5_launches": ak_launches, "ak_train": ak_train, "fit_losses": fit,
         "warm_step_ms": step_ms, "segments_per_s": 8 / (step_ms / 1e3),
         "frames_per_s": 8 * (STUDENT_SEQ - 1) / (step_ms / 1e3), "peak_mem_bytes": peak_bytes,
@@ -3765,6 +3892,7 @@ def main() -> int:
     tower_k1 = phase_tower_k1(torch, args.seed, smi)
     stats = phase_main_path(torch, args.seed, smi)
     siglip = phase_siglip_tower(torch, args.seed, smi)
+    ln = phase_add_layer_norm(torch, args.seed, smi)
     setup = training_setup(torch, args.seed)
     train_rows = phase_training_kernels(torch, args.seed, smi, setup["main_shapes"])
     train = phase_training(torch, setup, smi)
@@ -3874,6 +4002,18 @@ def main() -> int:
         "launches": k5_launches, "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None,
+    })
+    # the fused residual add + LayerNorm + cast replaces no TPU kernel (XLA
+    # fuses it there); its launches on the CLIP cascade's request, the SigLIP
+    # towers and the student's MN epoch
+    kernels.append({
+        "name": "add_layer_norm", "route": "cuda",
+        "source": "vimoclip_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+        "launches": (stats["add_layer_norm_launches"] + siglip["add_layer_norm_launches"]
+                     + student["mn_add_layer_norm_launches"]),
+        "max_abs_err": ln["max_abs_err"],
+        "ms": ln["ms"], "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
+        "bound_by": ln["bound_by"], "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -160,10 +160,12 @@ def test_siglip_tower_on_the_kernels_matches_eager(cuda):
     # the So400m/14 tower at its published widths, bf16: every block's
     # attention and the head's on K1 against the eager path, same weights;
     # the two round the attention's probabilities differently (bf16 p in
-    # K1), so the embeddings agree to bf16 rounding through 27 blocks
+    # K1), so the embeddings agree to bf16 rounding through 27 blocks; on
+    # both paths every LayerNorm but the head's is one add_layer_norm launch
     from vimoclip_tpu_torch.models import init_parameters_
     from vimoclip_tpu_torch.models.siglip_vit import SiglipVisionConfig
     from vimoclip_tpu_torch.models.towers import preprocess, vision_tower
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
 
     g = torch.Generator(device=cuda).manual_seed(0)
     frames = torch.randint(0, 256, (4, 360, 640, 3), dtype=torch.uint8, device=cuda,
@@ -176,13 +178,14 @@ def test_siglip_tower_on_the_kernels_matches_eager(cuda):
         if state is None:
             state = init_parameters_(tower, g).state_dict()
         tower.load_state_dict(state)
-        before = dict(flash_attention.launches)
+        before, norms = dict(flash_attention.launches), add_layer_norm.launches
         with torch.no_grad():
             out[impl] = tower(preprocess(frames, cfg, torch.bfloat16)).double()
         launched = {k: n - before[k] for k, n in flash_attention.launches.items()
                     if n != before[k]}
         # every block's attention and the head's one query on fwd_pp_wgmma_kernel
         assert launched == ({"fwd_pp": cfg.num_layers + 1} if impl == "flash" else {})
+        assert add_layer_norm.launches - norms == 2 * cfg.num_layers + 1 == 55
     cos = torch.nn.functional.cosine_similarity(out["xla"], out["flash"], dim=-1)
     assert cos.min().item() > 0.999, cos
 
@@ -1307,3 +1310,198 @@ def _ring_against_one_call(cuda, n, t, d):
     assert (ring.float() - one.float()).abs().max().item() <= 1e-2
     for a, b in zip(got, want):
         assert ((a.float() - b.float()).norm() / b.float().norm()).item() <= 5e-3
+
+
+# add_layer_norm (csrc/layer_norm.cu) against its plain version: x_out bit
+# for bit (one float32 add both); h differs by the order of the LayerNorm's
+# two sums alone: a float32 h by ~8 float32 ulps of the largest |h| at most,
+# and a bf16 h by that gap plus one bf16 ulp (the two float32 values each
+# rounded once). The gap matters where the bias cancels w * (x - mean) *
+# rstd: near zero a bf16 ulp is far below the float32 rounding of the
+# normalised values
+LN_F32_TOL = 1e-6
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each value of ``t``: 2^(e - 8) for |t| in
+    [2^(e-1), 2^e)."""
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32),
+                       torch.frexp(t.float()).exponent - 8)
+
+
+def _bf16_within(got, want):
+    """|got - want| within one bf16 ulp of the larger of the two, plus the
+    float32 gap."""
+    got, want = got.float(), want.float()
+    ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    return (got - want).abs() <= ulp + LN_F32_TOL * want.abs().max()
+
+
+def _ln_inputs(cuda, shape, delta, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hidden = shape[-1]
+    ln = torch.nn.LayerNorm(hidden, eps=1e-6)
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.2 * torch.randn(hidden, generator=g))
+        ln.bias.copy_(0.2 * torch.randn(hidden, generator=g))
+    x = (3 * torch.randn(shape, generator=g) + 1).to(cuda)
+    d = None if delta is None else torch.randn(shape, generator=g).to(cuda, delta)
+    return x, d, ln.to(cuda)
+
+
+@pytest.mark.parametrize("hidden", [768, 1152, 64, 36])
+@pytest.mark.parametrize("shape", [(1037,), (3, 729)], ids=["1037_rows", "3x729"])
+@pytest.mark.parametrize("delta", [None, torch.bfloat16, torch.float32],
+                         ids=["no_delta", "bf16_delta", "f32_delta"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16_out", "f32_out"])
+def test_add_layer_norm_matches_plain(cuda, hidden, shape, delta, out):
+    """Hidden sizes of CLIP B (768), SigLIP (1152), the tiny towers (64) and
+    a row that leaves lanes idle (36); row counts that are no multiple of
+    the CTA's 8 warps."""
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm, add_layer_norm_reference
+
+    x, d, ln = _ln_inputs(cuda, (*shape, hidden), delta, seed=hidden)
+    before = add_layer_norm.launches
+    with torch.no_grad():
+        got_x, got_h = add_layer_norm(x, d, ln, out)
+        want_x, want_h = add_layer_norm_reference(x, d, ln, out)
+    torch.cuda.synchronize()
+    assert add_layer_norm.launches == before + 1
+    assert got_h.dtype == out and got_h.shape == x.shape
+    assert torch.equal(got_x, want_x) and (d is not None or got_x is x)
+    err = (got_h.float() - want_h.float()).abs()
+    if out == torch.bfloat16:
+        assert _bf16_within(got_h, want_h).all(), err.max().item()
+    else:
+        assert err.max().item() <= LN_F32_TOL * want_h.abs().max().item()
+
+
+def test_add_layer_norm_refuses_what_it_does_not_take(cuda):
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
+
+    x, d, ln = _ln_inputs(cuda, (16, 768), torch.bfloat16)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="aligned"):
+            add_layer_norm(x.view(-1)[1:1 + 15 * 768].view(15, 768), d[:15], ln,
+                           torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            add_layer_norm(torch.randn(4, 2052, device=cuda), None,
+                           torch.nn.LayerNorm(2052).to(cuda), torch.bfloat16)
+        with pytest.raises(ValueError, match="contiguous"):
+            add_layer_norm(x, d.t().contiguous().t(), ln, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hidden", [768, 1152])
+@pytest.mark.parametrize("delta", [None, torch.bfloat16], ids=["no_delta", "bf16_delta"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=["bf16_out", "f32_out"])
+def test_add_layer_norm_stats_and_gradients_match_plain(cuda, hidden, delta, out):
+    """Where autograd records, the kernel also writes each row's mean and
+    rstd (within 1e-6 of PyTorch's), and the backward on them gives the
+    plain version's gradients of x, delta, weight and bias, to the order
+    of the sums."""
+    from vimoclip_tpu_torch.ops.kernels import layer_norm as fused
+
+    x, d, ln = _ln_inputs(cuda, (1037, hidden), delta, seed=hidden + 1)
+    _, _, mean, rstd = fused._launch(x, d, ln.weight, ln.bias, ln.eps, out, stats=True)
+    x_out = x if d is None else x + d
+    _, want_mean, want_rstd = torch.ops.aten.native_layer_norm(x_out, [hidden], ln.weight,
+                                                                ln.bias, ln.eps)
+    assert mean.shape == want_mean.shape == (1037, 1)
+    assert (mean - want_mean).abs().max().item() <= 1e-6 * want_mean.abs().max().item()
+    assert ((rstd - want_rstd).abs() <= 1e-6 * want_rstd.abs()).all()
+    x.requires_grad_()
+    if d is not None:
+        d.requires_grad_()
+    g = torch.Generator(device=cuda).manual_seed(hidden)
+    gx, gh = torch.randn((2, 1037, hidden), device=cuda, generator=g)
+    got = []
+    for fn in (fused.add_layer_norm, fused.add_layer_norm_reference):
+        for t in (x, d, ln.weight, ln.bias):
+            if t is not None:
+                t.grad = None
+        before = fused.add_layer_norm.launches
+        x_out, h = fn(x, d, ln, out)
+        ((x_out * gx).sum() + (h.float() * gh).sum()).backward()
+        got.append((fused.add_layer_norm.launches - before,
+                    [t.grad for t in (x, d, ln.weight, ln.bias) if t is not None]))
+    assert [n for n, _ in got] == [1, 0]
+    for a, b in zip(got[0][1], got[1][1]):
+        assert a.dtype == b.dtype
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-5, rel
+
+
+def _tower_both_ways(tower, pixels, **kw):
+    """One inference call and one training step (loss, backward) of
+    ``tower``: the outputs, each parameter's gradient, and the
+    add_layer_norm launches of each."""
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
+
+    tower.zero_grad(set_to_none=True)
+    before = add_layer_norm.launches
+    with torch.no_grad():
+        out = tower(pixels, **kw)
+    inference = add_layer_norm.launches - before
+    before = add_layer_norm.launches
+    loss = tower(pixels)
+    loss.float().square().sum().backward()
+    torch.cuda.synchronize()
+    grads = torch.cat([p.grad.double().flatten() for p in tower.parameters()])
+    return out, grads, (inference, add_layer_norm.launches - before)
+
+
+@pytest.mark.parametrize("merge", [0, 16], ids=["no_merge", "tome"])
+def test_clip_tower_on_add_layer_norm_matches_its_plain_path(cuda, merge, monkeypatch):
+    """ViT-B/16 at full width, float32 (merges then agree on both paths):
+    24 add_layer_norm launches a tower call, with ToMe too, in inference
+    and where autograd records (the student's training); outputs and
+    gradients against the plain version swapped in for the kernel."""
+    import dataclasses
+
+    from vimoclip_tpu_torch.models import clip_vit, init_parameters_
+    from vimoclip_tpu_torch.models.clip_vit import ClipVisionConfig, ClipVisionEncoder
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm_reference
+
+    cfg = dataclasses.replace(ClipVisionConfig.vit_b_16(), token_merge_r=merge)
+    g = torch.Generator().manual_seed(0)
+    enc = init_parameters_(ClipVisionEncoder(cfg), g).to(cuda).eval()
+    pixels = torch.randn(8, 224, 224, 3, generator=g).to(cuda)
+    (got, hidden), grads, launches = _tower_both_ways(enc, pixels, return_hidden=True)
+    assert launches == (2 * cfg.num_layers,) * 2 == (24, 24)
+    monkeypatch.setattr(clip_vit, "add_layer_norm", add_layer_norm_reference)
+    (want, want_hidden), want_grads, launches = _tower_both_ways(enc, pixels,
+                                                                 return_hidden=True)
+    assert launches == (0, 0)
+    assert hidden.shape == want_hidden.shape
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1)
+    assert cos.min().item() >= 0.9999, cos
+    assert grads.isfinite().all()
+    rel = ((grads - want_grads).norm() / want_grads.norm()).item()
+    assert rel <= 1e-3, rel
+
+
+def test_siglip_tower_on_add_layer_norm_matches_its_plain_path(cuda, monkeypatch):
+    """The So400m/14 tower at 384 px in bf16 on its default route: 55
+    kernel launches a tower call in inference and where autograd records;
+    per-frame cosine >= 0.9999 through 27 blocks, and the gradients'
+    cosine >= 0.999, against the plain version swapped in for the
+    kernel."""
+    from vimoclip_tpu_torch.models import init_parameters_, siglip_vit
+    from vimoclip_tpu_torch.models.siglip_vit import SiglipVisionConfig
+    from vimoclip_tpu_torch.models.towers import vision_tower
+    from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm_reference
+
+    cfg = SiglipVisionConfig()
+    g = torch.Generator().manual_seed(1)
+    tower = init_parameters_(vision_tower(cfg, torch.bfloat16), g).to(cuda).eval()
+    pixels = torch.rand(4, 384, 384, 3, generator=g).to(cuda, torch.bfloat16) * 2 - 1
+    got, grads, launches = _tower_both_ways(tower, pixels)
+    assert launches == (55, 55)
+    monkeypatch.setattr(siglip_vit, "add_layer_norm", add_layer_norm_reference)
+    want, want_grads, launches = _tower_both_ways(tower, pixels)
+    assert launches == (0, 0)
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1)
+    assert cos.min().item() >= 0.9999, cos
+    assert grads.isfinite().all()
+    grad_cos = torch.nn.functional.cosine_similarity(grads, want_grads, dim=0).item()
+    assert grad_cos >= 0.999, grad_cos

@@ -160,9 +160,10 @@ def build(names: list[str]) -> dict[str, dict[str, Path]]:
     return libs
 
 
-def ptxas_report(log: str) -> dict[str, list[int]]:
-    """``-Xptxas -v``'s registers and spill-store bytes of each wgmma or TF32
-    kernel instantiation in an nvcc log, by demangled name."""
+def ptxas_report(log: str, kinds: tuple[str, ...] = ("wgmma", "tf32")) -> dict[str, list[int]]:
+    """``-Xptxas -v``'s registers and spill-store bytes of each kernel
+    instantiation in an nvcc log whose mangled name holds one of ``kinds``
+    (the wgmma and TF32 kernels by default), by demangled name."""
     import re
     import shutil
 
@@ -170,7 +171,7 @@ def ptxas_report(log: str) -> dict[str, list[int]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) if ("wgmma" in m.group(1) or "tf32" in m.group(1)) else None
+            name = m.group(1) if any(k in m.group(1) for k in kinds) else None
         elif name and "spill stores" in line:
             out[name] = [0, int(re.search(r"(\d+) bytes spill stores", line).group(1))]
         elif name and "Used" in line and name in out:

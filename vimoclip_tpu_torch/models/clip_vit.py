@@ -13,7 +13,12 @@ with ``strict=True``.
 The public input is NHWC, as in JAX. Patchify is a reshape plus one matmul
 (no cuDNN convolution, so no TF32 rounding of float32 inputs). Linear layers
 run in the compute ``dtype`` and LayerNorms in float32, mirroring flax's
-type promotion: the residual stream is float32.
+type promotion: the residual stream is float32. Each block's LayerNorms
+take the residual add before them (``ops/kernels/layer_norm.py::
+add_layer_norm``, one kernel on a card in inference) and write the dtype of
+the linears after them (``norm_dtype``); a block hands its MLP output to
+the next block's first LayerNorm, and the last one's, or one before a
+merge, is added on its own.
 
 Two opt-in approximations, off by default (``fidelity.py`` measures them):
 ``matmul_quant="int8"`` runs the blocks' attention projections and both MLP
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
+from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
 from vimoclip_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
 from vimoclip_tpu_torch.ops.quant import make_dense
 from vimoclip_tpu_torch.ops.tome import bipartite_merge, merge_schedule
@@ -85,6 +91,13 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
 
 
+def norm_dtype(matmul_quant: str | None, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a block's LayerNorms write for the linears after them: the
+    compute dtype, which plain linears cast to anyway; float32 for int8
+    ones, which quantise their input as it comes."""
+    return torch.float32 if matmul_quant == "int8" else dtype
+
+
 class _MLP(nn.Module):
     def __init__(self, cfg: ClipVisionConfig):
         super().__init__()
@@ -118,12 +131,17 @@ class ClipEncoderLayer(nn.Module):
         )
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg)
+        self.norm_dtype = norm_dtype(cfg.matmul_quant, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x, self.ln_1))
-        h = dense(layer_norm(x, self.ln_2), self.mlp.c_fc, self.dtype)
-        h = dense(self.act(h), self.mlp.c_proj, self.dtype)
-        return x + h
+    def forward(self, x: torch.Tensor, delta: torch.Tensor | None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(residual stream, the last block's pending MLP output or None) ->
+        (the stream after this block's attention, this block's MLP output):
+        each residual add is fused into the LayerNorm that follows it."""
+        x, h = add_layer_norm(x, delta, self.ln_1, self.norm_dtype)
+        x, h = add_layer_norm(x, self.attn(h), self.ln_2, self.norm_dtype)
+        h = dense(h, self.mlp.c_fc, self.dtype)
+        return x, dense(self.act(h), self.mlp.c_proj, self.dtype)
 
 
 class ClipVisionEncoder(nn.Module):
@@ -169,10 +187,13 @@ class ClipVisionEncoder(nn.Module):
         if cfg.token_merge_r:
             schedule = merge_schedule(cfg.num_patches + 1, cfg.num_layers, cfg.token_merge_r)
             sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+        delta = None
         for i, block in enumerate(self.transformer.resblocks):
-            x = block(x)
+            x, delta = block(x, delta)
             if i < cfg.num_layers - 1 and schedule[i]:
+                x, delta = x + delta, None
                 x, sizes = bipartite_merge(x, sizes, schedule[i])
+        x = x + delta
         pooled = layer_norm(x[:, 0, :], self.ln_post)
         embeds = pooled.to(dt) @ self.proj.to(dt)
         if return_hidden:

@@ -18,8 +18,12 @@ prefix, but for the blocks' separate q/k/v projections, packed here into
 
 As ``ClipVisionEncoder``: the public input is NHWC, patchify is a reshape
 plus one matmul, linear layers run in the compute ``dtype`` and LayerNorms
-in float32, so the residual stream is float32. ``matmul_quant="int8"`` runs
-the blocks' attention projections and both MLP linears in dynamic int8
+in float32, so the residual stream is float32. As there, the blocks'
+LayerNorms and the post-LN take the residual add before them
+(``ops/kernels/layer_norm.py::add_layer_norm``, one kernel on a card in
+inference) and write the dtype of the linears after them; the post-LN
+takes the last block's MLP output. ``matmul_quant="int8"`` runs the
+blocks' attention projections and both MLP linears in dynamic int8
 (``ops/quant.py``); the patch embedding and the head stay in ``dtype``.
 Token merging (ToMe) is not implemented for this tower.
 
@@ -36,8 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vimoclip_tpu_torch.models.clip_vit import layer_norm
+from vimoclip_tpu_torch.models.clip_vit import layer_norm, norm_dtype
 from vimoclip_tpu_torch.ops.attention import MultiHeadAttention, dense
+from vimoclip_tpu_torch.ops.kernels.layer_norm import add_layer_norm
 from vimoclip_tpu_torch.ops.quant import make_dense
 from vimoclip_tpu_torch.utils.profiling import annotate
 
@@ -110,10 +115,16 @@ class SiglipEncoderLayer(nn.Module):
             quant=cfg.matmul_quant, span="vimo.tower.attn")
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg, cfg.matmul_quant)
+        self.norm_dtype = norm_dtype(cfg.matmul_quant, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(layer_norm(x, self.layer_norm1))
-        return x + self.mlp.run(layer_norm(x, self.layer_norm2), self.dtype)
+    def forward(self, x: torch.Tensor, delta: torch.Tensor | None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(residual stream, the last block's pending MLP output or None) ->
+        (the stream after this block's attention, this block's MLP output):
+        each residual add is fused into the LayerNorm that follows it."""
+        x, h = add_layer_norm(x, delta, self.layer_norm1, self.norm_dtype)
+        x, h = add_layer_norm(x, self.self_attn(h), self.layer_norm2, self.norm_dtype)
+        return x, self.mlp.run(h, self.dtype)
 
 
 class _Encoder(nn.Module):
@@ -137,7 +148,7 @@ class SiglipAttentionPoolingHead(nn.Module):
         self.mlp = _MLP(cfg, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, N, E) post-LN tokens -> (B, E) float32."""
+        """(B, N, E) post-LN tokens (any float dtype) -> (B, E) float32."""
         with annotate("vimo.tower.head"):
             probe = self.probe.expand(x.shape[0], 1, -1)
             h = self.attention(probe, kv=x).float()
@@ -182,6 +193,8 @@ class SiglipVisionEncoder(nn.Module):
                 f"got {tuple(pixels.shape[1:])}"
             )
         x = self.patchify(pixels).float() + self.embeddings.position_embedding.weight.float()
+        delta = None
         for block in self.encoder.layers:
-            x = block(x)
-        return self.head(layer_norm(x, self.post_layernorm)).to(self.dtype)
+            x, delta = block(x, delta)
+        _, h = add_layer_norm(x, delta, self.post_layernorm, self.dtype)
+        return self.head(h).to(self.dtype)
